@@ -1,0 +1,21 @@
+"""gome_tpu_torch — the matching engine on PyTorch and CUDA.
+
+A port of `gome_tpu` (JAX/Pallas on a TPU) to PyTorch on an NVIDIA Hopper
+card. Module names mirror `gome_tpu`'s, so each counterpart is easy to
+find; the package imports nothing of `gome_tpu` or JAX.
+
+Layout:
+  gome_tpu_torch.types    — domain types (Side, Action, Order, MatchResult)
+  gome_tpu_torch.fixed    — fixed-point scaling
+  gome_tpu_torch.oracle   — pure-Python executable model of the semantics
+  gome_tpu_torch.engine   — torch book state, the step, BatchEngine and
+                            the MatchEngine facade
+  gome_tpu_torch.ops      — the hand-written CUDA match-step kernel and its
+                            plain PyTorch version
+  gome_tpu_torch.utils    — synthetic order streams
+
+Entry points run on the CUDA card unless the caller passes
+``device="cpu"``; CPU tensors take the kernels' plain versions.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,860 @@
+"""Batched execution: the host packs a micro-batch of orders into an [R, T]
+op grid (R symbol rows, T time slots, NOP-padded) and the device applies all
+of it in one kernel launch.
+
+The port of ``gome_tpu/engine/batch.py`` (its object and columnar paths).
+Two invariants make one grid exactly equivalent to sequential processing:
+
+  * same-symbol operations never split across rows and keep arrival order
+    within the row (the reference's correctness-by-single-threadedness);
+  * symbols share nothing, so cross-symbol interleaving is irrelevant to
+    book state — the host re-sorts decoded events by arrival index.
+
+Fixed device budgets (book capacity, K fill records) never cost exactness:
+the engine keeps the pre-grid books and, when a budget trips, grows the
+slot axis and re-runs the whole grid, or re-runs one row with a larger
+record budget, before decoding.
+
+Every device update builds new tensors; nothing is written in place. The
+pre-grid books (escalation replay) and the checkpoint (rollback of a raised
+batch) rely on that.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..ops import match_step
+from ..types import Action, MatchResult, Order, OrderType
+from .book import (
+    BUY,
+    BookConfig,
+    BookState,
+    DeviceOp,
+    StepOutput,
+    _host,
+    grow_books,
+    grow_lanes,
+    init_books,
+    numpy_dtype,
+    resolve_device,
+    torch_dtype,
+)
+from .host import Interner, OpContext, decode_events, encode_op
+from .step import ACTION_ADD, LOT_MAX32
+
+#: Element budget of one dense grid's [R, T, K] record tensors: deep dense
+#: grids trade rows for depth under it.
+_REC_ELEM_BUDGET = 1 << 24
+
+
+def _nop_grid(config: BookConfig, n_rows: int, t: int) -> dict[str, np.ndarray]:
+    i32 = lambda: np.zeros((n_rows, t), np.int32)
+    val = lambda: np.zeros((n_rows, t), numpy_dtype(config.dtype))
+    return dict(
+        action=i32(), side=i32(), is_market=i32(),
+        price=val(), volume=val(), oid=val(), uid=val(),
+    )
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def _guard_capped(outs: StepOutput, pre_counts, cap: int,
+                  ops: DeviceOp) -> StepOutput:
+    """Flag rows whose PRE-grid resting count exceeds the grid's cap: their
+    books cannot be represented at this width, so the grid's result for
+    them is not trustworthy. Folding the flag into book_overflow reuses the
+    cap escalation. Rows with no real op are exempt (NOPs never touch
+    slots)."""
+    touched = (ops.action != 0).any(dim=-1)
+    bad = touched & (pre_counts.max(dim=-1).values > cap)
+    return outs._replace(
+        book_overflow=torch.maximum(
+            outs.book_overflow, bad.to(outs.book_overflow.dtype)[:, None]
+        )
+    )
+
+
+def _rows_mask(valid: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    return valid.view(-1, *([1] * (a.dim() - 1)))
+
+
+def _gather_rows(books: BookState, lane_ids: torch.Tensor) -> BookState:
+    """Dense gather: row r takes lane lane_ids[r]; sentinel ids (>= S) get
+    zero books."""
+    valid = lane_ids < books.count.shape[0]
+    idx = torch.where(valid, lane_ids, torch.zeros_like(lane_ids))
+    return BookState(
+        *(
+            torch.where(_rows_mask(valid, a), a[idx], torch.zeros_like(a[idx]))
+            for a in books
+        )
+    )
+
+
+def _scatter_rows(books: BookState, lane_ids: torch.Tensor,
+                  sub: BookState) -> BookState:
+    """Dense scatter into a copy of ``books``; sentinel rows are dropped."""
+    valid = lane_ids < books.count.shape[0]
+    ids = lane_ids[valid]
+
+    def put(a, s):
+        out = a.clone()
+        out[ids] = s[valid]
+        return out
+
+    return BookState(*(put(a, s) for a, s in zip(books, sub)))
+
+
+def splice_outs(outs: StepOutput, overrides: dict):
+    """The ``outs_at(field, rows, ts)`` accessor decode_grid_columnar needs:
+    reads StepOutput columns at packed (row, t) coordinates (gathered on the
+    device, so only the packed ops cross to the host) and splices in
+    per-row escalation re-runs (each with its own record budget K', padded
+    to align)."""
+
+    def outs_at(field, rows, ts):
+        a = getattr(outs, field)
+        base = _host(a[torch.as_tensor(rows, device=a.device),
+                       torch.as_tensor(ts, device=a.device)])
+        for row, src in overrides.items():
+            m = rows == row
+            if not m.any():
+                continue
+            ov = np.asarray(getattr(src, field))[ts[m]]
+            if base.ndim > 1:
+                k_base, k_ov = base.shape[1], ov.shape[1]
+                if k_ov > k_base:
+                    base = np.pad(base, [(0, 0), (0, k_ov - k_base)])
+                elif k_ov < k_base:
+                    ov = np.pad(ov, [(0, 0), (0, k_base - k_ov)])
+            base[m] = ov
+        return base
+
+    return outs_at
+
+
+class CapacityError(RuntimeError):
+    """A configured growth ceiling (max_slots / max_cap) was hit. The book
+    state is unchanged for the batch that tripped it."""
+
+
+class BookInvariantError(RuntimeError):
+    """verify_books found book state violating a structural invariant."""
+
+
+@dataclasses.dataclass
+class EngineStats:
+    """Host-side engine counters. Escalations are exact-but-slow events:
+    frequent cap growth means the configured geometry is undersized."""
+
+    orders: int = 0
+    fills: int = 0
+    cancels: int = 0
+    cancels_missed: int = 0
+    dropped_no_prepool: int = 0  # incremented by the orchestrator facade
+    device_calls: int = 0  # match-step kernel launches
+    cap_escalations: int = 0
+    fill_record_escalations: int = 0
+    lane_growths: int = 0
+
+
+class BatchEngine:
+    """The host side of the batched device engine.
+
+    Owns the device-resident [S] book stack, the symbol->lane mapping and
+    the id interners; packs order lists into op grids and decodes
+    StepOutputs back into the global MatchResult event stream. Orders
+    given here already passed admission (MatchEngine); every ADD hits the
+    book.
+    """
+
+    def __init__(
+        self,
+        config: BookConfig,
+        n_slots: int,
+        max_t: int = 32,
+        auto_grow: bool = True,
+        max_slots: int = 1 << 16,
+        max_cap: int = 1 << 14,
+        dense: bool = True,
+        dense_t_max: int = 1024,
+        device=None,
+    ):
+        """max_slots / max_cap bound auto-grow (symbol lanes / per-side book
+        capacity); growth past a ceiling raises CapacityError.
+
+        dense: let the columnar path pack batches touching few symbols into
+        compact gather/scatter grids over just the live lanes instead of
+        the full [n_slots, max_t] grid; a hot symbol's stream can then run
+        dense_t_max deep per launch. Semantics identical.
+
+        device: where the books live (default: the CUDA card; "cpu" runs
+        the plain PyTorch version)."""
+        if config.cap > max_cap:
+            raise ValueError(f"cap {config.cap} exceeds max_cap {max_cap}")
+        if n_slots > max_slots:
+            raise ValueError(f"n_slots {n_slots} exceeds max_slots {max_slots}")
+        self.device = resolve_device(device)
+        self.config = config
+        self.n_slots = n_slots
+        self.max_t = max_t
+        self.auto_grow = auto_grow
+        self.max_slots = max_slots
+        self.max_cap = max_cap
+        self.dense = dense
+        self.dense_t_max = dense_t_max
+        # Grow-only geometry ratchets keyed by cap: compiled-shape stability
+        # on the reference side; here they keep grid shapes identical to it.
+        self._dense_rows_floor: dict[int, int] = {}
+        self._dense_t_floor: dict[int, int] = {}
+        self.books = init_books(config, n_slots, self.device)
+        self.symbols = Interner()  # lane = interner id - 1
+        self.oids = Interner()
+        self.uids = Interner()
+        self.stats = EngineStats()
+        # Price rebasing (32-bit books only): device prices are stored
+        # relative to a per-lane int64 base, so absolute tick magnitudes are
+        # unbounded while each symbol's ACTIVE window is +-2^31 ticks.
+        # int64 books keep base 0.
+        self._rebase = numpy_dtype(config.dtype).itemsize <= 4
+        self.price_base = np.zeros(n_slots, np.int64)
+        self._base_set = np.zeros(n_slots, bool)
+        # Conservative absolute-price envelope per lane (grows only): the
+        # recenter check proves every price the lane has EVER admitted still
+        # fits the int32 window under a new base, without a device scan.
+        self._env_lo = np.zeros(n_slots, np.int64)
+        self._env_hi = np.zeros(n_slots, np.int64)
+
+    # Admission window around the current base; recenter when exceeded.
+    REBASE_LIMIT = 1 << 30
+    _INT32_SAFE = (1 << 31) - 2
+
+    def _grow_base_arrays(self, new_slots: int) -> None:
+        pad = new_slots - len(self.price_base)
+        self.price_base = np.pad(self.price_base, (0, pad))
+        self._base_set = np.pad(self._base_set, (0, pad))
+        self._env_lo = np.pad(self._env_lo, (0, pad))
+        self._env_hi = np.pad(self._env_hi, (0, pad))
+
+    def _prepare_bases(self, pending, lanes) -> np.ndarray:
+        """Set / recenter per-lane price bases so every ADMITTED price in
+        `pending` is representable on device. Runs before packing.
+
+        Returns a boolean drop mask aligned with `pending`: True marks a DEL
+        whose price is unrepresentable under the lane's base. Only ADD limit
+        prices feed the grow-only envelope — a DEL price is a lookup key,
+        and since every RESTING price fits the window, an unrepresentable
+        DEL provably matches nothing and is dropped host-side as a missed
+        cancel."""
+        n = len(pending)
+        drop = np.zeros(n, bool)
+        if not self._rebase:
+            return drop
+        lo: dict[int, int] = {}
+        hi: dict[int, int] = {}
+        for (_, o), lane in zip(pending, lanes):
+            if o.action is not Action.ADD or o.order_type is OrderType.MARKET:
+                # MARKET prices are ignored (encoded 0); DEL/NOP prices
+                # never admit a resting order.
+                continue
+            p = o.price
+            l = lo.get(lane)
+            if l is None:
+                lo[lane] = hi[lane] = p
+            else:
+                if p < l:
+                    lo[lane] = p
+                elif p > hi[lane]:
+                    hi[lane] = p
+        for lane, l in lo.items():
+            self._admit_lane_range(lane, l, hi[lane])
+        for i, ((_, o), lane) in enumerate(zip(pending, lanes)):
+            if o.action is Action.DEL and (
+                abs(o.price - int(self.price_base[lane])) > self._INT32_SAFE
+            ):
+                drop[i] = True
+        return drop
+
+    def _grid_geometry(self, live: np.ndarray):
+        """When the batch touches few of the provisioned lanes, pack a
+        compact grid over just the live lanes (row -> lane indirection);
+        rows bucket to powers of two (min 8) with sentinel padding rows.
+
+        Returns (use_dense, n_rows, lane_ids, row_of): lane_ids [n_rows]
+        lane ids with sentinel n_slots on padding rows; row_of [n_slots]
+        maps live lane -> row. Both None for full grids."""
+        if not (self.dense and len(live) > 0):
+            return False, self.n_slots, None, None
+        cls = self.config.cap
+        floor = self._dense_rows_floor.get(cls, 8)
+        n_rows = max(8, _next_pow2(len(live)), floor)
+        if n_rows >= self.n_slots:
+            return False, self.n_slots, None, None
+        self._dense_rows_floor[cls] = n_rows
+        lane_ids = np.full(n_rows, self.n_slots, np.int64)
+        lane_ids[: len(live)] = live
+        row_of = np.empty(self.n_slots, np.int64)
+        row_of[live] = np.arange(len(live), dtype=np.int64)
+        return True, n_rows, lane_ids, row_of
+
+    def _admit_lane_range(self, lane: int, l: int, h: int) -> None:
+        """Admit the ADD-limit price range [l, h] into `lane`'s grow-only
+        envelope, seeding or recentering the base as needed. Raises
+        CapacityError — committing NOTHING — when the envelope cannot fit an
+        int32 window."""
+        if not self._base_set[lane]:
+            nb = (l + h) // 2
+            if max(h - nb, nb - l) > self._INT32_SAFE:
+                raise CapacityError(
+                    f"lane {lane}: batch price range [{l}, {h}] spans "
+                    "more than 2^31 ticks — int32 books cannot window "
+                    "it; use coarser ticks or an int64 BookConfig"
+                )
+            self.price_base[lane] = nb
+            self._base_set[lane] = True
+            self._env_lo[lane] = l
+            self._env_hi[lane] = h
+            return
+        el = min(int(self._env_lo[lane]), l)
+        eh = max(int(self._env_hi[lane]), h)
+        b = int(self.price_base[lane])
+        if max(abs(l - b), abs(h - b)) > self.REBASE_LIMIT:
+            nb = (el + eh) // 2
+            if max(eh - nb, nb - el) > self._INT32_SAFE:
+                raise CapacityError(
+                    f"lane {lane}: admitted price range [{el}, {eh}] "
+                    "spans more than 2^31 ticks — int32 books cannot "
+                    "window it; use coarser ticks or an int64 BookConfig"
+                )
+            self._shift_lane_prices(lane, b - nb)
+            self.price_base[lane] = nb
+        # Commit the envelope only after every check passed.
+        self._env_lo[lane] = el
+        self._env_hi[lane] = eh
+
+    def _shift_lane_prices(self, lane: int, delta: int) -> None:
+        """Recenter: stored rebased price -> stored + (old_base - new_base).
+        Inactive slots shift too, harmlessly. Builds a new price tensor: the
+        checkpoint may still hold the old one."""
+        price = self.books.price.clone()
+        price[lane] += delta
+        self.books = self.books._replace(price=price)
+
+    def _lane(self, symbol: str) -> int:
+        lane = self.symbols.intern(symbol) - 1  # Interner ids start at 1
+        if lane >= self.n_slots:
+            if not self.auto_grow:
+                raise CapacityError(
+                    f"symbol {symbol!r} needs lane {lane} but engine has "
+                    f"n_slots={self.n_slots} (auto_grow disabled)"
+                )
+            new_slots = min(max(self.n_slots * 2, lane + 1), self.max_slots)
+            if lane >= new_slots:
+                raise CapacityError(
+                    f"symbol {symbol!r} needs lane {lane} but max_slots="
+                    f"{self.max_slots}; raise max_slots or shard symbols "
+                    "across more engines"
+                )
+            self.books = grow_lanes(self.books, new_slots)
+            self._grow_base_arrays(new_slots)
+            self.n_slots = new_slots
+            self.stats.lane_growths += 1
+        return lane
+
+    def _checkpoint(self):
+        """Everything a failed batch must roll back: the book stack (never
+        written in place, so keeping the reference is enough) plus the
+        host-side rebasing state. Interner growth is not rolled back
+        (grow-only and idempotent)."""
+        return (
+            self.books, self.config, self.n_slots,
+            self.price_base.copy(), self._base_set.copy(),
+            self._env_lo.copy(), self._env_hi.copy(),
+        )
+
+    def _restore(self, cp) -> None:
+        """Copies the host arrays: a checkpoint may be restored twice."""
+        (
+            self.books, self.config, self.n_slots,
+            price_base, base_set, env_lo, env_hi,
+        ) = cp
+        self.price_base = price_base.copy()
+        self._base_set = base_set.copy()
+        self._env_lo = env_lo.copy()
+        self._env_hi = env_hi.copy()
+
+    def process(self, orders: list[Order]) -> list[MatchResult]:
+        """Apply a micro-batch. Symbols with more than max_t ops are drained
+        over several grids (order preserved); returns all events in arrival
+        order. Transactional: a raised batch rolls the engine back to its
+        pre-batch state."""
+        return [
+            ev
+            for _, evs in self.process_indexed(list(enumerate(orders)))
+            for ev in evs
+        ]
+
+    def process_indexed(
+        self, indexed: list[tuple[int, Order]]
+    ) -> list[tuple[int, list[MatchResult]]]:
+        """process() keyed by caller-assigned arrival tags: each input item
+        is (tag, order) and the result is (tag, events) groups sorted by
+        tag. Same transactional rollback as process()."""
+        cp = self._checkpoint()
+        try:
+            return self._process_indexed(indexed)
+        except Exception:
+            self._restore(cp)
+            raise
+
+    def _process_indexed(self, indexed):
+        pending = list(indexed)
+        decoded: list[tuple[int, list[MatchResult]]] = []
+        while pending:
+            pending = self._one_grid(pending, decoded)
+        decoded.sort(key=lambda kv: kv[0])
+        self.stats.orders += len(indexed)
+        for _, evs in decoded:
+            for ev in evs:
+                if ev.is_cancel:
+                    self.stats.cancels += 1
+                else:
+                    self.stats.fills += 1
+        return decoded
+
+    def _pack_grid(self, pending):
+        """Pack a pending (arrival, order) list into one [S, max_t] op grid.
+        Returns (ops, contexts, leftover): contexts maps (lane, t) -> the
+        packed (arrival, order); leftover holds deferred ops from lanes
+        whose time axis filled (FIFO within a symbol is never split)."""
+        lanes = [self._lane(order.symbol) for _, order in pending]
+        drop = self._prepare_bases(pending, lanes)
+        grid = _nop_grid(self.config, self.n_slots, self.max_t)
+        contexts: dict[tuple[int, int], tuple[int, Order]] = {}
+        fill_level: dict[int, int] = {}
+        leftover: list[tuple[int, Order]] = []
+        blocked: set[int] = set()  # lanes whose FIFO order must not be broken
+
+        for (arrival, order), lane, dropped in zip(pending, lanes, drop):
+            if dropped:
+                # Unrepresentable DEL price (see _prepare_bases): provably a
+                # miss; never reaches the device.
+                self.stats.cancels_missed += 1
+                continue
+            t = fill_level.get(lane, 0)
+            if lane in blocked or t >= self.max_t:
+                blocked.add(lane)
+                leftover.append((arrival, order))
+                continue
+            op = encode_op(
+                order,
+                self.oids,
+                self.uids,
+                self.config.dtype,
+                price_base=int(self.price_base[lane]),
+            )
+            for name, arr in grid.items():
+                arr[lane, t] = getattr(op, name)
+            contexts[(lane, t)] = (arrival, order)
+            fill_level[lane] = t + 1
+        return DeviceOp(**grid), contexts, leftover
+
+    def process_columnar(self, orders: list[Order]):
+        """Apply a micro-batch and return events as a columnar EventBatch
+        (engine.events) instead of MatchResult objects. Identical event
+        content and global order to process(); transactional like it."""
+        cp = self._checkpoint()
+        try:
+            return self._process_columnar(orders)
+        except Exception:
+            self._restore(cp)
+            raise
+
+    def _process_columnar(self, orders: list[Order]):
+        from .events import EventBatch, empty_batch
+
+        pending = [(i, o) for i, o in enumerate(orders)]
+        dels = sum(1 for o in orders if o.action is Action.DEL)
+        batches: list[dict] = []  # per-grid column dicts
+        while pending:
+            pending = self._one_grid_columnar(pending, batches)
+        self.stats.orders += len(orders)
+
+        tables = dict(
+            symbols=self.symbols.to_list(),
+            oid_table=self.oids.table,
+            uid_table=self.uids.table,
+        )
+        if not batches:
+            # Nothing reached the device (every op was a dropped
+            # unrepresentable DEL): they are all missed cancels.
+            self.stats.cancels_missed += dels
+            return empty_batch(**tables)
+        cols = {
+            n: np.concatenate([b[n] for b in batches]) for n in batches[0]
+        }
+        # Leftover grids hold deferred ops whose arrivals interleave with
+        # the first grid's: restore the global emission order.
+        order_ix = np.argsort(cols["arrival"], kind="stable")
+        cols = {n: v[order_ix] for n, v in cols.items()}
+        batch = EventBatch(columns=cols, **tables)
+        cancels = int(batch.columns["is_cancel"].sum())
+        self.stats.cancels += cancels
+        self.stats.fills += len(batch) - cancels
+        self.stats.cancels_missed += dels - cancels
+        return batch
+
+    def _pack_grid_vectorized(self, pending):
+        """Columnar-path packing: one Python pass extracts per-op fields into
+        an [N, 7] int table; lane/slot assignment and the grid writes are
+        numpy scatters."""
+        n = len(pending)
+        lanes = np.fromiter(
+            (self._lane(o.symbol) for _, o in pending), np.int64, n
+        )
+        drop = self._prepare_bases(pending, lanes)
+        bases = self.price_base[lanes]  # [N] int64
+        # Slot within the lane = occurrence index (FIFO by construction).
+        # Dropped DELs consume no slot and are neither packed nor deferred.
+        t = np.full(n, -1, np.int64)
+        level: dict[int, int] = {}
+        for i, lane in enumerate(lanes):
+            if drop[i]:
+                continue
+            c = level.get(lane, 0)
+            t[i] = c
+            level[lane] = c + 1
+
+        live = (
+            np.unique(lanes[~drop]) if bool((~drop).any())
+            else np.zeros(0, np.int64)
+        )
+        use_dense, n_rows, lane_ids, row_of = self._grid_geometry(live)
+        if use_dense:
+            row = row_of[lanes]
+            # Depth budgeted against rows (record tensors are [R, T, K]).
+            t_mem = max(
+                self.max_t,
+                _next_pow2(
+                    _REC_ELEM_BUDGET
+                    // max(n_rows * self.config.max_fills, 1)
+                    + 1
+                )
+                // 2,
+            )
+            t_floor = self._dense_t_floor.get(self.config.cap, 8)
+            t_grid = min(
+                max(_next_pow2(max(level.values())), t_floor),
+                max(self.dense_t_max, self.max_t),
+                t_mem,
+            )
+            self._dense_t_floor[self.config.cap] = max(t_floor, t_grid)
+        else:
+            row = lanes
+            t_grid = self.max_t
+        packed = (t >= 0) & (t < t_grid)
+
+        oids, uids = self.oids, self.uids
+        table = np.empty((n, 7), np.int64)
+        for i, (_, o) in enumerate(pending):
+            rec = table[i]
+            rec[0] = int(o.action)
+            rec[1] = int(o.side)
+            rec[2] = o.order_type is OrderType.MARKET
+            rec[3] = o.price
+            rec[4] = o.volume
+            rec[5] = oids.intern(o.oid)
+            rec[6] = uids.intern(o.uuid)
+        adds = packed & (table[:, 0] == int(Action.ADD))
+        bad = adds & (table[:, 4] <= 0)
+        if bad.any():
+            i = int(np.nonzero(bad)[0][0])
+            raise ValueError(
+                f"volume must be positive, got {table[i, 4]} "
+                f"(oid={pending[i][1].oid}); volume<=0 is out of contract"
+            )
+        if numpy_dtype(self.config.dtype).itemsize <= 4:
+            over = adds & (table[:, 4] > LOT_MAX32)
+            if over.any():
+                i = int(np.nonzero(over)[0][0])
+                raise ValueError(
+                    f"volume {table[i, 4]} exceeds the int32-mode per-order "
+                    f"lot ceiling {LOT_MAX32} (oid={pending[i][1].oid}); "
+                    "use coarser lot units or an int64 BookConfig"
+                )
+
+        grid = _nop_grid(self.config, n_rows, t_grid)
+        pl, pt = row[packed], t[packed]
+        for col, name in enumerate(DeviceOp._fields):
+            vals = table[packed, col]
+            if name == "price":
+                # Device sees rebased ticks; MARKET prices are ignored and
+                # encode as 0.
+                vals = np.where(
+                    table[packed, 2] != 0, 0, vals - bases[packed]
+                )
+            grid[name][pl, pt] = vals
+        meta = {
+            "lane": lanes[packed],
+            "row": pl,
+            "t": pt,
+            "arrival": np.fromiter(
+                (a for (a, _), p in zip(pending, packed) if p),
+                np.int64,
+            ),
+            "action": table[packed, 0],
+            "side": table[packed, 1],
+            "is_market": table[packed, 2],
+            "price": table[packed, 3],  # absolute (events carry these)
+            "price_base": bases[packed],
+            "oid_id": table[packed, 5],
+            "uid_id": table[packed, 6],
+        }
+        leftover = [pending[i] for i in np.nonzero(~packed & ~drop)[0]]
+        return DeviceOp(**grid), meta, leftover, lane_ids
+
+    def _one_grid_columnar(self, pending, batches):
+        from .events import decode_grid_columnar
+
+        ops, meta, leftover, lane_ids = self._pack_grid_vectorized(pending)
+        if len(meta["arrival"]) == 0:
+            # Everything dropped (unrepresentable DELs): nothing to run.
+            return leftover
+        contexts = {
+            (int(r), int(tt)): None for r, tt in zip(meta["row"], meta["t"])
+        }
+        outs, lane_overrides = self._run_exact(ops, contexts, lane_ids)
+        batches.append(
+            decode_grid_columnar(meta, splice_outs(outs, lane_overrides))
+        )
+        return leftover
+
+    def _one_grid(self, pending, decoded):
+        ops, contexts, leftover = self._pack_grid(pending)
+        if not contexts:
+            # Everything dropped (unrepresentable DELs): nothing to run.
+            return leftover
+        outs, lane_overrides = self._run_exact(ops, contexts)
+        keys = list(contexts)
+        rows = np.array([lane for lane, _ in keys], np.int64)
+        ts = np.array([t for _, t in keys], np.int64)
+        outs_at = splice_outs(outs, lane_overrides)
+        cols = StepOutput(*(outs_at(f, rows, ts) for f in StepOutput._fields))
+        for i, ((lane, _), (arrival, order)) in enumerate(contexts.items()):
+            events = decode_events(
+                OpContext(order),
+                StepOutput(*(c[i] for c in cols)),
+                self.oids,
+                self.uids,
+                price_base=int(self.price_base[lane]),
+            )
+            if order.action is Action.DEL and not events:
+                self.stats.cancels_missed += 1
+            decoded.append((arrival, events))
+        return leftover
+
+    def _to_device(self, ops: DeviceOp) -> DeviceOp:
+        return DeviceOp(
+            *(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+              for a in ops)
+        )
+
+    def _run_exact(self, ops_np: DeviceOp, contexts, lane_ids=None):
+        """Run one grid, escalating device budgets until nothing overflowed.
+
+        Returns (outs, lane_overrides): the committed [R, T] outputs (on the
+        device) plus, for rows whose fill records were truncated at K, a
+        host [T] StepOutput re-run with a large-enough record budget.
+
+        lane_ids: for a dense grid, the [R] row -> lane mapping (sentinel
+        >= n_slots on padding rows); None for full grids (row == lane)."""
+        books_before = self.books  # never written in place
+        ops = self._to_device(ops_np)
+        ids = None if lane_ids is None else torch.from_numpy(
+            np.asarray(lane_ids, np.int64)
+        ).to(self.device)
+
+        def lane_of(row: int) -> int:
+            return row if lane_ids is None else int(lane_ids[row])
+
+        # Phase 1: book capacity. A tripped `book_overflow` means a resting
+        # insert was dropped — deepen and replay the whole grid from the
+        # pre-grid books (exact: active slots are a prefix). The new cap
+        # targets the host-side bound (resting count plus the ADDs packed
+        # into the row) but grows at most 4x per replay.
+        while True:
+            new_books, outs = self._step(books_before, ops, ids)
+            self.stats.device_calls += 1
+            if not bool(outs.book_overflow.any()):
+                break
+            counts = _host(books_before.count)  # [S, 2]
+            adds_per_row = np.sum(ops_np.action == ACTION_ADD, axis=1)  # [R]
+            if lane_ids is None:
+                row_counts = counts.max(axis=1)
+            else:
+                lid = np.asarray(lane_ids)
+                valid = lid < counts.shape[0]
+                row_counts = np.where(
+                    valid,
+                    counts.max(axis=1)[np.clip(lid, 0, counts.shape[0] - 1)],
+                    0,
+                )
+            bound = int((row_counts + adds_per_row).max())
+            self.stats.cap_escalations += 1
+            new_cap = _next_pow2(
+                max(min(bound, 4 * self.config.cap), self.config.cap + 1)
+            )
+            if new_cap > self.max_cap:
+                raise CapacityError(
+                    f"book cap escalation to {new_cap} exceeds max_cap="
+                    f"{self.max_cap} (a side is holding >{self.config.cap} "
+                    "resting orders); raise max_cap or shed load"
+                )
+            books_before = grow_books(books_before, new_cap)
+            self.config = dataclasses.replace(self.config, cap=new_cap)
+        self.books = new_books
+
+        # Phase 2: fill records. n_fills > K truncated this op's *records*
+        # only — the book transition is exact either way — so re-run just
+        # the affected rows from the pre-grid books with K' >= the fills
+        # observed, through the same kernel on a one-row grid.
+        lane_overrides: dict[int, StepOutput] = {}
+        n_fills = _host(outs.n_fills)
+        overflowed = sorted(
+            {
+                row
+                for (row, t) in contexts
+                if n_fills[row, t] > self.config.max_fills
+            }
+        )
+        for row in overflowed:
+            self.stats.fill_record_escalations += 1
+            k = min(_next_pow2(int(n_fills[row].max())), self.config.cap)
+            big = dataclasses.replace(self.config, max_fills=k)
+            lane = lane_of(row)
+            lane_book = BookState(*(a[lane : lane + 1] for a in books_before))
+            lane_ops = DeviceOp(*(a[row : row + 1] for a in ops))
+            _, lane_out = match_step.batch_step(big, lane_book, lane_ops)
+            self.stats.device_calls += 1
+            lane_overrides[row] = StepOutput(*(_host(a[0]) for a in lane_out))
+        return outs, lane_overrides
+
+    def _step(self, books: BookState, ops: DeviceOp, lane_ids=None):
+        """Run one [R, T] grid through the match step: a full grid (row ==
+        lane) directly; a dense grid gathers its rows' books, steps them and
+        scatters them back into a copy of the stack."""
+        cfg = self.config
+        if lane_ids is None:
+            new_books, outs = match_step.batch_step(cfg, books, ops)
+            return new_books, _guard_capped(outs, books.count, cfg.cap, ops)
+        sub = _gather_rows(books, lane_ids)
+        new_sub, outs = match_step.batch_step(cfg, sub, ops)
+        outs = _guard_capped(outs, sub.count, cfg.cap, ops)
+        return _scatter_rows(books, lane_ids, new_sub), outs
+
+    # -- snapshot support ----------------------------------------------------
+    def export_state(self) -> dict:
+        """Host-side copy of all mutable engine state (books + interners +
+        rebasing) — the same keys, dtypes and shapes as
+        gome_tpu's BatchEngine.export_state()."""
+        return {
+            "books": {k: _host(v) for k, v in self.books._asdict().items()},
+            "symbols": self.symbols.to_list(),
+            "oids": self.oids.to_list(),
+            "uids": self.uids.to_list(),
+            "cap": self.config.cap,
+            "max_fills": self.config.max_fills,
+            "dtype": numpy_dtype(self.config.dtype).name,
+            "n_slots": self.n_slots,
+            "max_t": self.max_t,
+            "price_base": self.price_base.tolist(),
+            "base_set": self._base_set.astype(int).tolist(),
+            "env_lo": self._env_lo.tolist(),
+            "env_hi": self._env_hi.tolist(),
+        }
+
+    def import_state(self, state: dict) -> None:
+        """Restore a state exported by export_state (this engine's or
+        gome_tpu's). Replaces books, interners and rebasing state; stats
+        are not restored."""
+        self.config = dataclasses.replace(
+            self.config,
+            cap=int(state["cap"]),
+            max_fills=int(state["max_fills"]),
+            dtype=torch_dtype(state["dtype"]),
+        )
+        self.n_slots = int(state["n_slots"])
+        self.max_t = int(state["max_t"])
+        b = state["books"]
+        self.books = BookState(
+            *(
+                torch.from_numpy(np.array(b[f])).to(self.device)
+                for f in BookState._fields
+            )
+        )
+        self.symbols = Interner.from_list(list(state["symbols"]))
+        self.oids = Interner.from_list(list(state["oids"]))
+        self.uids = Interner.from_list(list(state["uids"]))
+        self._rebase = numpy_dtype(self.config.dtype).itemsize <= 4
+        self.price_base = np.asarray(state["price_base"], np.int64).copy()
+        self._base_set = np.asarray(state["base_set"], bool).copy()
+        self._env_lo = np.asarray(state["env_lo"], np.int64).copy()
+        self._env_hi = np.asarray(state["env_hi"], np.int64).copy()
+
+    def verify_books(self) -> None:
+        """Check every lane against the book invariants (priority-sorted
+        slots, positive resting lots, zeroed tails, FIFO seq within price
+        levels). Raises BookInvariantError with the offending lane/side."""
+
+        def check(cond, lane, side, what):
+            if not cond:
+                raise BookInvariantError(f"lane {lane} side {side}: {what}")
+
+        price = _host(self.books.price)
+        lots = _host(self.books.lots)
+        seq = _host(self.books.seq)
+        counts = _host(self.books.count)
+        cap = price.shape[-1]
+        for lane in range(counts.shape[0]):
+            for side in (0, 1):
+                n = int(counts[lane, side])
+                check(0 <= n <= cap, lane, side, f"count {n} out of range")
+                p, l, s = (a[lane, side] for a in (price, lots, seq))
+                check(bool((l[:n] > 0).all()), lane, side, "empty slot in prefix")
+                check(bool((l[n:] == 0).all()), lane, side, "lots beyond count")
+                if n > 1:
+                    dp = np.diff(p[:n].astype(np.int64))
+                    ordered = (dp <= 0) if side == BUY else (dp >= 0)
+                    check(bool(ordered.all()), lane, side, "priority order broken")
+                    same = dp == 0
+                    check(
+                        bool((np.diff(s[:n])[same] > 0).all()),
+                        lane, side, "FIFO seq order broken",
+                    )
+
+    # -- views -------------------------------------------------------------
+    def lane_books(self) -> BookState:
+        """Host (numpy) copy of the books with ABSOLUTE prices (per-lane
+        rebasing offsets added back; the price leaf widens to int64 when
+        bases are in play)."""
+        books = BookState(*(_host(a) for a in self.books))
+        if self._rebase and self._base_set.any():
+            price = books.price.astype(np.int64) + self.price_base[:, None, None]
+            books = books._replace(price=price)
+        return books
+
+    def symbol_lane(self, symbol: str) -> int:
+        """Read-only lookup: the lane owning `symbol` (KeyError if unseen)."""
+        i = self.symbols.get(symbol)
+        if i is None:
+            raise KeyError(f"unknown symbol {symbol!r}")
+        return i - 1

@@ -1,0 +1,282 @@
+"""Columnar event batches: the high-throughput decode path.
+
+The port of ``gome_tpu/engine/events.py`` (host-side numpy, copied). The
+object decoder (host.decode_events) builds one MatchResult dataclass per
+fill — exact, but Python-object construction caps end-to-end throughput at
+a few hundred thousand events/sec, far below what the device side sustains
+(gome_tpu_torch.ops.match_step). This module decodes a whole grid's StepOutputs
+into numpy columns in O(vector ops), deferring (or skipping) object
+construction:
+
+  * `EventBatch` — one numpy column per MatchResult field, in the exact
+    reference emission order (arrival order of the taker op; best level
+    first, FIFO within level, within an op — SURVEY §3.4).
+  * `EventBatch.to_results()` — materialize the same `list[MatchResult]`
+    the object decoder produces (used by the compatibility wrapper and the
+    parity tests that pin the two paths together).
+  * `EventBatch.to_json_lines()` — serialize straight from columns in the
+    matchOrder wire shape, never constructing per-event objects.
+
+The reference has no analogue (its event "decode" is `json.Marshal` of one
+Go struct per fill, engine.go:149-158); this layer exists because one host
+process must keep pace with ~10M device fills/sec.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from ..types import Action, MatchResult, Order, OrderType, Side, snapshot_of
+
+_COLUMNS = (
+    # (name, dtype) — int64 columns regardless of book dtype: decode is
+    # host-side, width costs nothing compared to object churn.
+    ("arrival", np.int64),  # arrival index of the taker op in the batch
+    ("is_cancel", np.bool_),
+    ("symbol_id", np.int64),  # engine lane (symbols interner id - 1)
+    ("taker_uid", np.int64),  # interner ids; strings resolved lazily
+    ("taker_oid", np.int64),
+    ("taker_side", np.int8),
+    ("taker_price", np.int64),
+    ("taker_volume", np.int64),  # taker remaining AFTER this fill / cancel
+    ("maker_uid", np.int64),
+    ("maker_oid", np.int64),
+    ("fill_price", np.int64),
+    ("maker_volume", np.int64),  # reference semantics: prefill if fully
+    #                              filled else post-fill remaining
+    ("match_volume", np.int64),  # 0 <=> cancel notice
+    ("is_market", np.bool_),
+)
+
+
+@dataclasses.dataclass
+class EventBatch:
+    """A batch of MatchResult events as parallel numpy columns, plus the
+    interner tables needed to resolve string ids on demand."""
+
+    columns: dict[str, np.ndarray]
+    symbols: list[str]  # lane -> symbol string
+    oid_table: list[str]  # interner id -> oid string ("" at 0)
+    uid_table: list[str]
+    # Matchfeed base sequence number: event i is seq ``seq0 + i``. None on
+    # unstamped batches (older wire format; GCE1 frames).
+    seq0: int | None = None
+
+    def __len__(self) -> int:
+        return len(self.columns["arrival"])
+
+    def to_results(self) -> list[MatchResult]:
+        """Materialize MatchResult objects (identical to the per-op object
+        decoder's output, same order)."""
+        c = self.columns
+        out: list[MatchResult] = []
+        oid_t, uid_t, syms = self.oid_table, self.uid_table, self.symbols
+        seq0 = self.seq0
+        for i in range(len(self)):
+            seq = None if seq0 is None else seq0 + i
+            symbol = syms[c["symbol_id"][i]]
+            side = Side(int(c["taker_side"][i]))
+            kind = (
+                OrderType.MARKET if c["is_market"][i] else OrderType.LIMIT
+            )
+            taker = snapshot_of(
+                Order(
+                    uuid=uid_t[c["taker_uid"][i]],
+                    oid=oid_t[c["taker_oid"][i]],
+                    symbol=symbol,
+                    side=side,
+                    price=int(c["taker_price"][i]),
+                    volume=int(c["taker_volume"][i]),
+                    order_type=kind,
+                )
+            )
+            if c["is_cancel"][i]:
+                out.append(
+                    MatchResult(
+                        node=taker, match_node=taker, match_volume=0, seq=seq
+                    )
+                )
+                continue
+            maker = snapshot_of(
+                Order(
+                    uuid=uid_t[c["maker_uid"][i]],
+                    oid=oid_t[c["maker_oid"][i]],
+                    symbol=symbol,
+                    side=side.opposite,
+                    price=int(c["fill_price"][i]),
+                    volume=int(c["maker_volume"][i]),
+                )
+            )
+            out.append(
+                MatchResult(
+                    node=taker,
+                    match_node=maker,
+                    match_volume=int(c["match_volume"][i]),
+                    seq=seq,
+                )
+            )
+        return out
+
+    def to_json_lines(self, seq0: int | None = None) -> list[bytes]:
+        """Wire-shape serialization straight from columns — byte-identical
+        to bus.codec.encode_match_result for every event. Only the ids this
+        batch references are JSON-escaped (the interner tables grow without
+        bound over a process lifetime; escaping whole tables per batch would
+        be quadratic on the consumer hot path).
+
+        With ``seq0`` (defaults to the batch's own stamp) each line gains a
+        trailing ``"Seq"`` extension field — absent on unstamped batches so
+        reference-shaped output is unchanged, ignored by a reference
+        decoder otherwise (the Trace-field precedent, bus.codec)."""
+        import json
+
+        if seq0 is None:
+            seq0 = self.seq0
+        c = self.columns
+
+        def esc(table, *id_cols):
+            ids = np.unique(np.concatenate([c[n] for n in id_cols])) if id_cols else []
+            return {int(i): json.dumps(table[int(i)]) for i in ids}
+
+        oid_t = esc(self.oid_table, "taker_oid", "maker_oid")
+        uid_t = esc(self.uid_table, "taker_uid", "maker_uid")
+        syms = esc(list(self.symbols), "symbol_id")
+        lines = []
+        for i in range(len(self)):
+            symbol = syms[c["symbol_id"][i]]
+            t_u, t_o = uid_t[c["taker_uid"][i]], oid_t[c["taker_oid"][i]]
+            side = int(c["taker_side"][i])
+            if c["is_cancel"][i]:
+                m_u, m_o = t_u, t_o
+                m_side, m_price, m_vol = side, int(c["taker_price"][i]), int(
+                    c["taker_volume"][i]
+                )
+            else:
+                m_u, m_o = uid_t[c["maker_uid"][i]], oid_t[c["maker_oid"][i]]
+                m_side = 1 - side
+                m_price = int(c["fill_price"][i])
+                m_vol = int(c["maker_volume"][i])
+            body = (
+                '{"Node":{"Uuid":%s,"Oid":%s,"Symbol":%s,'
+                '"Transaction":%d,"Price":%d,"Volume":%d},'
+                '"MatchNode":{"Uuid":%s,"Oid":%s,"Symbol":%s,'
+                '"Transaction":%d,"Price":%d,"Volume":%d},'
+                '"MatchVolume":%d'
+                % (
+                    t_u, t_o, symbol, side,
+                    int(c["taker_price"][i]), int(c["taker_volume"][i]),
+                    m_u, m_o, symbol, m_side, m_price, m_vol,
+                    int(c["match_volume"][i]),
+                )
+            )
+            if seq0 is not None:
+                body += ',"Seq":%d' % (seq0 + i)
+            lines.append((body + "}").encode())
+        return lines
+
+
+def empty_batch(symbols, oid_table, uid_table) -> EventBatch:
+    return EventBatch(
+        columns={n: np.zeros(0, dt) for n, dt in _COLUMNS},
+        symbols=symbols,
+        oid_table=oid_table,
+        uid_table=uid_table,
+    )
+
+
+def decode_grid_columnar(ops_meta: dict, outs_at) -> dict[str, np.ndarray]:
+    """Vectorized decode of one grid's worth of op results into raw event
+    columns (no tables attached — the caller assembles the final EventBatch
+    once per micro-batch, not per grid).
+
+    ops_meta: parallel numpy arrays describing the ops that were packed into
+    the grid — lane (the engine lane, for symbol ids), row (the grid row —
+    equal to lane on full grids, the compact dense-grid row otherwise), t,
+    arrival, side, price, is_market, action, oid_id, uid_id (all [N] for N
+    packed ops).
+    outs_at(field, rows, ts) -> numpy values of StepOutput `field` at those
+    (row, t) coordinates ([N] or [N, K]); indirection so the caller can
+    splice in per-row escalation re-runs.
+
+    Returns columns sorted by (arrival, fill index) — the reference's global
+    emission order.
+    """
+    lane = ops_meta["lane"]
+    row = ops_meta.get("row", lane)
+    t = ops_meta["t"]
+    arrival = ops_meta["arrival"]
+    action = ops_meta["action"]
+
+    is_add = action == int(Action.ADD)
+    is_del = action == int(Action.DEL)
+
+    # --- fills: one event per (ADD op, record j < n_fills) ---------------
+    n_fills = np.where(is_add, outs_at("n_fills", row, t), 0)  # [N]
+    k = int(n_fills.max()) if len(n_fills) else 0
+    if k:
+        rec = lambda f: outs_at(f, row, t)[:, :k]  # [N, K']
+        jj = np.arange(k)
+        mask = jj[None, :] < n_fills[:, None]  # [N, K']
+        src, j = np.nonzero(mask)  # event -> (op row, record j), arrival-major
+        fill_qty = rec("fill_qty")[src, j]
+        maker_remaining = rec("maker_remaining")[src, j]
+        maker_prefill = rec("maker_prefill")[src, j]
+        maker_volume = np.where(maker_remaining == 0, maker_prefill, maker_remaining)
+        # Device prices are rebased per lane (32-bit books); events carry
+        # absolute ticks.
+        base = ops_meta.get("price_base")
+        fill_price = rec("fill_price")[src, j].astype(np.int64)
+        if base is not None:
+            fill_price = fill_price + base[src]
+        fills = {
+            "arrival": arrival[src],
+            "is_cancel": np.zeros(len(src), np.bool_),
+            "symbol_id": lane[src],
+            "taker_uid": ops_meta["uid_id"][src],
+            "taker_oid": ops_meta["oid_id"][src],
+            "taker_side": ops_meta["side"][src].astype(np.int8),
+            "taker_price": ops_meta["price"][src],
+            "taker_volume": rec("taker_after")[src, j],
+            "maker_uid": rec("maker_uid")[src, j],
+            "maker_oid": rec("maker_oid")[src, j],
+            "fill_price": fill_price,
+            "maker_volume": maker_volume,
+            "match_volume": fill_qty,
+            "is_market": ops_meta["is_market"][src].astype(np.bool_),
+        }
+    else:
+        fills = {n: np.zeros(0, dt) for n, dt in _COLUMNS}
+
+    # --- cancels: one event per found DEL --------------------------------
+    found = is_del & (outs_at("cancel_found", row, t) != 0)
+    (csrc,) = np.nonzero(found)
+    cancels = {
+        "arrival": arrival[csrc],
+        "is_cancel": np.ones(len(csrc), np.bool_),
+        "symbol_id": lane[csrc],
+        "taker_uid": ops_meta["uid_id"][csrc],
+        "taker_oid": ops_meta["oid_id"][csrc],
+        "taker_side": ops_meta["side"][csrc].astype(np.int8),
+        "taker_price": ops_meta["price"][csrc],
+        "taker_volume": outs_at("cancel_volume", row, t)[csrc],
+        "maker_uid": ops_meta["uid_id"][csrc],
+        "maker_oid": ops_meta["oid_id"][csrc],
+        "fill_price": ops_meta["price"][csrc],
+        "maker_volume": outs_at("cancel_volume", row, t)[csrc],
+        "match_volume": np.zeros(len(csrc), np.int64),
+        "is_market": np.zeros(len(csrc), np.bool_),
+    }
+
+    columns = {
+        n: np.concatenate(
+            [np.asarray(fills[n], dt), np.asarray(cancels[n], dt)]
+        )
+        for n, dt in _COLUMNS
+    }
+    # Global emission order: arrival index, then record order within the op
+    # (np.nonzero already yields row-major = record order; a stable sort on
+    # arrival preserves it).
+    order = np.argsort(columns["arrival"], kind="stable")
+    return {n: v[order] for n, v in columns.items()}

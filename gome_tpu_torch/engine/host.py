@@ -1,0 +1,165 @@
+"""Host-side plumbing between string-keyed Orders and the integer device ops,
+plus reconstruction of the reference MatchResult event stream from
+StepOutputs. The port of ``gome_tpu/engine/host.py``.
+
+The reference's string ids (api/order.proto:11-12) and Redis key-name
+machinery (ordernode.go:89-117) never reach the device: the host interns
+strings to dense integer handles, ships fixed-shape integer ops, and decodes
+fixed-shape fill records back into events byte-equivalent (field-for-field)
+with engine.go:24-28's MatchResult.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from ..types import Action, MatchResult, Order, OrderType, snapshot_of
+from .book import DeviceOp, StepOutput, numpy_dtype
+from .step import LOT_MAX32
+
+
+class Interner:
+    """Bidirectional string <-> dense int id table. Id 0 is reserved for
+    "none" (empty slots in device arrays)."""
+
+    def __init__(self) -> None:
+        self._to_id: dict[str, int] = {}
+        self._to_str: list[str] = [""]
+
+    def intern(self, s: str) -> int:
+        i = self._to_id.get(s)
+        if i is None:
+            i = len(self._to_str)
+            self._to_id[s] = i
+            self._to_str.append(s)
+        return i
+
+    def get(self, s: str) -> int | None:
+        """Read-only lookup; None if never interned."""
+        return self._to_id.get(s)
+
+    def lookup(self, i: int) -> str:
+        return self._to_str[i]
+
+    @property
+    def table(self) -> list[str]:
+        """id -> string table including the reserved "" at id 0 (the shape
+        columnar decode indexes by raw interner id)."""
+        return self._to_str
+
+    def __len__(self) -> int:
+        return len(self._to_str)
+
+    # -- snapshot support ----------------------------------------------------
+    def to_list(self) -> list[str]:
+        """All interned strings in id order (excluding the reserved 0)."""
+        return list(self._to_str[1:])
+
+    @classmethod
+    def from_list(cls, strs: list[str]) -> "Interner":
+        it = cls()
+        for s in strs:
+            it.intern(s)
+        return it
+
+
+@dataclasses.dataclass
+class OpContext:
+    """What the host must remember about a dispatched op to decode its
+    StepOutput into events (the device echoes none of this)."""
+
+    order: Order
+
+
+def encode_op(
+    order: Order,
+    oids: Interner,
+    uids: Interner,
+    dtype=np.int64,
+    price_base: int = 0,
+) -> DeviceOp:
+    """Order -> scalar DeviceOp (cheap to batch later). dtype must match
+    BookConfig.dtype so the device writeback needs no cast.
+    price_base: the lane's rebasing offset (32-bit books store prices
+    relative to it; see BatchEngine._prepare_bases). Fields are numpy
+    scalars; dtype may be a numpy or a torch dtype."""
+    dtype = numpy_dtype(dtype)
+    if order.action is Action.ADD and order.volume <= 0:
+        raise ValueError(
+            f"volume must be positive, got {order.volume} (oid={order.oid}); "
+            "volume<=0 is out of contract (see gome_tpu_torch.oracle docstring)"
+        )
+    if np.dtype(dtype).itemsize <= 4 and order.volume > LOT_MAX32:
+        raise ValueError(
+            f"volume {order.volume} exceeds the int32-mode per-order lot "
+            f"ceiling {LOT_MAX32} (oid={order.oid}); use coarser lot "
+            "units or an int64 BookConfig"
+        )
+    val = np.dtype(dtype).type
+    is_market = order.order_type is OrderType.MARKET
+    # MARKET price is documented-ignored: encode 0 so an arbitrary client
+    # price can never overflow the lane's rebased int32 window.
+    return DeviceOp(
+        action=np.int32(int(order.action)),  # Action values == device codes
+        side=np.int32(int(order.side)),
+        is_market=np.int32(is_market),
+        price=val(0 if is_market else order.price - price_base),
+        volume=val(order.volume),
+        oid=val(oids.intern(order.oid)),
+        uid=val(uids.intern(order.uuid)),
+    )
+
+
+def decode_events(
+    ctx: OpContext,
+    out: StepOutput,
+    oids: Interner,
+    uids: Interner,
+    price_base: int = 0,
+) -> list[MatchResult]:
+    """StepOutput -> the MatchResult events this op produced, in the
+    reference's emission order (best level first, FIFO within level —
+    exactly the device's fill-record order).
+
+    The caller (BatchEngine._run_exact) escalates device budgets before
+    decoding, so `out` always carries complete records; tripped budgets here
+    mean an engine bug, not an input condition."""
+    order = ctx.order
+    events: list[MatchResult] = []
+    if order.action is Action.ADD:
+        if int(out.book_overflow):
+            raise RuntimeError(
+                f"op {order.oid}: resting insert dropped (side full) reached "
+                "decode — cap escalation should have replayed this grid"
+            )
+        n = int(out.n_fills)
+        if n > len(out.fill_qty):
+            raise RuntimeError(
+                f"op {order.oid}: {n} fills > {len(out.fill_qty)} records "
+                "reached decode — fill-record escalation should have re-run "
+                "this lane"
+            )
+        for j in range(n):
+            qty = int(out.fill_qty[j])
+            remaining = int(out.maker_remaining[j])
+            maker_volume = int(out.maker_prefill[j]) if remaining == 0 else remaining
+            maker = snapshot_of(
+                Order(
+                    uuid=uids.lookup(int(out.maker_uid[j])),
+                    oid=oids.lookup(int(out.maker_oid[j])),
+                    symbol=order.symbol,
+                    side=order.side.opposite,
+                    price=int(out.fill_price[j]) + price_base,
+                    volume=maker_volume,
+                )
+            )
+            taker = snapshot_of(order, int(out.taker_after[j]))
+            events.append(
+                MatchResult(node=taker, match_node=maker, match_volume=qty)
+            )
+    elif order.action is Action.DEL and int(out.cancel_found):
+        snap = snapshot_of(order, int(out.cancel_volume))
+        events.append(MatchResult(node=snap, match_node=snap, match_volume=0))
+    return events

@@ -1,0 +1,141 @@
+"""The engine facade: pre-pool admission + batched device matching.
+
+The port of ``gome_tpu/engine/orchestrator.py`` (its object and columnar
+entry points). It is the layer the gateway and the order consumer talk to:
+
+  gateway side   mark(order)      — HSET S:comparison S:U:O 1 in the reference
+  consumer side  process(orders)  — the consumer loop body:
+                   ADD: consumed only if still marked, else dropped (the
+                        cancel-before-consume race)
+                   DEL: clears the mark first so a still-queued ADD dies,
+                        then cancels on the book
+"""
+
+from __future__ import annotations
+
+from ..types import Action, MatchResult, Order
+from .batch import BatchEngine, EngineStats
+from .book import BookConfig
+from .prepool import consume_batch_of, make_prepool
+
+
+class MatchEngine:
+    """Admission + matching for one engine shard (a set of symbol lanes).
+
+    Orders enter twice, like the reference's two process hops: `mark()` when
+    the gateway accepts an ADD (before it is queued), `process()` when the
+    consumer drains a micro-batch from the queue. Cancels are never marked.
+    """
+
+    def __init__(
+        self,
+        config: BookConfig | None = None,
+        n_slots: int = 1024,
+        max_t: int = 32,
+        auto_grow: bool = True,
+        device=None,
+        **batch_kw,
+    ):
+        """device: the CUDA card by default (raises if there is none);
+        "cpu" runs the plain PyTorch version. batch_kw passes through to
+        BatchEngine (dense, dense_t_max, max_slots, max_cap)."""
+        self.batch = BatchEngine(
+            config or BookConfig(),
+            n_slots,
+            max_t=max_t,
+            auto_grow=auto_grow,
+            device=device,
+            **batch_kw,
+        )
+        self.pre_pool = make_prepool()
+
+    # -- gateway side ------------------------------------------------------
+    def mark(self, order: Order) -> None:
+        """Record "submitted, not yet consumed/cancelled" for an ADD. No-op
+        for other actions."""
+        if order.action is Action.ADD:
+            self.pre_pool.add(self._prekey(order))
+
+    def unmark(self, order: Order) -> None:
+        """Discard an order's pre-pool entry without processing it."""
+        self.pre_pool.discard(self._prekey(order))
+
+    # -- consumer side -----------------------------------------------------
+    def process(self, orders: list[Order]) -> list[MatchResult]:
+        """Apply one micro-batch in arrival order; returns the MatchResult
+        event stream in the reference's global emission order. Admission
+        drops ADDs cancelled before consumption without touching the book."""
+        return [
+            ev
+            for _, evs in self.process_indexed(list(enumerate(orders)))
+            for ev in evs
+        ]
+
+    def process_indexed(
+        self, indexed: list[tuple[int, Order]]
+    ) -> list[tuple[int, list[MatchResult]]]:
+        """process() keyed by caller-assigned arrival tags — admission
+        applies identically; tags of dropped ADDs emit no group."""
+        admitted, consumed = self._admit(indexed)
+        try:
+            return self.batch.process_indexed(admitted)
+        except Exception:
+            self.pre_pool |= consumed
+            raise
+
+    def process_columnar(self, orders: list[Order]):
+        """process() with the vectorized decode path: same admission, same
+        event content/order, but returns a columnar EventBatch."""
+        admitted, consumed = self._admit(list(enumerate(orders)))
+        try:
+            return self.batch.process_columnar([o for _, o in admitted])
+        except Exception:
+            self.pre_pool |= consumed
+            raise
+
+    def _admit(
+        self, indexed: list[tuple[int, Order]]
+    ) -> tuple[list[tuple[int, Order]], set]:
+        """Apply admission over (tag, order) items; also returns the
+        pre-pool keys this batch consumed so a FAILED batch can restore them
+        (a replayed ADD must not die as unmarked because the failed attempt
+        already popped its key)."""
+        sel: list[tuple[int, Order]] = []
+        keys: list[tuple[str, str, str]] = []
+        for item in indexed:
+            action = item[1].action
+            if action is Action.ADD or action is Action.DEL:
+                sel.append(item)
+                keys.append(self._prekey(item[1]))
+            # NOP padding never reaches the device.
+        existed = consume_batch_of(self.pre_pool, keys)
+        admitted: list[tuple[int, Order]] = []
+        consumed: set[tuple[str, str, str]] = set()
+        for item, key, ex in zip(sel, keys, existed):
+            if item[1].action is Action.ADD:
+                if not ex:
+                    self.stats.dropped_no_prepool += 1
+                    continue
+                consumed.add(key)
+            elif ex:
+                consumed.add(key)
+            admitted.append(item)
+        return admitted, consumed
+
+    # -- views -------------------------------------------------------------
+    @property
+    def stats(self) -> EngineStats:
+        return self.batch.stats
+
+    @property
+    def config(self) -> BookConfig:
+        return self.batch.config
+
+    @property
+    def books(self):
+        return self.batch.books
+
+    @staticmethod
+    def _prekey(order: Order) -> tuple[str, str, str]:
+        """S:comparison field = S:U:O."""
+        return (order.symbol, order.uuid, order.oid)

@@ -1,0 +1,329 @@
+"""Pure-Python executable model of the reference's matching semantics.
+
+This is the parity oracle (SURVEY §7 step 1): it re-implements the observable
+*behavior* of the reference's SetOrder / DeleteOrder / Match / MatchOrder
+(gomengine/engine/engine.go:56-198) and the pre-pool protocol
+(gomengine/engine/nodepool.go:14-28, gomengine/main.go:44-45) on plain Python
+data structures, emitting the MatchResult event stream (engine.go:24-28) that
+defines parity for the device engine.
+
+Deliberate behavioral choices (SURVEY §2.3):
+  * price-time priority: price via sorted level scan (nodepool.go:86-115),
+    time via per-level FIFO (nodelink.go) — replicated with a dict of deques.
+  * taker remainder rests at its own limit price (engine.go:69-83).
+  * cancel requires the exact resting price and does NOT check ownership
+    (engine.go:92-98); a miss emits nothing.
+  * cancel-before-consume race: a DEL clears the pre-pool marker, so the
+    queued ADD is dropped at consume time (engine.go:58-62,88-90).
+  * no self-trade prevention (engine.go:138-198 never compares uuids).
+  * event field semantics per types.MatchResult docstring.
+  * the middle-delete hash leak (nodelink.go:151-164, SURVEY §2.3.1) is
+    unobservable in the event stream and is not replicated.
+
+Extensions beyond the reference (flagged explicitly):
+  * MARKET orders (BASELINE.json config 5): cross the book ignoring price;
+    any remainder is dropped (never rests) and emits no event.
+
+Out-of-contract inputs (deliberate divergences on degenerate streams):
+  * volume <= 0 ADDs: the reference emits a MatchVolume=0 pseudo-event when
+    crossing (engine.go:176-194 diff<0 branch with matchVolume=0) and rests
+    a zero-volume node when not crossing (engine.go:69-83), polluting the
+    book with zero-depth levels. We match nothing and rest nothing; the
+    ingestion bridge rejects volume<=0 before it reaches any engine.
+  * duplicate oids on one symbol: the reference corrupts its linked list
+    (NodeName collision in S:link:P, ordernode.go:110-112); we keep both
+    orders and cancel FIFO-first. Callers must not reuse oids.
+"""
+
+from __future__ import annotations
+
+import collections
+from dataclasses import dataclass
+
+from ..types import (
+    Action,
+    MatchResult,
+    Order,
+    OrderSnapshot,
+    OrderType,
+    Side,
+    StepStats,
+    snapshot_of,
+)
+
+
+@dataclass
+class RestingOrder:
+    """One node in a price level's FIFO queue (reference: the JSON-encoded
+    OrderNode stored in the S:link:P hash, ordernode.go:9-36)."""
+
+    uuid: str
+    oid: str
+    side: Side
+    price: int
+    volume: int  # remaining lots
+    seq: int  # arrival order (time priority; implicit in the reference's list)
+
+
+class SymbolBook:
+    """One symbol's order book: price level -> FIFO deque of resting orders.
+
+    Re-expresses the reference's Redis schema (SURVEY §2.1): the S:BUY/S:SALE
+    zsets become the sorted key views of `self.levels[side]`; the S:depth hash
+    becomes `level_volume()`; the S:link:P hash-encoded linked lists become
+    deques.
+    """
+
+    def __init__(self, symbol: str):
+        self.symbol = symbol
+        self.levels: dict[Side, dict[int, collections.deque[RestingOrder]]] = {
+            Side.BUY: {},
+            Side.SALE: {},
+        }
+        self._seq = 0
+
+    def next_seq(self) -> int:
+        self._seq += 1
+        return self._seq
+
+    # -- views ------------------------------------------------------------
+    def crossing_levels(self, taker_side: Side, price: int | None) -> list[int]:
+        """Occupied opposing price levels the taker crosses, best first.
+
+        BUY taker: asks with price <= limit, ascending (nodepool.go:101-103).
+        SALE taker: bids with price >= limit, descending (nodepool.go:90-92).
+        price=None (MARKET extension) crosses every occupied level.
+        """
+        opp = self.levels[taker_side.opposite]
+        if taker_side is Side.BUY:
+            prices = sorted(p for p in opp if price is None or p <= price)
+        else:
+            prices = sorted(
+                (p for p in opp if price is None or p >= price), reverse=True
+            )
+        return prices
+
+    def level_volume(self, side: Side, price: int) -> int:
+        q = self.levels[side].get(price)
+        return sum(o.volume for o in q) if q else 0
+
+    def depth(self, side: Side, max_levels: int | None = None) -> list[tuple[int, int]]:
+        """[(price, aggregate volume)] best-first — the reference's depth view
+        (S:BUY/S:SALE zset + S:depth hash)."""
+        prices = sorted(self.levels[side], reverse=(side is Side.BUY))
+        if max_levels is not None:
+            prices = prices[:max_levels]
+        return [(p, self.level_volume(side, p)) for p in prices]
+
+    def orders(self, side: Side) -> list[RestingOrder]:
+        """All resting orders on a side in priority order (best price first,
+        FIFO within level)."""
+        out: list[RestingOrder] = []
+        for p in sorted(self.levels[side], reverse=(side is Side.BUY)):
+            out.extend(self.levels[side][p])
+        return out
+
+    # -- mutations ---------------------------------------------------------
+    def rest(self, order: Order, volume: int) -> RestingOrder:
+        """Append to the FIFO at the order's own limit price
+        (engine.go:80-82, nodepool.go:31-46)."""
+        node = RestingOrder(
+            uuid=order.uuid,
+            oid=order.oid,
+            side=order.side,
+            price=order.price,
+            volume=volume,
+            seq=self.next_seq(),
+        )
+        self.levels[order.side].setdefault(order.price, collections.deque())
+        self.levels[order.side][order.price].append(node)
+        return node
+
+    def remove_empty_level(self, side: Side, price: int) -> None:
+        q = self.levels[side].get(price)
+        if q is not None and not q:
+            del self.levels[side][price]
+
+    def find(self, side: Side, price: int, oid: str) -> RestingOrder | None:
+        """Lookup by (price, oid) — the reference's S:link:P + S:node:O lookup
+        (engine.go:92-93); oid alone is insufficient (SURVEY §2.3.2)."""
+        for node in self.levels[side].get(price, ()):
+            if node.oid == oid:
+                return node
+        return None
+
+    def unlink(self, node: RestingOrder) -> None:
+        q = self.levels[node.side].get(node.price)
+        if q is not None:
+            try:
+                q.remove(node)
+            except ValueError:
+                pass
+            self.remove_empty_level(node.side, node.price)
+
+
+class OracleEngine:
+    """The full reference pipeline in one process: gRPC gateway semantics
+    (enqueue + pre-pool mark, main.go:39-64) + the sequential consumer loop
+    (rabbitmq.go:116-125 -> engine.DoOrder, engine.go:46-54).
+
+    Events accumulate in `self.events` in emission order — the parity stream.
+    """
+
+    def __init__(self) -> None:
+        self.books: dict[str, SymbolBook] = {}
+        self.pre_pool: set[tuple[str, str, str]] = set()
+        self.queue: collections.deque[Order] = collections.deque()
+        self.events: list[MatchResult] = []
+        self.stats = StepStats()
+
+    def book(self, symbol: str) -> SymbolBook:
+        if symbol not in self.books:
+            self.books[symbol] = SymbolBook(symbol)
+        return self.books[symbol]
+
+    # -- gateway side (main.go:39-64) --------------------------------------
+    def submit(self, order: Order) -> None:
+        """gRPC handler semantics: ADD marks the pre-pool (main.go:44-45),
+        both actions enqueue; response is always success (main.go:49,61)."""
+        if order.action is Action.ADD:
+            self.pre_pool.add(self._prekey(order))
+        self.queue.append(order)
+
+    # -- consumer side (rabbitmq.go:116-125) -------------------------------
+    def drain(self) -> list[MatchResult]:
+        """Process everything queued, strictly sequentially. Returns the
+        events emitted by this drain."""
+        start = len(self.events)
+        while self.queue:
+            self.do_order(self.queue.popleft())
+        return self.events[start:]
+
+    def process(self, order: Order) -> list[MatchResult]:
+        """submit + drain in one call. The returned events are this order's
+        alone only if the queue was empty beforehand; with prior submit()s
+        pending, their events are included too (drain is strictly FIFO)."""
+        self.submit(order)
+        return self.drain()
+
+    def do_order(self, order: Order) -> None:
+        """engine.DoOrder (engine.go:46-54)."""
+        if order.action is Action.ADD:
+            self.set_order(order)
+        elif order.action is Action.DEL:
+            self.delete_order(order)
+
+    # -- matching (engine.go:56-85,118-198) --------------------------------
+    def set_order(self, order: Order) -> None:
+        key = self._prekey(order)
+        if key not in self.pre_pool:
+            # Cancelled (or never marked) before consumption: drop
+            # (engine.go:58-62; SURVEY §2.3.3).
+            self.stats.dropped_no_prepool += 1
+            return
+        self.pre_pool.discard(key)
+
+        book = self.book(order.symbol)
+        limit = None if order.order_type is OrderType.MARKET else order.price
+        remaining = order.volume
+        for level_price in book.crossing_levels(order.side, limit):
+            remaining = self._match_level(book, order, level_price, remaining)
+            if remaining <= 0:
+                break
+
+        if remaining > 0 and order.order_type is OrderType.LIMIT:
+            # Remainder rests at its own limit price (engine.go:69-83).
+            book.rest(order, remaining)
+        # MARKET remainder is dropped (extension; reference has no markets).
+
+    def _match_level(
+        self, book: SymbolBook, taker: Order, level_price: int, remaining: int
+    ) -> int:
+        """MatchOrder's FIFO walk at one price level (engine.go:138-198),
+        iterative where the reference recurses (engine.go:161)."""
+        queue = book.levels[taker.side.opposite].get(level_price)
+        while remaining > 0 and queue:
+            maker = queue[0]
+            if remaining >= maker.volume:
+                # Full maker fill (engine.go:145-175; diff>0 and diff==0
+                # branches are identical observably).
+                match_volume = maker.volume
+                remaining -= match_volume
+                queue.popleft()
+                self._emit(
+                    taker=self._taker_snapshot(taker, remaining),
+                    maker=OrderSnapshot(
+                        uuid=maker.uuid,
+                        oid=maker.oid,
+                        symbol=book.symbol,
+                        side=maker.side,
+                        price=maker.price,
+                        volume=match_volume,  # pre-fill volume
+                    ),
+                    match_volume=match_volume,
+                )
+            else:
+                # Partial maker fill (engine.go:176-194).
+                match_volume = remaining
+                maker.volume -= match_volume
+                remaining = 0
+                self._emit(
+                    taker=self._taker_snapshot(taker, 0),
+                    maker=OrderSnapshot(
+                        uuid=maker.uuid,
+                        oid=maker.oid,
+                        symbol=book.symbol,
+                        side=maker.side,
+                        price=maker.price,
+                        volume=maker.volume,  # post-fill remaining
+                    ),
+                    match_volume=match_volume,
+                )
+        book.remove_empty_level(taker.side.opposite, level_price)
+        return remaining
+
+    # -- cancellation (engine.go:87-116) -----------------------------------
+    def delete_order(self, order: Order) -> None:
+        # Clear the pre-pool marker first so a still-queued ADD dies
+        # (engine.go:88-90).
+        self.pre_pool.discard(self._prekey(order))
+
+        book = self.books.get(order.symbol)
+        node = (
+            book.find(order.side, order.price, order.oid) if book else None
+        )
+        if node is None:
+            # Already filled / never rested / wrong price: no event
+            # (engine.go:96-98).
+            self.stats.cancels_missed += 1
+            return
+
+        remaining = node.volume  # partial-fill-safe (engine.go:100)
+        book.unlink(node)
+
+        # The reference serializes the REQUEST node with volume overwritten
+        # to the resting remainder (engine.go:100,109).
+        snap = snapshot_of(order, remaining)
+        self.events.append(
+            MatchResult(node=snap, match_node=snap, match_volume=0)
+        )
+
+    # -- helpers ----------------------------------------------------------
+    @staticmethod
+    def _prekey(order: Order) -> tuple[str, str, str]:
+        """S:comparison field = S:U:O (ordernode.go:89-92)."""
+        return (order.symbol, order.uuid, order.oid)
+
+    @staticmethod
+    def _taker_snapshot(taker: Order, remaining: int) -> OrderSnapshot:
+        # Taker keeps its original limit price; volume is the post-fill
+        # remaining (engine.go:147,164,184).
+        return snapshot_of(taker, remaining)
+
+    def _emit(
+        self, taker: OrderSnapshot, maker: OrderSnapshot, match_volume: int
+    ) -> None:
+        self.stats.fills += 1
+        self.events.append(
+            MatchResult(node=taker, match_node=maker, match_volume=match_volume)
+        )

@@ -1,0 +1,133 @@
+"""Domain types shared by the oracle, the torch engine, and the host bridge.
+
+Mirrors the reference wire contract (api/order.proto:4-29) and the internal
+order node / match-result shapes (gomengine/engine/ordernode.go:9-36,
+gomengine/engine/engine.go:24-28) — re-expressed as integer tick/lot
+quantities so the device hot path is exact integer arithmetic rather than the
+reference's float64-on-scaled-values model (SURVEY §2.2).
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field, replace
+
+
+class Side(enum.IntEnum):
+    """api/order.proto:4-7 — TransactionType {BUY=0, SALE=1}."""
+
+    BUY = 0
+    SALE = 1
+
+    @property
+    def opposite(self) -> "Side":
+        return Side.SALE if self is Side.BUY else Side.BUY
+
+
+class Action(enum.IntEnum):
+    """gomengine/main.go:14-18 — iota consts: ADD=1, DEL=2. NOP=0 is ours
+    (padding slot in fixed-shape device op grids)."""
+
+    NOP = 0
+    ADD = 1
+    DEL = 2
+
+
+class OrderType(enum.IntEnum):
+    """Extension beyond the reference: the proto has no order-type field, so
+    every reference order is implicitly a limit order (api/order.proto:10-17;
+    SURVEY §1 L5). MARKET is required by BASELINE.json config 5."""
+
+    LIMIT = 0
+    MARKET = 1
+
+
+@dataclass(frozen=True)
+class Order:
+    """An order in engine-internal form: prices/volumes are *scaled integers*
+    (ticks/lots — the value after the reference's 10^accuracy scaling,
+    ordernode.go:76-87, held exactly as int instead of float64).
+    """
+
+    uuid: str
+    oid: str
+    symbol: str
+    side: Side
+    price: int  # scaled ticks; ignored for MARKET
+    volume: int  # scaled lots
+    action: Action = Action.ADD
+    order_type: OrderType = OrderType.LIMIT
+    # Order-lifecycle trace context (utils.trace encode_context wire form,
+    # "<id>@<t>"). None when tracing is off; excluded from equality so a
+    # traced order still compares equal to its untraced twin (replay,
+    # oracle parity).
+    trace: str | None = field(default=None, compare=False, repr=False)
+
+    def with_volume(self, volume: int) -> "Order":
+        return replace(self, volume=volume)
+
+
+@dataclass(frozen=True)
+class OrderSnapshot:
+    """The observable fields of an OrderNode as they appear in a MatchResult
+    event (engine.go:24-28 serializes whole OrderNodes; the parity surface is
+    the subset below — uuid/oid/symbol/side/price/volume; SURVEY §3.4)."""
+
+    uuid: str
+    oid: str
+    symbol: str
+    side: Side
+    price: int
+    volume: int  # remaining volume at event time (see MatchResult docstring)
+
+
+@dataclass(frozen=True)
+class MatchResult:
+    """One fill or cancel event — the parity surface vs the reference.
+
+    Field semantics (engine.go:138-198, engine.go:109-113; SURVEY §3.4):
+      * node        — the taker, with volume = remaining AFTER this fill.
+      * match_node  — the maker. For a FULL maker fill its volume is the
+                      maker's PRE-fill volume (== match_volume); for a
+                      PARTIAL maker fill it is the maker's remaining volume
+                      after the fill (engine.go:154,171 vs engine.go:178-190).
+      * match_volume — traded quantity; 0 ⇒ this is a cancel notice, and
+                      node == match_node == the cancelled order with its
+                      remaining resting volume (engine.go:109-113).
+    Fill price is implicit: match_node.price (the maker's level).
+    """
+
+    node: OrderSnapshot
+    match_node: OrderSnapshot
+    match_volume: int
+    # Matchfeed sequence number (monotonic per book epoch; exactly-once
+    # delivery). None when the producer predates seq stamping —
+    # excluded from equality so a stamped event still compares equal to
+    # its unstamped twin (replay, oracle parity), like Order.trace.
+    seq: int | None = field(default=None, compare=False, repr=False)
+
+    @property
+    def is_cancel(self) -> bool:
+        return self.match_volume == 0
+
+
+@dataclass
+class StepStats:
+    """Oracle-side diagnostics (new instrumentation; the reference has none —
+    SURVEY §5.5). The device engine's counters live in
+    gome_tpu_torch.engine.batch.EngineStats."""
+
+    dropped_no_prepool: int = 0
+    cancels_missed: int = 0
+    fills: int = 0
+
+
+def snapshot_of(order: Order, volume: int | None = None) -> OrderSnapshot:
+    return OrderSnapshot(
+        uuid=order.uuid,
+        oid=order.oid,
+        symbol=order.symbol,
+        side=order.side,
+        price=order.price,
+        volume=order.volume if volume is None else volume,
+    )

@@ -1,0 +1,69 @@
+"""The port stands alone: no file under gome_tpu_torch/, and not
+chip_smoke.py, imports jax or anything of gome_tpu (an AST scan), and
+importing the port loads neither."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted(
+    str(p.relative_to(ROOT))
+    for p in [*(ROOT / "gome_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+)
+FORBIDDEN = ("jax", "jaxlib", "gome_tpu")
+
+
+def imported_modules(path: pathlib.Path) -> set[str]:
+    """Absolute module names a file imports (relative imports resolve
+    inside its own package and are skipped)."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", None) == "__import__"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            names.add(node.args[0].value)
+    return names
+
+
+def is_forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_port_files_were_found():
+    assert "chip_smoke.py" in PORT_FILES
+    assert "gome_tpu_torch/ops/match_step.py" in PORT_FILES
+    assert len(PORT_FILES) > 10
+
+
+@pytest.mark.parametrize("rel", PORT_FILES)
+def test_file_imports_neither_jax_nor_gome_tpu(rel):
+    bad = sorted(m for m in imported_modules(ROOT / rel) if is_forbidden(m))
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_scan_recognises_forbidden_imports():
+    assert is_forbidden("jax.numpy") and is_forbidden("gome_tpu.engine")
+    assert not is_forbidden("gome_tpu_torch.engine")
+    assert not is_forbidden("jaxtyping_like")
+
+
+def test_importing_the_port_loads_neither():
+    code = (
+        "import sys, gome_tpu_torch.engine, gome_tpu_torch.ops, "
+        "gome_tpu_torch.oracle, gome_tpu_torch.utils.streams, chip_smoke\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'gome_tpu') or "
+        "m.startswith(('jax.', 'gome_tpu.'))]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
