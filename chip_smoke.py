@@ -11,15 +11,21 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      every book and StepOutput leaf: (a) S=10,240 x T=32, cap 256, K 16,
      int32, three chained grids; (b) the same flow at int64, S=1,024;
      (c) cap 8,192 int64 (the device-memory instantiation); (d) K = cap;
+     (e) a main-path dense grid, 2,048 rows x T=512, cap 2,048, K 16,
+     int32, one hot row of 512 live ops, one of 256, the rest <= 8;
   3. the port's main path against the port's oracle: MatchEngine
      .process_columnar on a 200,000-order Zipf flow over 10,240 symbols
      (cap 256, K 16, int32), then .process on a hot-symbol mixed stream at
      cap 64, K 4 (cap and fill-record escalation); events equal, books
      verified; the kernel's launch count must account for every device
      call of both engines;
-  4. times: the kernel and its plain version on the (a) grid (CUDA events,
-     median), the columnar run's orders/s, each beside the card's name and
-     power limit.
+  4. times: the kernel on the (a) and (e) grids (ms: the median of CUDA
+     events around one call each, the wrapper's host work included;
+     device_ms: CUDA events around launches queued behind a GPU spin, the
+     card's time alone) with each grid's bound, the plain version's times,
+     the columnar run's orders/s and its device steps split into dense
+     gather, kernel and scatter (CUDA events), each beside the card's name
+     and power limit.
 
 The last two lines are the kernel table (JSON) and
 {"ok": true, "device": {...}}.
@@ -169,6 +175,151 @@ def flow_grids(rng, config, s: int, t: int, g: int, seeded, device,
     return grids
 
 
+def _device_ops(config, cols: dict, device):
+    from gome_tpu_torch.engine.book import GRID_I32_FIELDS, DeviceOp, numpy_dtype
+
+    dt = numpy_dtype(config.dtype)
+    return DeviceOp(**{
+        f: torch.from_numpy(np.ascontiguousarray(
+            cols[f], np.int32 if f in GRID_I32_FIELDS else dt)).to(device)
+        for f in DeviceOp._fields})
+
+
+def _edge_books(config, count, lots, oid, device, tail_price: bool = False):
+    """Books with deep_books' price levels (runs of 4 around MID), the
+    given [s, 2] counts and [s, 2, cap] lots and oids; slots past count are
+    zero, except the price leaf when ``tail_price`` (a recentred lane keeps
+    stale prices there)."""
+    from gome_tpu_torch.engine.book import BookState, numpy_dtype
+
+    s, cap = count.shape[0], config.cap
+    dt = numpy_dtype(config.dtype)
+    slot = np.arange(cap)
+    active = slot[None, None, :] < count[:, :, None]
+    level = slot // 4
+    price = np.stack([np.broadcast_to(MID - 1 - level, (s, cap)),
+                      np.broadcast_to(MID + 1 + level, (s, cap))], axis=1)
+    z = lambda a, d: torch.from_numpy(np.where(active, a, 0).astype(d)).to(device)
+    return BookState(
+        price=(torch.from_numpy(np.ascontiguousarray(price, dt)).to(device)
+               if tail_price
+               else z(price, dt)),
+        lots=z(lots, dt), seq=z(np.broadcast_to(slot + 1, (s, 2, cap)), np.int32),
+        oid=z(oid, dt), uid=z(1 + oid % 8, dt),
+        count=torch.from_numpy(count.astype(np.int32)).to(device),
+        next_seq=torch.from_numpy(
+            count.max(axis=1).astype(np.int32)).to(device),
+    ), (price, oid, count)
+
+
+def _mixed_ops(rng, s: int, t: int, seeded, vol_lo: int, vol_hi: int,
+               oid_mod: int = 0) -> dict:
+    """A random [s, t] grid against seeded books: 70% ADDs (10% of them
+    market) from up to 4 levels through the opposite side to cap/4 levels
+    deep in their own, 25% DELs of seeded orders (gone or not), 5% NOPs.
+    ADD oids are fresh, or drawn from 1..oid_mod to repeat."""
+    price, oid, count = seeded
+    cap = price.shape[-1]
+    lane = np.arange(s)[:, None]
+    action = rng.choice([0, 1, 2], p=[0.05, 0.7, 0.25], size=(s, t))
+    side = rng.integers(0, 2, size=(s, t))
+    market = (action == 1) & (rng.random((s, t)) < 0.1)
+    off = rng.integers(-4, max(cap // 4, 2), size=(s, t))
+    limit = np.where(side == 0, MID - 1 - off, MID + 1 + off)
+    d_side = rng.integers(0, 2, size=(s, t))
+    d_slot = (rng.random((s, t)) * np.maximum(count[lane, d_side], 1)).astype(
+        np.int64)
+    is_del = action == 2
+    add_oid = (rng.integers(1, oid_mod + 1, size=(s, t)) if oid_mod
+               else 10**9 + np.arange(s * t).reshape(s, t))
+    return dict(
+        action=action, side=np.where(is_del, d_side, side), is_market=market,
+        price=np.where(is_del, price[lane, d_side, d_slot],
+                       np.where(market, 0, limit)),
+        volume=rng.integers(vol_lo, vol_hi, size=(s, t)),
+        oid=np.where(is_del, oid[lane, d_side, d_slot], add_oid),
+        uid=rng.integers(1, 9, size=(s, t)),
+    )
+
+
+#: Inputs aimed at the kernel's shortcuts (early exits, rings, searches).
+EDGE_CASES = ("deep", "full", "wipe", "del_ends", "dup_oids", "heavy",
+              "stale_tails")
+
+
+def edge_case(rng, config, name: str, s: int, t: int, device):
+    """Books and one [s, t] op grid for an edge case of EDGE_CASES:
+
+    deep        flow_grids' mix, every op live (one deep row when s == 1);
+    full        both sides at count == cap: inserts overflow, crossings
+                free slots at the front, so rings wrap both ways;
+    wipe        a limit taker empties the whole opposite side and rests,
+                then a market taker empties the other side, then a mix;
+    del_ends    DELs of the first and the last live slot, both sides;
+    dup_oids    oids repeat within a price level; DELs hit several slots;
+    heavy       lots and volumes near LOT_MAX32 (int32 prefixes saturate);
+    stale_tails slots past count keep stale prices (as after recentring).
+    """
+    cap = config.cap
+    shape = (s, 2, cap)
+    uniq = np.arange(s * 2 * cap).reshape(shape) + 1
+    small = lambda: rng.integers(1, 101, size=shape)
+    if name == "deep":
+        books, seeded = deep_books(rng, config, s, 0.6, device)
+        grid = flow_grids(rng, config, s, t, 1, seeded, device,
+                          heavy_frac=0.0)[0]
+        return books, grid._replace(action=torch.where(
+            grid.action == 0, torch.ones_like(grid.action), grid.action))
+    if name in ("full", "wipe", "dup_oids", "heavy", "stale_tails"):
+        fill = dict(full=1.0, wipe=0.5).get(name, 0.6)
+        count = np.full((s, 2), max(1, int(fill * cap)))
+        if name in ("dup_oids", "stale_tails"):
+            count = rng.integers(1, count + 1)
+        lots = (rng.integers(LOT_MAX32 // 2, LOT_MAX32 + 1, size=shape)
+                if name == "heavy" else small())
+        oid = 1 + np.arange(cap) % 3 if name == "dup_oids" else uniq
+        books, seeded = _edge_books(config, count, lots, np.broadcast_to(
+            oid, shape), device, tail_price=name == "stale_tails")
+        vol = ((LOT_MAX32 // 2, LOT_MAX32) if name == "heavy" else (1, 300))
+        cols = _mixed_ops(rng, s, t, seeded, *vol,
+                          oid_mod=3 if name == "dup_oids" else 0)
+        if name == "wipe":
+            live = np.arange(cap)[None, :] < count[:, 1:]
+            asks = (lots[:, 1] * live).sum(axis=1)
+            bids = (lots[:, 0] * live).sum(axis=1)
+            # A BUY limit through every ask level rests 5 lots at the top of
+            # the bids; a market SELL then takes every bid.
+            for f, a, b in (("action", 1, 1), ("side", 0, 1),
+                            ("is_market", 0, 1), ("price", MID + cap, 0),
+                            ("volume", asks + 5, bids + 5)):
+                cols[f][:, 0], cols[f][:, 1] = a, b
+        return books, _device_ops(config, cols, device)
+    if name == "del_ends":
+        count = np.full((s, 2), max(2, int(0.75 * cap)))
+        books, (price, oid, _) = _edge_books(config, count, small(), uniq,
+                                             device)
+        cols = {f: np.zeros((s, t), np.int64) for f in
+                ("action", "side", "is_market", "price", "volume", "oid",
+                 "uid")}
+        lo, hi = np.zeros((s, 2), np.int64), count - 1
+        lane = np.arange(s)
+        for k in range(t):
+            sd = (k // 2) % 2
+            first = k % 2 == 0
+            slot = np.where(first, lo[:, sd], hi[:, sd])
+            ok = lo[:, sd] <= hi[:, sd]
+            cols["action"][:, k] = np.where(ok, 2, 0)
+            cols["side"][:, k] = sd
+            cols["price"][:, k] = np.where(ok, price[lane, sd, slot], 0)
+            cols["oid"][:, k] = np.where(ok, oid[lane, sd, slot], 0)
+            if first:
+                lo[:, sd] += ok
+            else:
+                hi[:, sd] -= ok
+        return books, _device_ops(config, cols, device)
+    raise ValueError(f"unknown edge case {name!r}")
+
+
 def max_abs_err(a, b) -> int:
     """Largest |a - b| over every leaf of two NamedTuples of tensors;
     raises on a shape or dtype mismatch."""
@@ -214,9 +365,37 @@ def check_kernel_case(label, config, books, grids) -> int:
     return worst
 
 
-def phase2(device, sizes) -> tuple[int, tuple]:
+def main_path_grid(device, rows: int = 2048, t: int = 512):
+    """Phase 2 (e): a dense grid shaped like those of the columnar Zipf run
+    of phase 3 once its cap has escalated (cap 2,048, K 16, int32): books
+    up to 60% full, one hot row with t live ops (flow_grids' mix), one with
+    t / 2, every other row 0 to 8 ops, NOP-padded."""
+    from gome_tpu_torch.engine.book import BookConfig, DeviceOp
+
+    rng = np.random.default_rng(20261018)
+    config = BookConfig(cap=2048, max_fills=16, dtype=torch.int32)
+    books, seeded = deep_books(rng, config, rows, 0.6, device)
+    grid = flow_grids(rng, config, rows, t, 1, seeded, device)[0]
+    depth = rng.integers(0, 9, size=rows)
+    depth[0], depth[1] = t, t // 2
+    live = torch.from_numpy(np.arange(t)[None, :] < depth[:, None]).to(device)
+    # A NOP of flow_grids carries a limit ADD's fields: make it that ADD.
+    action = torch.where(grid.action == 0, 1, grid.action)
+    grid = grid._replace(action=action)
+    grid = DeviceOp(*(torch.where(live, a, torch.zeros_like(a)) for a in grid))
+    return config, books, grid
+
+
+def phase2(device, sizes) -> tuple[int, dict]:
+    """Cases (a)-(d) chain three grids; (e) is one main-path grid, whose
+    plain version runs once, timed. Returns the worst |error| and the
+    timing inputs of (a) and (e)."""
     from gome_tpu_torch.engine.book import BookConfig
-    from gome_tpu_torch.ops.match_step import uses_shared_memory
+    from gome_tpu_torch.ops.match_step import (
+        batch_step,
+        batch_step_reference,
+        uses_shared_memory,
+    )
 
     rng = np.random.default_rng(20261017)
     worst = 0
@@ -230,7 +409,7 @@ def phase2(device, sizes) -> tuple[int, tuple]:
         ("(d)", BookConfig(cap=32, max_fills=32, dtype=torch.int32),
          sizes["d"], 32, 0.9),
     ]
-    timing_input = None
+    timing = {}
     for label, config, s, t, fill in cases:
         if label == "(c)" and device.type == "cuda" and uses_shared_memory(
                 config.cap, config.dtype):
@@ -239,8 +418,32 @@ def phase2(device, sizes) -> tuple[int, tuple]:
         grids = flow_grids(rng, config, s, t, 3, seeded, device)
         worst = max(worst, check_kernel_case(label, config, books, grids))
         if label == "(a)":
-            timing_input = (config, books, grids[0])
-    return worst, timing_input
+            timing["a"] = (config, books, grids[0])
+    config, books, grid = main_path_grid(device, sizes["e_rows"], sizes["e_t"])
+    new_books, out = batch_step(config, books, grid)
+    sync(device)
+    t0 = time.perf_counter()
+    plain = batch_step_reference(config, books, grid)
+    sync(device)
+    plain_s = time.perf_counter() - t0
+    err = max(max_abs_err(out, plain[1]), max_abs_err(new_books, plain[0]))
+    if err:
+        raise SystemExit(f"phase 2 (e): differs (max |err| {err})")
+    n_live = int((grid.action != 0).sum())
+    print(f"phase 2 (e): S={grid.action.shape[0]} T={grid.action.shape[1]} "
+          f"cap={config.cap} K={config.max_fills} int32 main-path grid "
+          f"({n_live} live ops, hot rows of {int((grid.action[0] != 0).sum())}"
+          f" and {int((grid.action[1] != 0).sum())}): equal on every leaf "
+          f"({int(out.n_fills.sum())} fills, {int(out.cancel_found.sum())} "
+          f"cancels); plain version {1e3 * plain_s:.1f} ms (one run)")
+    timing["e"] = (config, books, grid)
+    timing["e_plain_ms"] = 1e3 * plain_s
+    return worst, timing
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -266,31 +469,57 @@ def run_engine(engine, orders, batch: int, columnar: bool):
 
 @contextlib.contextmanager
 def step_timer(engine):
-    """Bracket every device step of ``engine`` (dense gather, match-step
-    kernel, scatter) with CUDA events; yields the list of (start, end)
-    event pairs, read after the block (empty off the card)."""
+    """Bracket every device step of ``engine`` with CUDA events, and inside
+    it the dense gather, the match-step kernel and the scatter. Yields a
+    dict of lists of (start, end) event pairs ("step", "gather", "kernel",
+    "scatter"), read after the block (empty off the card)."""
+    from gome_tpu_torch.engine import batch as batch_mod
+    from gome_tpu_torch.ops import match_step
+
     batch = engine.batch
     inner = batch._step
-    spans = []
+    spans = {k: [] for k in ("step", "gather", "kernel", "scatter")}
 
-    def timed(*args):
+    def bracket(fn, key):
+        def timed(*args):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args)
+            b.record()
+            spans[key].append((a, b))
+            return out
+        return timed
+
+    def step(*args):
+        # Inside this step only, engine/batch.py's gather and scatter and
+        # the kernel's wrapper are bracketed, each wrapped in place (the
+        # launch count stays on the wrapper's own function).
         if batch.device.type != "cuda":
             return inner(*args)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = inner(*args)
-        b.record()
-        spans.append((a, b))
-        return out
+        places = ((batch_mod, "_gather_rows", "gather"),
+                  (match_step, "batch_step", "kernel"),
+                  (batch_mod, "_scatter_rows", "scatter"))
+        saved = [getattr(mod, name) for mod, name, _ in places]
+        for (mod, name, key), fn in zip(places, saved):
+            setattr(mod, name, bracket(fn, key))
+        try:
+            return bracket(inner, "step")(*args)
+        finally:
+            for (mod, name, _), fn in zip(places, saved):
+                setattr(mod, name, fn)
 
-    batch._step = timed
+    batch._step = step
     try:
         yield spans
     finally:
         del batch._step
-    if spans:
+    if spans["step"]:
         torch.cuda.synchronize()
+
+
+def span_seconds(spans) -> float:
+    return sum(a.elapsed_time(b) for a, b in spans) / 1e3
 
 
 def oracle_events(orders):
@@ -347,14 +576,15 @@ def phase3(device, sizes):
           f"({e2.stats.cap_escalations} cap and "
           f"{e2.stats.fill_record_escalations} fill-record escalations, "
           f"cap {e2.config.cap}); books verified; {launches} kernel launches")
-    step_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
-    return launches, len(zipf) / secs, step_s, secs
+    split = {k: span_seconds(v) for k, v in spans.items()}
+    return launches, len(zipf) / secs, split, secs
 
 
 # -- phase 4 -----------------------------------------------------------------
 
 def time_ms(fn, runs: int, warmup: int = 3) -> float:
-    """Median per-call milliseconds with CUDA events."""
+    """Median per-call milliseconds with CUDA events (one call between each
+    pair, so the wrapper's host work between the events counts)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -368,6 +598,26 @@ def time_ms(fn, runs: int, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_ms(fn, runs: int, warmup: int = 3) -> float:
+    """Device milliseconds per call: the mean of `runs` calls launched back
+    to back behind a GPU spin (torch.cuda._sleep, 1 ms at 2 GHz per call),
+    so the host's per-call work (the wrapper's checks and allocations) is
+    done while the card spins and opens no gaps between the two CUDA events.
+    A call whose host time exceeds its spin share still counts its gaps."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6 * runs))
+    a.record()
+    for _ in range(runs):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / runs
 
 
 def bound_ms(config, books, ops) -> tuple[float, str]:
@@ -391,21 +641,15 @@ def bound_ms(config, books, ops) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this run needs "
-              "a CUDA card", file=sys.stderr)
-        return 1
+def load_kernel(card: str) -> None:
+    """Phase 1: build (or load) the kernel; ptxas lines go to stderr."""
     from gome_tpu_torch.ops import build
-    from gome_tpu_torch.ops.match_step import batch_step, batch_step_reference
 
-    device = torch.device("cuda")
-    card = card_line()
-    print(card)
     t0 = time.perf_counter()
     build.load("match_step")
     info = build.build_info.get("match_step")
-    print(f"phase 1: match_step kernel ready in {time.perf_counter() - t0:.1f} s"
+    print(f"phase 1 [{card}]: match_step kernel ready in "
+          f"{time.perf_counter() - t0:.1f} s"
           + (" (built by nvcc)" if info else " (cached build)"))
     if info:
         for line in info[1].splitlines():
@@ -413,29 +657,59 @@ def main() -> int:
                                        "spill")):
                 print(f"  ptxas: {line.strip()}", file=sys.stderr)
 
-    sizes = dict(a=10240, b=1024, c=64, d=512, zipf_n=200_000,
-                 symbols=10240, hot_n=20_000, batch=8192)
-    worst, (config, books, ops) = phase2(device, sizes)
-    launches, orders_per_s, step_s, engine_s = phase3(device, sizes)
 
-    ms = time_ms(lambda: batch_step(config, books, ops), runs=30)
-    plain_ms = time_ms(lambda: batch_step_reference(config, books, ops),
-                       runs=5, warmup=1)
-    bound, bound_by = bound_ms(config, books, ops)
-    print(f"phase 4 [{card}]: match_step kernel {ms:.4f} ms per "
-          f"{ops.action.shape[0]}x{ops.action.shape[1]} grid (cap "
-          f"{config.cap}, K {config.max_fills}, int32; median of 30); plain "
-          f"PyTorch version {plain_ms:.3f} ms (median of 5); bound "
-          f"{bound:.4f} ms ({bound_by})")
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run needs "
+              "a CUDA card", file=sys.stderr)
+        return 1
+    from gome_tpu_torch.ops.match_step import batch_step, batch_step_reference
+
+    device = torch.device("cuda")
+    card = card_line()
+    print(card)
+    load_kernel(card)
+
+    sizes = dict(a=10240, b=1024, c=64, d=512, e_rows=2048, e_t=512,
+                 zipf_n=200_000, symbols=10240, hot_n=20_000, batch=8192)
+    worst, timing = phase2(device, sizes)
+    launches, orders_per_s, split, engine_s = phase3(device, sizes)
+
+    results = {}
+    for key, runs in (("a", 30), ("e", 10)):
+        config, books, ops = timing[key]
+        ms = time_ms(lambda: batch_step(config, books, ops), runs=runs)
+        dev = device_ms(lambda: batch_step(config, books, ops), runs=runs)
+        bound, bound_by = bound_ms(config, books, ops)
+        results[key] = dict(ms=ms, device_ms=dev, bound_ms=bound,
+                            bound_by=bound_by)
+        s, t = ops.action.shape
+        print(f"phase 4 [{card}]: match_step kernel on ({key}) {ms:.4f} ms per "
+              f"{s}x{t} grid (cap {config.cap}, K {config.max_fills}, int32, "
+              f"{int((ops.action != 0).sum())} live ops; median of {runs} "
+              f"calls); device time {dev:.4f} ms (mean of {runs} queued "
+              f"launches); bound {bound:.4f} ms ({bound_by})")
+    config, books, ops = timing["a"]
+    results["a"]["plain_ms"] = time_ms(
+        lambda: batch_step_reference(config, books, ops), runs=5, warmup=1)
+    results["e"]["plain_ms"] = timing["e_plain_ms"]
+    print(f"phase 4 [{card}]: plain PyTorch version {results['a']['plain_ms']:.3f}"
+          f" ms on (a) (median of 5), {results['e']['plain_ms']:.1f} ms on (e) "
+          f"(one run, phase 2)")
+    step_s = split["step"]
     print(f"phase 4 [{card}]: MatchEngine.process_columnar "
           f"{orders_per_s:,.0f} orders/s end to end ({sizes['zipf_n']} orders,"
           f" {sizes['symbols']} symbols, micro-batches of {sizes['batch']});"
-          f" device step time (gather, kernel, scatter) {step_s:.3f} s of "
-          f"{engine_s:.3f} s ({100 * step_s / engine_s:.1f}%)")
+          f" device steps {step_s:.4f} s of {engine_s:.3f} s "
+          f"({100 * step_s / engine_s:.1f}%): gather {split['gather']:.4f} s, "
+          f"kernel {split['kernel']:.4f} s, scatter {split['scatter']:.4f} s")
     row = dict(name="match_step", **KERNEL_ROWS["match_step"],
-               launches=launches, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-               bound_ms=bound, bound_by=bound_by, library_ms=None,
-               checked=True)
+               launches=launches, max_abs_err=worst, ms=results["a"]["ms"],
+               device_ms=results["a"]["device_ms"], plain_ms=results["a"]["plain_ms"],
+               bound_ms=results["a"]["bound_ms"],
+               bound_by=results["a"]["bound_by"], library_ms=None,
+               checked=True, grid="a", main_path_grid=dict(
+                   grid="e", library_ms=None, **results["e"]))
     print(json.dumps({"kernels": [row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,6 +47,38 @@ def test_kernel_matches_plain_version(cuda, cap, k, dtype, fill):
         assert torch.equal(a, b)  # the kernel never writes its inputs
 
 
+# (case, rows, T, cap, K, dtype): inputs aimed at the kernel's shortcuts
+# (chip_smoke.edge_case), at widths the engine reaches on the card.
+EDGE_CASES = [
+    ("deep", 1, 512, 2048, 16, torch.int32),
+    ("deep", 4, 256, 256, 16, torch.int64),
+    ("full", 24, 64, 256, 16, torch.int32),
+    ("full", 8, 64, 2048, 16, torch.int32),
+    ("full", 8, 64, 64, 64, torch.int64),
+    ("wipe", 24, 64, 256, 16, torch.int32),
+    ("wipe", 4, 32, 4096, 16, torch.int64),
+    ("del_ends", 16, 128, 256, 16, torch.int32),
+    ("del_ends", 4, 96, 2048, 16, torch.int64),
+    ("dup_oids", 24, 64, 256, 16, torch.int64),
+    ("heavy", 24, 64, 256, 16, torch.int32),
+    ("heavy", 8, 64, 2048, 16, torch.int32),
+    ("stale_tails", 24, 64, 256, 16, torch.int32),
+    ("full", 4, 64, 8192, 16, torch.int64),
+]
+
+
+@pytest.mark.parametrize("name, s, t, cap, k, dtype", EDGE_CASES)
+def test_kernel_matches_plain_version_on_edge_cases(cuda, name, s, t, cap, k,
+                                                    dtype):
+    rng = np.random.default_rng(cap * 1000 + t + s)
+    config = BookConfig(cap=cap, max_fills=k, dtype=dtype)
+    books, grid = chip_smoke.edge_case(rng, config, name, s, t, cuda)
+    before = [a.clone() for a in (*books, *grid)]
+    assert chip_smoke.check_kernel_case(name, config, books, [grid]) == 0
+    for a, b in zip((*books, *grid), before):
+        assert torch.equal(a, b)
+
+
 def test_engine_on_the_card_matches_the_oracle(cuda):
     config = BookConfig(cap=16, max_fills=4, dtype=torch.int32)
     zipf = multi_symbol_stream(n=3000, n_symbols=200, zipf_a=1.2,

@@ -10,11 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from bench import build_grids
 from gome_tpu.engine import BookConfig as JConfig
 from gome_tpu.engine import batch_step as jax_batch_step
 from gome_tpu.engine import init_books as jax_init_books
 from gome_tpu.engine.batch import dense_batch_step
+from gome_tpu.engine.book import BookState as JBooks
 from gome_tpu.engine.book import DeviceOp as JOp
 from gome_tpu.ops import pallas_batch_step
 from gome_tpu_torch.engine import BatchEngine, BookConfig, MatchEngine
@@ -180,3 +182,58 @@ def test_outputs_are_fresh_tensors():
     ptrs = {a.data_ptr() for a in (*books, *ops)}
     assert not ptrs & {a.data_ptr() for a in new}
     assert host(out.fill_qty).shape == (2, 3, 4)
+
+
+# (case, rows, T, cap, K, dtype): chip_smoke.edge_case inputs at small
+# size, aimed at the kernel's shortcuts (early exits, rings, the insert
+# search, cancel sums). The plain version is the kernel's yardstick on the
+# card, so it is held to gome_tpu on exactly these inputs.
+EDGE_CASES = [
+    ("deep", 1, 128, 64, 16, "int32"),
+    ("deep", 1, 128, 16, 4, "int64"),
+    ("full", 3, 40, 16, 4, "int32"),
+    ("full", 2, 40, 32, 32, "int64"),
+    ("wipe", 3, 24, 32, 8, "int64"),
+    ("wipe", 2, 24, 16, 16, "int32"),
+    ("del_ends", 2, 40, 16, 4, "int32"),
+    ("dup_oids", 3, 32, 32, 8, "int64"),
+    ("heavy", 3, 32, 16, 4, "int32"),
+    ("stale_tails", 3, 32, 24, 6, "int32"),
+]
+
+
+@pytest.mark.parametrize("name, s, t, cap, k, dtype", EDGE_CASES)
+def test_plain_version_matches_gome_tpu_on_edge_cases(name, s, t, cap, k,
+                                                      dtype):
+    jc, tc = _configs(dtype, cap=cap, k=k)
+    rng = np.random.default_rng(cap * 1000 + t + s)
+    books, ops = chip_smoke.edge_case(rng, tc, name, s, t, "cpu")
+    jbooks = JBooks(*(jnp.asarray(host(a)) for a in books))
+    jops = JOp(*(jnp.asarray(host(a)) for a in ops))
+    tb, to = batch_step(tc, books, ops)
+    jb, jo = jax_batch_step(jc, jbooks, jops)
+    pb, po = pallas_batch_step(jc, jbooks, jops, block_s=s, interpret=True)
+    assert_leaves_equal(to, po)
+    assert_leaves_equal(to, jo, check_dtype=False)
+    assert_leaves_equal(tb, pb)
+    assert_leaves_equal(tb, jb)
+    # Each case exercises what it is named for.
+    count = host(books.count)
+    if name == "deep":
+        assert (host(ops.action) != 0).all() and int(to.n_fills.sum()) > 0
+    if name == "full":
+        assert (count == cap).all() and int(to.book_overflow.sum()) > 0
+        assert int(to.rested.sum()) > 0
+    if name == "wipe":
+        assert (host(to.n_fills)[:, 0] == count[:, 1]).all()
+        assert (host(to.n_fills)[:, 1] == count[:, 0] + 1).all()
+    if name == "del_ends":
+        assert int(to.cancel_found.sum()) == int((host(ops.action) == 2).sum())
+    if name == "dup_oids":
+        vol = host(to.cancel_volume).astype(np.int64)
+        assert (vol > 100).any()  # a cancel summed several resting orders
+    if name == "heavy":
+        assert (host(to.n_fills) > 1).any()
+    if name == "stale_tails":
+        price = host(books.price)
+        assert (price[:, :, -1] != 0).all()
