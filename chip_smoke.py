@@ -25,7 +25,20 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      card's time alone) with each grid's bound, the plain version's times,
      the columnar run's orders/s and its device steps split into dense
      gather, kernel and scatter (CUDA events), each beside the card's name
-     and power limit.
+     and power limit;
+  5. the frame path: (a) phase 3's Zipf flow through
+     MatchEngine.process_frame(fast=True) in frames of 8,192 orders (ADDs
+     pre-marked with mark_frame), per-grid cap classes, device-side event
+     compaction and the two-phase fetch; events equal to the oracle, books
+     verified, launches equal to device calls, at least one grid below the
+     storage cap and at least one exact-path fallback (the hot lane's
+     storage escalation), and no host sync in any submit_frame
+     (torch.cuda.set_sync_debug_mode("error")); (b) a frame whose fills
+     overflow the compaction buffer falls back once and raises its
+     class's fills floor, and the next such frame does not fall back;
+     then orders/s, the device steps' share, the split into gather,
+     kernel, scatter, compaction and grid builds, the two fetch phases'
+     seconds, and phase 3's orders/s from the same run.
 
 The last two lines are the kernel table (JSON) and
 {"ok": true, "device": {...}}.
@@ -470,15 +483,22 @@ def run_engine(engine, orders, batch: int, columnar: bool):
 @contextlib.contextmanager
 def step_timer(engine):
     """Bracket every device step of ``engine`` with CUDA events, and inside
-    it the dense gather, the match-step kernel and the scatter. Yields a
-    dict of lists of (start, end) event pairs ("step", "gather", "kernel",
-    "scatter"), read after the block (empty off the card)."""
+    it the gather (the dense gather, or the full grid's slice to its cap
+    class), the match-step kernel and the scatter (the dense scatter, or the
+    full grid's write-back); around the whole block also the frame path's
+    grid builds and event compactions. Yields a dict of lists of (start,
+    end) event pairs ("step", "gather", "kernel", "scatter", "grid_build",
+    "compaction"), read after the block (empty off the card), and under
+    "grids" the (cap class, storage cap) of every step."""
     from gome_tpu_torch.engine import batch as batch_mod
+    from gome_tpu_torch.engine import frames as frames_mod
     from gome_tpu_torch.ops import match_step
 
     batch = engine.batch
     inner = batch._step
-    spans = {k: [] for k in ("step", "gather", "kernel", "scatter")}
+    keys = ("step", "gather", "kernel", "scatter", "grid_build", "compaction")
+    spans = {k: [] for k in keys}
+    grids = []
 
     def bracket(fn, key):
         def timed(*args):
@@ -491,27 +511,39 @@ def step_timer(engine):
             return out
         return timed
 
-    def step(*args):
-        # Inside this step only, engine/batch.py's gather and scatter and
-        # the kernel's wrapper are bracketed, each wrapped in place (the
-        # launch count stays on the wrapper's own function).
-        if batch.device.type != "cuda":
-            return inner(*args)
-        places = ((batch_mod, "_gather_rows", "gather"),
-                  (match_step, "batch_step", "kernel"),
-                  (batch_mod, "_scatter_rows", "scatter"))
+    @contextlib.contextmanager
+    def wrapped(places):
+        # Each function is wrapped in place and restored (the launch count
+        # stays on the kernel wrapper's own function).
         saved = [getattr(mod, name) for mod, name, _ in places]
         for (mod, name, key), fn in zip(places, saved):
             setattr(mod, name, bracket(fn, key))
         try:
-            return bracket(inner, "step")(*args)
+            yield
         finally:
             for (mod, name, _), fn in zip(places, saved):
                 setattr(mod, name, fn)
 
+    def step(books, ops, lane_ids=None, cap_g=None):
+        grids.append((cap_g, batch.config.cap))
+        if batch.device.type != "cuda":
+            return inner(books, ops, lane_ids, cap_g)
+        with wrapped(((batch_mod, "_gather_rows", "gather"),
+                      (batch_mod, "_slice_books_cap", "gather"),
+                      (match_step, "batch_step", "kernel"),
+                      (batch_mod, "_scatter_books_cap", "scatter"),
+                      (batch_mod, "_writeback_full_cap", "scatter"))):
+            return bracket(inner, "step")(books, ops, lane_ids, cap_g)
+
+    frame_places = ((frames_mod, "_scatter_grid_fn", "grid_build"),
+                    (frames_mod, "compact_accum", "compaction"))
     batch._step = step
     try:
-        yield spans
+        if batch.device.type == "cuda":
+            with wrapped(frame_places):
+                yield dict(spans, grids=grids)
+        else:
+            yield dict(spans, grids=grids)
     finally:
         del batch._step
     if spans["step"]:
@@ -576,8 +608,244 @@ def phase3(device, sizes):
           f"({e2.stats.cap_escalations} cap and "
           f"{e2.stats.fill_record_escalations} fill-record escalations, "
           f"cap {e2.config.cap}); books verified; {launches} kernel launches")
-    split = {k: span_seconds(v) for k, v in spans.items()}
-    return launches, len(zipf) / secs, split, secs
+    split = {k: span_seconds(v) for k, v in spans.items() if k != "grids"}
+    return launches, len(zipf) / secs, split, secs, zipf, want_zipf
+
+
+# -- phase 5 -----------------------------------------------------------------
+
+def frame_columns(orders) -> dict:
+    """Orders -> one decoded ORDER frame, in the layout the wire decoder
+    returns: uint8 action/side/kind, int64 price/volume, per-frame symbol
+    and uuid dictionaries (first-seen order) with uint32 index columns, and
+    the oids as a numpy bytes array."""
+    n = len(orders)
+    symbols, uuids, sym_ix, uuid_ix = [], [], {}, {}
+    symbol_idx = np.empty(n, np.uint32)
+    uuid_idx = np.empty(n, np.uint32)
+    for i, o in enumerate(orders):
+        symbol_idx[i] = sym_ix.setdefault(o.symbol, len(symbols))
+        if symbol_idx[i] == len(symbols):
+            symbols.append(o.symbol)
+        uuid_idx[i] = uuid_ix.setdefault(o.uuid, len(uuids))
+        if uuid_idx[i] == len(uuids):
+            uuids.append(o.uuid)
+    return dict(
+        n=n,
+        action=np.array([int(o.action) for o in orders], np.uint8),
+        side=np.array([int(o.side) for o in orders], np.uint8),
+        kind=np.array([int(o.order_type) for o in orders], np.uint8),
+        price=np.array([o.price for o in orders], np.int64),
+        volume=np.array([o.volume for o in orders], np.int64),
+        symbols=symbols, symbol_idx=symbol_idx,
+        uuids=uuids, uuid_idx=uuid_idx,
+        oids=np.array([o.oid.encode() for o in orders]),
+    )
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Run every frames.submit_frame inside the block under
+    torch.cuda.set_sync_debug_mode("error"): a host sync anywhere in it
+    (packing, the grids' steps, the compactions, the start of the fetch)
+    raises. Yields a list holding the count of checked calls."""
+    from gome_tpu_torch.engine import frames
+
+    inner = frames.submit_frame
+    checked = [0]
+
+    def submit(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = inner(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        checked[0] += 1
+        return out
+
+    frames.submit_frame = submit
+    try:
+        yield checked
+    finally:
+        frames.submit_frame = inner
+
+
+@contextlib.contextmanager
+def keep_kernel_inputs():
+    """Wrap the match-step kernel's wrapper for the block and keep, for
+    each launch shape (cap, K, dtype), the inputs of its deepest grid (most
+    ops per row) and of its widest (most rows): the engine never writes a
+    kernel's input books or ops in place, so they still hold what the
+    kernel saw when check_kept_inputs re-runs them. Yields
+    {(cap, K, dtype): {"deep" | "wide": (config, books, ops)}}."""
+    from gome_tpu_torch.ops import match_step
+
+    inner = match_step.batch_step
+    kept = {}
+
+    def launch(config, books, ops):
+        pair = kept.setdefault(
+            (config.cap, config.max_fills, str(config.dtype)[6:]), {})
+        s, t = ops.action.shape
+        for role, size in (("deep", (t, s)), ("wide", (s, t))):
+            held = pair.get(role)
+            if held is None or size > held[0]:
+                pair[role] = (size, (config, books, ops))
+        return inner(config, books, ops)
+
+    match_step.batch_step = launch
+    try:
+        yield kept
+    finally:
+        match_step.batch_step = inner
+
+
+def check_kept_inputs(label, kept) -> tuple[int, str]:
+    """Re-run every kept grid through the kernel and its plain version;
+    every book and StepOutput leaf must be equal. These launches come after
+    the main path's count is read. Returns (worst |error|, report line)."""
+    from gome_tpu_torch.ops.match_step import batch_step, batch_step_reference
+
+    worst, shapes = 0, []
+    for (cap, k, dtype), pair in sorted(kept.items()):
+        grids = {id(g[1][2]): g[1] for g in (pair["deep"], pair["wide"])}
+        for config, books, ops in grids.values():
+            nb, out = batch_step(config, books, ops)
+            pb, pout = batch_step_reference(config, books, ops)
+            sync(books.price.device)
+            err = max(max_abs_err(out, pout), max_abs_err(nb, pb))
+            s, t = ops.action.shape
+            if err:
+                raise SystemExit(f"{label}: kernel differs from its plain "
+                                 f"version on the {s}x{t} grid at cap {cap},"
+                                 f" K {k}, {dtype} (max |err| {err})")
+            worst = max(worst, err)
+            shapes.append(f"{s}x{t}@{cap}/K{k}/{dtype}")
+    return worst, (f"{label}: kernel equal to its plain version on every "
+                   f"leaf at the inputs the frame path gave it, the deepest "
+                   f"and the widest grid of each launch shape: "
+                   f"{', '.join(shapes)}")
+
+
+def run_frames(engine, frames, fast: bool = True):
+    """Mark every frame's ADDs (as the gateway would), then feed the frames
+    through MatchEngine.process_frame. Returns (events, seconds spent
+    inside the process_frame calls)."""
+    for cols in frames:
+        engine.mark_frame(cols)
+    spent, batches = 0.0, []
+    for cols in frames:
+        t0 = time.perf_counter()
+        batches.append(engine.process_frame(cols, fast=fast))
+        spent += time.perf_counter() - t0
+    return [ev for b in batches for ev in b.to_results()], spent
+
+
+def check_events(label, got, want) -> None:
+    if got != want:
+        bad = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b) \
+            if len(got) == len(want) else min(len(got), len(want))
+        raise SystemExit(f"{label}: {len(got)} events vs oracle {len(want)}, "
+                         f"first difference at {bad}")
+
+
+def fill_buffer_check(device, symbols: int) -> str:
+    """Phase 5 (b): 64 symbols with 16 resting one-lot SELLs each, then a
+    frame of 64 BUYs that each sweep one symbol's 16 (16 fills = K: only
+    the fills buffer trips, sized 64 for a 64-op frame). The frame must
+    fall back, raise its class's fills floor to 1,024 and equal the oracle;
+    the same pair of frames again must not fall back."""
+    from gome_tpu_torch.engine import BookConfig, MatchEngine
+    from gome_tpu_torch.types import Order, Side
+
+    eng = MatchEngine(BookConfig(cap=256, max_fills=16, dtype=torch.int32),
+                      n_slots=symbols, max_t=32, device=device)
+    syms = [f"fb{i}" for i in range(64)]
+
+    def pair(r):
+        rest = [Order(uuid="maker", oid=f"fb{r}-{s}-{i}", symbol=s,
+                      side=Side.SALE, price=1000 + i, volume=1)
+                for s in syms for i in range(16)]
+        sweep = [Order(uuid="taker", oid=f"fbx{r}-{s}", symbol=s,
+                       side=Side.BUY, price=2000, volume=16) for s in syms]
+        return rest, sweep
+
+    orders, got, floors = [], [], []
+    for r in range(2):
+        rest, sweep = pair(r)
+        orders += rest + sweep
+        events, _ = run_frames(eng, [frame_columns(rest),
+                                     frame_columns(sweep)])
+        got += events
+        floors.append((eng.stats.frame_fallbacks,
+                       eng.batch._fills_buf_floor.get(64, 0)))
+    check_events("phase 5 (b)", got, oracle_events(orders))
+    eng.batch.verify_books()
+    if floors != [(1, 1024), (1, 1024)]:
+        raise SystemExit(f"phase 5 (b): (fallbacks, fills floor of class 64) "
+                         f"after each pair {floors}, expected [(1, 1024), "
+                         "(1, 1024)]")
+    return (f"phase 5 (b): fills-buffer trip: {len(got)} events equal to the "
+            f"oracle; 1 fallback on the first sweep frame, class-64 fills "
+            f"floor 64 -> 1024, no fallback on the second")
+
+
+def phase5(device, sizes, zipf, want_zipf):
+    """Phase 5 (a): the phase-3 flow through MatchEngine.process_frame
+    (fast) in frames of sizes["batch"] orders, every submit_frame checked
+    for host syncs, the kernel held against its plain version at the
+    inputs the run gave it; (b) fill_buffer_check. Returns the launches,
+    the worst kernel |error|, the orders/s, the split, the fetch seconds
+    and the report lines."""
+    from gome_tpu_torch.engine import BookConfig, MatchEngine, frames
+    from gome_tpu_torch.ops.match_step import batch_step
+
+    frame_list = [frame_columns(zipf[i:i + sizes["batch"]])
+                  for i in range(0, len(zipf), sizes["batch"])]
+    eng = MatchEngine(BookConfig(cap=256, max_fills=16, dtype=torch.int32),
+                      n_slots=sizes["symbols"], max_t=32, device=device)
+    frames.FETCH_SECONDS = frames.FETCH_TOTALS_SECONDS = 0.0
+    batch_step.launches = 0
+    with keep_kernel_inputs() as kept, step_timer(eng) as spans, \
+            no_host_sync() as checked:
+        got, secs = run_frames(eng, frame_list)
+    launches = batch_step.launches
+    worst, kept_line = check_kept_inputs("phase 5 (a)", kept)
+    check_events("phase 5 (a) frame path", got, want_zipf)
+    eng.batch.verify_books()
+    st = eng.stats
+    if launches <= 0 or launches != st.device_calls:
+        raise SystemExit(f"phase 5 (a): {launches} kernel launches for "
+                         f"{st.device_calls} device calls")
+    below = sum(1 for c, storage in spans["grids"] if c < storage)
+    if below == 0:
+        raise SystemExit("phase 5 (a): no grid ran below the storage cap")
+    if st.frame_fallbacks == 0 or st.cap_escalations == 0:
+        raise SystemExit(f"phase 5 (a): the storage escalation did not go "
+                         f"through the exact fallback: {st}")
+    if checked[0] != len(frame_list):
+        raise SystemExit(f"phase 5 (a): {checked[0]} submit_frame calls "
+                         f"checked for {len(frame_list)} frames")
+    per_class = {}
+    for c, _ in spans["grids"]:
+        per_class[c] = per_class.get(c, 0) + 1
+    split = {k: span_seconds(v) for k, v in spans.items() if k != "grids"}
+    fetch = (frames.FETCH_TOTALS_SECONDS,
+             frames.FETCH_SECONDS - frames.FETCH_TOTALS_SECONDS)
+    lines = [
+        f"phase 5 (a): process_frame(fast) {len(zipf)} orders over "
+        f"{sizes['symbols']} symbols in {len(frame_list)} frames -> {len(got)} "
+        f"events equal to the oracle; books verified; {launches} kernel "
+        f"launches = device calls; grids per cap class "
+        f"{dict(sorted(per_class.items()))} ({below} below the storage cap, "
+        f"storage cap {eng.config.cap}); {st.grid_cap_escalations} grid-cap "
+        f"escalations, {st.cap_escalations} storage escalations, "
+        f"{st.frame_fallbacks} frame fallbacks; no host sync in "
+        f"{checked[0]} submit_frame calls",
+        kept_line,
+        fill_buffer_check(device, sizes["symbols"]),
+    ]
+    return launches, worst, len(zipf) / secs, split, secs, fetch, lines
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -673,7 +941,8 @@ def main() -> int:
     sizes = dict(a=10240, b=1024, c=64, d=512, e_rows=2048, e_t=512,
                  zipf_n=200_000, symbols=10240, hot_n=20_000, batch=8192)
     worst, timing = phase2(device, sizes)
-    launches, orders_per_s, split, engine_s = phase3(device, sizes)
+    launches, orders_per_s, split, engine_s, zipf, want_zipf = phase3(
+        device, sizes)
 
     results = {}
     for key, runs in (("a", 30), ("e", 10)):
@@ -703,8 +972,26 @@ def main() -> int:
           f" device steps {step_s:.4f} s of {engine_s:.3f} s "
           f"({100 * step_s / engine_s:.1f}%): gather {split['gather']:.4f} s, "
           f"kernel {split['kernel']:.4f} s, scatter {split['scatter']:.4f} s")
+    f_launches, f_worst, f_orders_per_s, f_split, frame_s, fetch, lines = \
+        phase5(device, sizes, zipf, want_zipf)
+    for line in lines:
+        print(line)
+    f_step = f_split["step"]
+    print(f"phase 5 [{card}]: MatchEngine.process_frame(fast) "
+          f"{f_orders_per_s:,.0f} orders/s end to end ({sizes['zipf_n']} "
+          f"orders, frames of {sizes['batch']}); device steps {f_step:.4f} s "
+          f"of {frame_s:.3f} s ({100 * f_step / frame_s:.1f}%): gather "
+          f"{f_split['gather']:.4f} s, kernel {f_split['kernel']:.4f} s, "
+          f"scatter {f_split['scatter']:.4f} s; compaction "
+          f"{f_split['compaction']:.4f} s, grid builds "
+          f"{f_split['grid_build']:.4f} s; fetch {fetch[0]:.4f} s (phase 1, "
+          f"totals, waits for the frame's device work) + {fetch[1]:.4f} s "
+          f"(phase 2, event prefixes); phase 3 process_columnar "
+          f"{orders_per_s:,.0f} orders/s, device steps {step_s:.4f} s, in "
+          f"this run")
     row = dict(name="match_step", **KERNEL_ROWS["match_step"],
-               launches=launches, max_abs_err=worst, ms=results["a"]["ms"],
+               launches=launches, frame_path_launches=f_launches,
+               max_abs_err=max(worst, f_worst), ms=results["a"]["ms"],
                device_ms=results["a"]["device_ms"], plain_ms=results["a"]["plain_ms"],
                bound_ms=results["a"]["bound_ms"],
                bound_by=results["a"]["bound_by"], library_ms=None,

@@ -8,8 +8,8 @@ Layout:
   gome_tpu_torch.types    — domain types (Side, Action, Order, MatchResult)
   gome_tpu_torch.fixed    — fixed-point scaling
   gome_tpu_torch.oracle   — pure-Python executable model of the semantics
-  gome_tpu_torch.engine   — torch book state, the step, BatchEngine and
-                            the MatchEngine facade
+  gome_tpu_torch.engine   — torch book state, the step, BatchEngine, the
+                            frame path and the MatchEngine facade
   gome_tpu_torch.ops      — the hand-written CUDA match-step kernel and its
                             plain PyTorch version
   gome_tpu_torch.utils    — synthetic order streams

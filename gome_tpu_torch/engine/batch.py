@@ -2,8 +2,9 @@
 op grid (R symbol rows, T time slots, NOP-padded) and the device applies all
 of it in one kernel launch.
 
-The port of ``gome_tpu/engine/batch.py`` (its object and columnar paths).
-Two invariants make one grid exactly equivalent to sequential processing:
+The port of ``gome_tpu/engine/batch.py`` (its object and columnar paths,
+and the per-grid cap classes the frame path in ``engine/frames.py`` runs
+on). Two invariants make one grid exactly equivalent to sequential processing:
 
   * same-symbol operations never split across rows and keep arrival order
     within the row (the reference's correctness-by-single-threadedness);
@@ -14,6 +15,13 @@ Fixed device budgets (book capacity, K fill records) never cost exactness:
 the engine keeps the pre-grid books and, when a budget trips, grows the
 slot axis and re-runs the whole grid, or re-runs one row with a larger
 record budget, before decoding.
+
+Per-grid cap classes: a grid may run on the leading ``cap_g`` slots of the
+storage (a class of ``_cap_ladder``: 64, 256, 1024, ... up to the storage
+cap), so shallow lanes never pay one hot lane's escalated depth. A lane
+deeper than its grid's class is flagged by ``_guard_capped`` and the grid
+re-runs at a deeper class (``stats.grid_cap_escalations``) before the
+storage itself grows.
 
 Every device update builds new tensors; nothing is written in place. The
 pre-grid books (escalation replay) and the checkpoint (rollback of a raised
@@ -29,6 +37,7 @@ import torch
 
 from ..ops import match_step
 from ..types import Action, MatchResult, Order, OrderType
+from ..utils.cache import IdentityCache
 from .book import (
     BUY,
     BookConfig,
@@ -67,6 +76,70 @@ def _next_pow2(n: int) -> int:
     return p
 
 
+def _next_pow4(n: int) -> int:
+    """Coarser bucket for a frame's train grids: pow4 classes (8, 32, 128,
+    ...) visit 4x fewer shapes for at most 4x padding on small grids."""
+    p = 1
+    while p < n:
+        p *= 4
+    return p
+
+
+#: Smallest per-grid cap class. Also keeps every class >= the default
+#: max_fills record budget.
+CAP_CLASS_MIN = 64
+
+
+def _cap_ladder(cap: int) -> list[int]:
+    """The per-grid cap classes available under a storage cap: pow4 steps
+    from CAP_CLASS_MIN (64, 256, 1024, ...) strictly below `cap`, plus `cap`
+    itself. A storage cap at or below CAP_CLASS_MIN yields a single class
+    (every grid runs at the storage cap)."""
+    if cap <= CAP_CLASS_MIN:
+        return [cap]
+    out = []
+    c = CAP_CLASS_MIN
+    while c < cap:
+        out.append(c)
+        c *= 4
+    out.append(cap)
+    return out
+
+
+def _slice_books_cap(books: BookState, cap: int) -> BookState:
+    """The leading `cap` slots of every lane (the books themselves at the
+    storage width), as contiguous tensors — the kernel takes no strided
+    views. Exact for every lane whose resting count <= cap (active slots
+    are a prefix); _guard_capped flags the deeper ones."""
+    if books.price.shape[-1] == cap:
+        return books
+    cut = lambda a: a[..., :cap].contiguous()
+    return books._replace(
+        price=cut(books.price), lots=cut(books.lots), seq=cut(books.seq),
+        oid=cut(books.oid), uid=cut(books.uid),
+    )
+
+
+def _writeback_full_cap(books: BookState, sub: BookState, cap: int):
+    """A cap-sliced full-grid result written into a copy of the
+    storage-width stack (row == lane; slots beyond `cap` were untouched by
+    the grid). The input stack is left as it was: the checkpoint and the
+    escalation replay hold it."""
+    if books.price.shape[-1] == cap:
+        return sub
+
+    def put(a, s):
+        out = a.clone()
+        out[..., :cap] = s
+        return out
+
+    return books._replace(
+        price=put(books.price, sub.price), lots=put(books.lots, sub.lots),
+        seq=put(books.seq, sub.seq), oid=put(books.oid, sub.oid),
+        uid=put(books.uid, sub.uid), count=sub.count, next_seq=sub.next_seq,
+    )
+
+
 def _guard_capped(outs: StepOutput, pre_counts, cap: int,
                   ops: DeviceOp) -> StepOutput:
     """Flag rows whose PRE-grid resting count exceeds the grid's cap: their
@@ -83,32 +156,36 @@ def _guard_capped(outs: StepOutput, pre_counts, cap: int,
     )
 
 
-def _rows_mask(valid: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    return valid.view(-1, *([1] * (a.dim() - 1)))
+def _gather_rows(books: BookState, lane_ids: torch.Tensor, n_live: int,
+                 cap: int) -> BookState:
+    """Dense gather at cap class `cap`: row r < n_live takes the leading
+    `cap` slots of lane lane_ids[r]; the sentinel rows past n_live (the
+    live rows are a prefix) get zero books. No host sync."""
+    ids = lane_ids.clamp(max=books.count.shape[0] - 1)
+
+    def take(a):
+        out = (a[..., :cap] if a.dim() == 3 else a)[ids]
+        out[n_live:] = 0
+        return out
+
+    return BookState(*(take(a) for a in books))
 
 
-def _gather_rows(books: BookState, lane_ids: torch.Tensor) -> BookState:
-    """Dense gather: row r takes lane lane_ids[r]; sentinel ids (>= S) get
-    zero books."""
-    valid = lane_ids < books.count.shape[0]
-    idx = torch.where(valid, lane_ids, torch.zeros_like(lane_ids))
-    return BookState(
-        *(
-            torch.where(_rows_mask(valid, a), a[idx], torch.zeros_like(a[idx]))
-            for a in books
-        )
-    )
-
-
-def _scatter_rows(books: BookState, lane_ids: torch.Tensor,
-                  sub: BookState) -> BookState:
-    """Dense scatter into a copy of ``books``; sentinel rows are dropped."""
-    valid = lane_ids < books.count.shape[0]
-    ids = lane_ids[valid]
+def _scatter_books_cap(books: BookState, lane_ids: torch.Tensor, n_live: int,
+                       sub: BookState, cap: int) -> BookState:
+    """Scatter a dense grid's sub-stack into a copy of ``books``, writing
+    only the leading `cap` slots of each live lane (sentinel rows drop).
+    Lanes in a cap-class grid hold nothing beyond `cap` (guarded), so the
+    untouched tail slots stay zero. The input stack is left as it was. No
+    host sync."""
+    ids = lane_ids[:n_live]
 
     def put(a, s):
         out = a.clone()
-        out[ids] = s[valid]
+        if a.dim() == 3:
+            out[ids, :, :cap] = s[:n_live]
+        else:
+            out[ids] = s[:n_live]
         return out
 
     return BookState(*(put(a, s) for a, s in zip(books, sub)))
@@ -163,7 +240,12 @@ class EngineStats:
     dropped_no_prepool: int = 0  # incremented by the orchestrator facade
     device_calls: int = 0  # match-step kernel launches
     cap_escalations: int = 0
+    # Confined escalations: one GRID's cap class deepened (re-sliced from
+    # the same storage) without growing the [S]-wide stack
+    # (cap_escalations = storage grew).
+    grid_cap_escalations: int = 0
     fill_record_escalations: int = 0
+    frame_fallbacks: int = 0  # fast-path frames re-run on the exact path
     lane_growths: int = 0
 
 
@@ -212,12 +294,28 @@ class BatchEngine:
         self.max_cap = max_cap
         self.dense = dense
         self.dense_t_max = dense_t_max
-        # Grow-only geometry ratchets keyed by cap: compiled-shape stability
-        # on the reference side; here they keep grid shapes identical to it.
+        # Grow-only geometry ratchets keyed by cap class: compiled-shape
+        # stability on the reference side; here they keep grid shapes
+        # identical to it.
         self._dense_rows_floor: dict[int, int] = {}
         self._dense_t_floor: dict[int, int] = {}
+        # Per-lane resting-count upper bound, the host-side input to
+        # cap-class selection (frames._class_partitions): ub = _ub_base
+        # (true per-lane max-side counts at the last device fetch) +
+        # _ub_extra (limit-ADDs packed since; each can rest at most once).
+        # A performance hint only: an underestimate is caught on the device
+        # by _guard_capped and re-run deeper.
+        self._ub_base = np.zeros(n_slots, np.int64)
+        self._ub_extra = np.zeros(n_slots, np.int64)
+        # Compaction-buffer ratchets (frames._compact_sizes): grow-only
+        # fetch-buffer sizes keyed by the frame's pow2 op-count class.
+        self._fills_buf_floor: dict[int, int] = {}
+        self._cancels_buf_floor: dict[int, int] = {}
         self.books = init_books(config, n_slots, self.device)
         self.symbols = Interner()  # lane = interner id - 1
+        # symbol-dictionary object -> (lane-id array, max lane); hits are
+        # revalidated against n_slots (frames._lane_map).
+        self._lane_map_cache = IdentityCache()
         self.oids = Interner()
         self.uids = Interner()
         self.stats = EngineStats()
@@ -244,6 +342,44 @@ class BatchEngine:
         self._base_set = np.pad(self._base_set, (0, pad))
         self._env_lo = np.pad(self._env_lo, (0, pad))
         self._env_hi = np.pad(self._env_hi, (0, pad))
+        self._ub_base = np.pad(self._ub_base, (0, pad))
+        self._ub_extra = np.pad(self._ub_extra, (0, pad))
+
+    # -- resting-count upper bound (cap-class selection) -------------------
+    def count_ub(self) -> np.ndarray:
+        """Current per-lane upper bound on max-side resting count."""
+        return self._ub_base + self._ub_extra
+
+    def note_packed_adds(self, add_counts: np.ndarray) -> None:
+        """Record a packed batch's per-lane limit-ADD counts (each may rest
+        at most once, keeping count_ub an upper bound). add_counts is
+        [n_slots] at pack time; callers keep it for _note_exact_counts."""
+        self._ub_extra[: len(add_counts)] += add_counts
+
+    def _note_exact_counts(self, counts_max, resolved_adds=None) -> None:
+        """Reset the estimate from a device fetch of true per-lane max-side
+        counts (taken AFTER some batch B executed). resolved_adds = B's own
+        note_packed_adds increments when later batches are already packed
+        on top (extra minus B's share is the still-in-flight sum); None
+        asserts nothing is in flight and zeroes extra."""
+        n = self.n_slots
+        base = np.zeros(n, np.int64)
+        m = min(len(counts_max), n)
+        base[:m] = np.asarray(counts_max[:m], np.int64)
+        self._ub_base = base
+        if resolved_adds is None:
+            self._ub_extra = np.zeros(n, np.int64)
+        else:
+            extra = self._ub_extra.copy()
+            m = min(len(resolved_adds), n)
+            extra[:m] -= np.asarray(resolved_adds[:m], np.int64)
+            np.maximum(extra, 0, out=extra)
+            self._ub_extra = extra
+
+    @staticmethod
+    def _buf_class(n: int) -> int:
+        """Compaction-buffer floors are keyed by the pow2 op-count class."""
+        return _next_pow2(max(n, 64))
 
     def _prepare_bases(self, pending, lanes) -> np.ndarray:
         """Set / recenter per-lane price bases so every ADMITTED price in
@@ -284,22 +420,33 @@ class BatchEngine:
                 drop[i] = True
         return drop
 
-    def _grid_geometry(self, live: np.ndarray):
+    def _grid_geometry(self, live: np.ndarray, first: bool = True,
+                       cls: int | None = None):
         """When the batch touches few of the provisioned lanes, pack a
         compact grid over just the live lanes (row -> lane indirection);
         rows bucket to powers of two (min 8) with sentinel padding rows.
 
+        `first` marks the first dense grid of a frame's train: only it
+        consults and advances the grow-only row floor. The train's deeper
+        grids (lanes outliving earlier grids' time axes) use raw pow4
+        buckets, so a tail grid never runs at the head grid's width.
+        `cls` keys the floors by the grid's cap class (None = the storage
+        cap).
+
         Returns (use_dense, n_rows, lane_ids, row_of): lane_ids [n_rows]
-        lane ids with sentinel n_slots on padding rows; row_of [n_slots]
-        maps live lane -> row. Both None for full grids."""
+        lane ids with sentinel n_slots on padding rows (the live rows are a
+        prefix); row_of [n_slots] maps live lane -> row. Both None for full
+        grids."""
         if not (self.dense and len(live) > 0):
             return False, self.n_slots, None, None
-        cls = self.config.cap
-        floor = self._dense_rows_floor.get(cls, 8)
-        n_rows = max(8, _next_pow2(len(live)), floor)
+        cls = self.config.cap if cls is None else cls
+        floor = self._dense_rows_floor.get(cls, 8) if first else 8
+        bucket = _next_pow2 if first else _next_pow4
+        n_rows = max(8, bucket(len(live)), floor)
         if n_rows >= self.n_slots:
             return False, self.n_slots, None, None
-        self._dense_rows_floor[cls] = n_rows
+        if first:
+            self._dense_rows_floor[cls] = n_rows
         lane_ids = np.full(n_rows, self.n_slots, np.int64)
         lane_ids[: len(live)] = live
         row_of = np.empty(self.n_slots, np.int64)
@@ -373,24 +520,30 @@ class BatchEngine:
     def _checkpoint(self):
         """Everything a failed batch must roll back: the book stack (never
         written in place, so keeping the reference is enough) plus the
-        host-side rebasing state. Interner growth is not rolled back
-        (grow-only and idempotent)."""
+        host-side rebasing state and the resting-count bound that packing
+        mutates. Interner growth is not rolled back (grow-only and
+        idempotent)."""
         return (
             self.books, self.config, self.n_slots,
             self.price_base.copy(), self._base_set.copy(),
             self._env_lo.copy(), self._env_hi.copy(),
+            self._ub_base.copy(), self._ub_extra.copy(),
         )
 
     def _restore(self, cp) -> None:
-        """Copies the host arrays: a checkpoint may be restored twice."""
+        """Copies the host arrays: a checkpoint may be restored twice
+        (restore, exact re-run mutates the rebasing state in place, re-run
+        fails, restore the same checkpoint again)."""
         (
             self.books, self.config, self.n_slots,
-            price_base, base_set, env_lo, env_hi,
+            price_base, base_set, env_lo, env_hi, ub_base, ub_extra,
         ) = cp
         self.price_base = price_base.copy()
         self._base_set = base_set.copy()
         self._env_lo = env_lo.copy()
         self._env_hi = env_hi.copy()
+        self._ub_base = ub_base.copy()
+        self._ub_extra = ub_extra.copy()
 
     def process(self, orders: list[Order]) -> list[MatchResult]:
         """Apply a micro-batch. Symbols with more than max_t ops are drained
@@ -466,6 +619,8 @@ class BatchEngine:
                 arr[lane, t] = getattr(op, name)
             contexts[(lane, t)] = (arrival, order)
             fill_level[lane] = t + 1
+            if order.action is Action.ADD and not op.is_market:
+                self._ub_extra[lane] += 1  # count_ub upper-bound upkeep
         return DeviceOp(**grid), contexts, leftover
 
     def process_columnar(self, orders: list[Order]):
@@ -575,6 +730,14 @@ class BatchEngine:
             rec[5] = oids.intern(o.oid)
             rec[6] = uids.intern(o.uuid)
         adds = packed & (table[:, 0] == int(Action.ADD))
+        # Keep count_ub an upper bound across paths: every packed limit ADD
+        # may rest once (the frame path's increments live in
+        # frames._frame_arrays).
+        rest_candidates = adds & (table[:, 2] == 0)
+        if rest_candidates.any():
+            self._ub_extra += np.bincount(
+                lanes[rest_candidates], minlength=self.n_slots
+            )
         bad = adds & (table[:, 4] <= 0)
         if bad.any():
             i = int(np.nonzero(bad)[0][0])
@@ -632,7 +795,9 @@ class BatchEngine:
         contexts = {
             (int(r), int(tt)): None for r, tt in zip(meta["row"], meta["t"])
         }
-        outs, lane_overrides = self._run_exact(ops, contexts, lane_ids)
+        outs, lane_overrides = self._run_exact(
+            self._upload_ops(ops), contexts, lane_ids
+        )
         batches.append(
             decode_grid_columnar(meta, splice_outs(outs, lane_overrides))
         )
@@ -643,7 +808,7 @@ class BatchEngine:
         if not contexts:
             # Everything dropped (unrepresentable DELs): nothing to run.
             return leftover
-        outs, lane_overrides = self._run_exact(ops, contexts)
+        outs, lane_overrides = self._run_exact(self._upload_ops(ops), contexts)
         keys = list(contexts)
         rows = np.array([lane for lane, _ in keys], np.int64)
         ts = np.array([t for _, t in keys], np.int64)
@@ -662,42 +827,60 @@ class BatchEngine:
             decoded.append((arrival, events))
         return leftover
 
-    def _to_device(self, ops: DeviceOp) -> DeviceOp:
-        return DeviceOp(
-            *(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-              for a in ops)
-        )
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device, queued with no host sync:
+        on the card it goes up from a pinned copy by a non-blocking copy.
+        The pinned block comes from CUDA's caching host allocator, which
+        records the copy's event on it and reuses it only once the copy is
+        done, so nothing here keeps it alive."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t.to(self.device, copy=True)
+        return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _run_exact(self, ops_np: DeviceOp, contexts, lane_ids=None):
+    def _upload_ops(self, ops: DeviceOp) -> DeviceOp:
+        """A packer's numpy grid on the engine's device (_upload)."""
+        return DeviceOp(*(self._upload(a) for a in ops))
+
+    def _run_exact(self, ops: DeviceOp, contexts, lane_ids=None,
+                   cap_g: int | None = None):
         """Run one grid, escalating device budgets until nothing overflowed.
+        Syncs with the card by design: it reads book_overflow on the host.
 
         Returns (outs, lane_overrides): the committed [R, T] outputs (on the
         device) plus, for rows whose fill records were truncated at K, a
         host [T] StepOutput re-run with a large-enough record budget.
 
-        lane_ids: for a dense grid, the [R] row -> lane mapping (sentinel
-        >= n_slots on padding rows); None for full grids (row == lane)."""
+        ops: on the engine's device. lane_ids: for a dense grid, the [R] row ->
+        lane mapping (sentinel >= n_slots on padding rows); None for full
+        grids (row == lane).
+
+        cap_g: the grid's cap class (None = the storage cap). Overflow
+        first deepens the CLASS — a re-slice of the same storage, confined
+        to this grid — and grows the [S]-wide storage only once the grid
+        already runs at the storage cap."""
         books_before = self.books  # never written in place
-        ops = self._to_device(ops_np)
-        ids = None if lane_ids is None else torch.from_numpy(
-            np.asarray(lane_ids, np.int64)
-        ).to(self.device)
+        if cap_g is None:
+            cap_g = self.config.cap
 
         def lane_of(row: int) -> int:
             return row if lane_ids is None else int(lane_ids[row])
 
         # Phase 1: book capacity. A tripped `book_overflow` means a resting
-        # insert was dropped — deepen and replay the whole grid from the
-        # pre-grid books (exact: active slots are a prefix). The new cap
-        # targets the host-side bound (resting count plus the ADDs packed
-        # into the row) but grows at most 4x per replay.
+        # insert was dropped, or the grid's cap class sliced away a lane's
+        # resting tail (_guard_capped) — deepen and replay the whole grid
+        # from the pre-grid books (exact: active slots are a prefix). The
+        # new cap targets the host-side bound (resting count plus the ADDs
+        # packed into the row) but grows at most 4x per replay.
         while True:
-            new_books, outs = self._step(books_before, ops, ids)
+            new_books, outs = self._step(books_before, ops, lane_ids, cap_g)
             self.stats.device_calls += 1
             if not bool(outs.book_overflow.any()):
                 break
             counts = _host(books_before.count)  # [S, 2]
-            adds_per_row = np.sum(ops_np.action == ACTION_ADD, axis=1)  # [R]
+            # Fetched only now an overflow tripped: frame grids are built
+            # on the device.
+            adds_per_row = _host((ops.action == ACTION_ADD).sum(dim=1))  # [R]
             if lane_ids is None:
                 row_counts = counts.max(axis=1)
             else:
@@ -709,6 +892,17 @@ class BatchEngine:
                     0,
                 )
             bound = int((row_counts + adds_per_row).max())
+            if cap_g < self.config.cap:
+                # Confined escalation: this grid re-runs on a deeper slice
+                # of the SAME storage; the other grids and the stack are
+                # untouched. Snap to the class ladder.
+                self.stats.grid_cap_escalations += 1
+                target = max(min(bound, 4 * cap_g), cap_g + 1)
+                cap_g = next(
+                    (c for c in _cap_ladder(self.config.cap) if c >= target),
+                    self.config.cap,
+                )
+                continue
             self.stats.cap_escalations += 1
             new_cap = _next_pow2(
                 max(min(bound, 4 * self.config.cap), self.config.cap + 1)
@@ -721,6 +915,7 @@ class BatchEngine:
                 )
             books_before = grow_books(books_before, new_cap)
             self.config = dataclasses.replace(self.config, cap=new_cap)
+            cap_g = new_cap
         self.books = new_books
 
         # Phase 2: fill records. n_fills > K truncated this op's *records*
@@ -748,18 +943,36 @@ class BatchEngine:
             lane_overrides[row] = StepOutput(*(_host(a[0]) for a in lane_out))
         return outs, lane_overrides
 
-    def _step(self, books: BookState, ops: DeviceOp, lane_ids=None):
-        """Run one [R, T] grid through the match step: a full grid (row ==
-        lane) directly; a dense grid gathers its rows' books, steps them and
-        scatters them back into a copy of the stack."""
-        cfg = self.config
+    def _step(self, books: BookState, ops: DeviceOp, lane_ids=None,
+              cap_g: int | None = None):
+        """Run one [R, T] grid through the match step at cap class `cap_g`
+        (None = the storage cap): a full grid (row == lane) on the leading
+        cap_g slots of every lane, written back into a copy of the stack;
+        a dense grid gathers its rows' lanes, steps them and scatters them
+        back into a copy. Queues device work only (no host sync).
+
+        Every launch runs with K = min(max_fills, cap_g): a cap below
+        max_fills clamps the record axis to the cap, as the reference
+        step's record slice does (K <= cap is the kernel's contract)."""
+        cap = self.config.cap if cap_g is None else cap_g
+        cfg = dataclasses.replace(
+            self.config, cap=cap, max_fills=min(self.config.max_fills, cap)
+        )
         if lane_ids is None:
-            new_books, outs = match_step.batch_step(cfg, books, ops)
-            return new_books, _guard_capped(outs, books.count, cfg.cap, ops)
-        sub = _gather_rows(books, lane_ids)
+            sub, outs = match_step.batch_step(
+                cfg, _slice_books_cap(books, cap), ops
+            )
+            outs = _guard_capped(outs, books.count, cap, ops)
+            return _writeback_full_cap(books, sub, cap), outs
+        lane_ids = _host(lane_ids)
+        # The live rows are a prefix, so their count comes from the host
+        # copy and the gather and scatter index without a device read.
+        n_live = int(np.count_nonzero(lane_ids < books.count.shape[0]))
+        ids = self._upload(lane_ids)
+        sub = _gather_rows(books, ids, n_live, cap)
         new_sub, outs = match_step.batch_step(cfg, sub, ops)
-        outs = _guard_capped(outs, sub.count, cfg.cap, ops)
-        return _scatter_rows(books, lane_ids, new_sub), outs
+        outs = _guard_capped(outs, sub.count, cap, ops)
+        return _scatter_books_cap(books, ids, n_live, new_sub, cap), outs
 
     # -- snapshot support ----------------------------------------------------
     def export_state(self) -> dict:
@@ -802,9 +1015,14 @@ class BatchEngine:
             )
         )
         self.symbols = Interner.from_list(list(state["symbols"]))
+        self._lane_map_cache.clear()  # lane ids come from the new interner
         self.oids = Interner.from_list(list(state["oids"]))
         self.uids = Interner.from_list(list(state["uids"]))
         self._rebase = numpy_dtype(self.config.dtype).itemsize <= 4
+        # count_ub restarts exact from the restored books (nothing in
+        # flight after a restore).
+        self._ub_base = np.asarray(b["count"], np.int64).max(axis=1)
+        self._ub_extra = np.zeros(self.n_slots, np.int64)
         self.price_base = np.asarray(state["price_base"], np.int64).copy()
         self._base_set = np.asarray(state["base_set"], bool).copy()
         self._env_lo = np.asarray(state["env_lo"], np.int64).copy()

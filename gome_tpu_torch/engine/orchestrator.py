@@ -1,10 +1,13 @@
 """The engine facade: pre-pool admission + batched device matching.
 
-The port of ``gome_tpu/engine/orchestrator.py`` (its object and columnar
-entry points). It is the layer the gateway and the order consumer talk to:
+The port of ``gome_tpu/engine/orchestrator.py`` (its object, columnar and
+frame entry points). It is the layer the gateway and the order consumer
+talk to:
 
-  gateway side   mark(order)      — HSET S:comparison S:U:O 1 in the reference
-  consumer side  process(orders)  — the consumer loop body:
+  gateway side   mark(order) / mark_frame(cols)
+                   — HSET S:comparison S:U:O 1 in the reference
+  consumer side  process(orders) / process_frame(cols)
+                 — the consumer loop body:
                    ADD: consumed only if still marked, else dropped (the
                         cancel-before-consume race)
                    DEL: clears the mark first so a still-queued ADD dies,
@@ -12,6 +15,8 @@ entry points). It is the layer the gateway and the order consumer talk to:
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from ..types import Action, MatchResult, Order
 from .batch import BatchEngine, EngineStats
@@ -60,6 +65,15 @@ class MatchEngine:
         """Discard an order's pre-pool entry without processing it."""
         self.pre_pool.discard(self._prekey(order))
 
+    def mark_frame(self, cols: dict) -> None:
+        """Bulk mark for the columnar admit path: the ADD rows of a decoded
+        ORDER frame (same contract as mark())."""
+        self.pre_pool.mark_frame(cols)
+
+    def unmark_frame(self, cols: dict) -> None:
+        """Bulk undo of mark_frame."""
+        self.pre_pool.unmark_frame(cols)
+
     # -- consumer side -----------------------------------------------------
     def process(self, orders: list[Order]) -> list[MatchResult]:
         """Apply one micro-batch in arrival order; returns the MatchResult
@@ -92,6 +106,73 @@ class MatchEngine:
         except Exception:
             self.pre_pool |= consumed
             raise
+
+    def process_frame(self, cols: dict, fast: bool = True):
+        """Columnar-frame ingestion (a decoded ORDER frame): admission
+        semantics identical to process() — unmarked ADDs drop, DELs clear
+        their marks — applied by filtering the columns, then the frame path
+        (engine.frames) runs the batch. Returns an EventBatch. fast=True
+        queues every grid with device-side event compaction and one
+        two-phase fetch (falling back to the exact path when a device
+        budget trips); fast=False runs the exact synchronous path."""
+        from . import frames
+
+        cols, consumed = self.admit_frame(cols)
+        run = frames.apply_frame_fast if fast else frames.process_frame
+        try:
+            return run(self.batch, cols)
+        except Exception:
+            self.pre_pool |= consumed
+            raise
+
+    def admit_frame(self, cols: dict) -> tuple[dict, set]:
+        """Frame admission: returns (filtered columns, the consumed marks);
+        the caller restores `consumed` (pre_pool |= consumed) if the batch
+        later fails."""
+        n = int(cols["n"])
+        action = cols["action"].tolist()
+        syms, uuids = cols["symbols"], cols["uuids"]
+        sidx, uidx = cols["symbol_idx"].tolist(), cols["uuid_idx"].tolist()
+        oid_list = [o.decode() for o in cols["oids"].tolist()]
+        consumed: set[tuple[str, str, str]] = set()
+        ADD, DEL = int(Action.ADD), int(Action.DEL)
+        # Key construction at C speed: list-comp indexing + zip tuples;
+        # marks consume through ONE batched call.
+        keys = list(
+            zip((syms[k] for k in sidx), (uuids[k] for k in uidx), oid_list)
+        )
+        sel = [i for i, a in enumerate(action) if a == ADD or a == DEL]
+        existed = consume_batch_of(
+            self.pre_pool,
+            keys if len(sel) == n else [keys[i] for i in sel],
+        )
+        keep = np.zeros(n, bool)  # NOP padding never reaches the device
+        dropped = 0
+        for i, ex in zip(sel, existed):
+            if action[i] == ADD:
+                if ex:
+                    keep[i] = True
+                    consumed.add(keys[i])
+                else:
+                    dropped += 1
+            else:  # DEL: always admitted; a consumed mark kills a queued ADD
+                keep[i] = True
+                if ex:
+                    consumed.add(keys[i])
+        self.stats.dropped_no_prepool += dropped
+        if not keep.all():
+            cols = dict(
+                cols,
+                n=int(keep.sum()),
+                **{
+                    k: np.ascontiguousarray(cols[k][keep])
+                    for k in (
+                        "action", "side", "kind", "price", "volume",
+                        "symbol_idx", "uuid_idx", "oids",
+                    )
+                },
+            )
+        return cols, consumed
 
     def _admit(
         self, indexed: list[tuple[int, Order]]

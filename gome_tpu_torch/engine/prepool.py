@@ -14,6 +14,10 @@ The contract the engine uses (beyond set-ish add/discard/contains/iter):
 
 from __future__ import annotations
 
+import numpy as np
+
+from ..types import Action
+
 Key = tuple[str, str, str]  # (symbol, uuid, oid)
 
 
@@ -30,6 +34,36 @@ class LocalPrePool(set):
             else:
                 out.append(False)
         return out
+
+    def _frame_keys(self, cols: dict):
+        """Key tuples of an ORDER frame's ADD rows: one vectorized row
+        select, then C-speed zip/update (no per-order Python calls)."""
+        act = np.ascontiguousarray(cols["action"])
+        sel = np.nonzero(act == int(Action.ADD))[0]
+        if not len(sel):
+            return None
+        syms, uuids = cols["symbols"], cols["uuids"]
+        sidx = np.asarray(cols["symbol_idx"])[sel].tolist()
+        uidx = np.asarray(cols["uuid_idx"])[sel].tolist()
+        oids = np.asarray(cols["oids"])[sel].tolist()
+        return zip(
+            map(syms.__getitem__, sidx),
+            map(uuids.__getitem__, uidx),
+            (o.decode() for o in oids),
+        )
+
+    def mark_frame(self, cols: dict) -> None:
+        """Gateway-side bulk marking of an ORDER frame's ADDs."""
+        keys = self._frame_keys(cols)
+        if keys is not None:
+            self.update(keys)
+
+    def unmark_frame(self, cols: dict) -> None:
+        """Undo mark_frame (the frame never entered the engine, so no
+        marker may dangle)."""
+        keys = self._frame_keys(cols)
+        if keys is not None:
+            self.difference_update(keys)
 
 
 def consume_batch_of(pool, keys: list[Key]) -> list[bool]:

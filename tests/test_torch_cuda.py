@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import chip_smoke
-from gome_tpu_torch.engine import BookConfig, MatchEngine
+from gome_tpu_torch.engine import BookConfig, DeviceOp, MatchEngine
 from gome_tpu_torch.ops import match_step
 from gome_tpu_torch.utils.streams import mixed_stream, multi_symbol_stream
 
@@ -96,3 +96,94 @@ def test_engine_on_the_card_matches_the_oracle(cuda):
     calls = e1.stats.device_calls + e2.stats.device_calls
     assert match_step.batch_step.launches == calls > 0
     assert e2.stats.cap_escalations and e2.stats.fill_record_escalations
+
+
+def test_frame_scatters_drop_on_the_card(cuda):
+    """The frame path's writes through a sentinel column: the grid build
+    (padding columns carry flat == R*T) and the event compaction (record
+    slots without a fill, appends past the buffer) on the card equal the
+    same calls on the CPU and a numpy reference; every grid leaf is
+    contiguous for the kernel."""
+    from gome_tpu_torch.engine import frames
+
+    rng = np.random.default_rng(5)
+    n_rows, t_grid, m, m_pad = 16, 8, 40, 64
+    flat = np.full(m_pad, n_rows * t_grid, np.int64)
+    flat[:m] = rng.choice(n_rows * t_grid, m, replace=False)
+    cols = rng.integers(1, 1000, size=(7, m_pad)).astype(np.int32)
+    want = np.zeros((7, n_rows * t_grid), np.int64)
+    want[:, flat[:m]] = cols[:, :m]
+    ops = frames._scatter_grid_fn(torch.from_numpy(cols).to(cuda),
+                               torch.from_numpy(flat).to(cuda), n_rows, t_grid)
+    for i, a in enumerate(ops):
+        assert a.is_contiguous() and a.shape == (n_rows, t_grid)
+        np.testing.assert_array_equal(a.cpu().numpy().reshape(-1), want[i])
+
+    config = BookConfig(cap=256, max_fills=16, dtype=torch.int32)
+    books, seeded = chip_smoke.deep_books(rng, config, 64, 0.6, cuda)
+    grid = chip_smoke.flow_grids(rng, config, 64, 16, 1, seeded, cuda)[0]
+    _, outs = match_step.batch_step(config, books, grid)
+    n_fills = int((outs.fill_qty > 0).sum())
+    for e_fills in (n_fills // 3, 2 * n_fills):
+        bufs = []
+        for dev in (cuda, torch.device("cpu")):
+            acc = (torch.zeros((7, e_fills + 1), dtype=torch.int32, device=dev),
+                   torch.zeros((2, 513), dtype=torch.int32, device=dev),
+                   torch.zeros((8, 4), dtype=torch.int32, device=dev))
+            o = type(outs)(*(a.to(dev) for a in outs))
+            for g in range(2):  # the second grid appends after the first
+                frames.compact_accum(o, *acc, g)
+            bufs.append([a[..., :-1].cpu() if i < 2 else a.cpu()
+                         for i, a in enumerate(acc)])
+        for a, b in zip(*bufs):
+            assert torch.equal(a, b)
+        assert bufs[0][2][:2, 0].tolist() == [n_fills, n_fills]
+
+
+def test_cap_class_step_on_the_card(cuda):
+    """BatchEngine._step at cap class 64 on 256-slot storage, dense and
+    full grids, on the card equals the same step on the CPU: every book
+    leaf (the storage tail untouched) and every output."""
+    rng = np.random.default_rng(9)
+    storage = BookConfig(cap=256, max_fills=16, dtype=torch.int32)
+    books, seeded = chip_smoke.deep_books(rng, storage, 32, 0.2, cuda)
+    grid = chip_smoke.flow_grids(rng, storage, 32, 8, 1, seeded, cuda)[0]
+    lane_ids = np.array([5, 0, 31, 7, 12] + [32] * 3)
+    rows = DeviceOp(*(a[:8].clone() for a in grid))
+    rows = rows._replace(action=torch.where(
+        torch.from_numpy(lane_ids < 32)[:, None].to(cuda), rows.action, 0))
+    for ids, ops in ((lane_ids, rows), (None, grid)):
+        out = []
+        for dev in (cuda, torch.device("cpu")):
+            eng = MatchEngine(storage, n_slots=32, device=dev).batch
+            b = type(books)(*(a.to(dev) for a in books))
+            o = DeviceOp(*(a.to(dev) for a in ops))
+            new, res = eng._step(b, o, ids, 64)
+            out.append([a.cpu() for a in (*new, *res)])
+        for a, b in zip(*out):
+            assert torch.equal(a, b)
+        assert torch.equal(out[0][0][..., 64:], books.price[..., 64:].cpu())
+
+
+def test_fast_frames_equal_exact_frames_on_the_card(cuda):
+    """A Zipf flow through MatchEngine.process_frame on the card, fast
+    (cap classes, compaction, two-phase fetch) and exact: equal events,
+    equal to the oracle, equal books; launches account for every device
+    call."""
+    zipf = multi_symbol_stream(n=6000, n_symbols=300, zipf_a=1.2,
+                               cancel_prob=0.3, seed=5)
+    frames = [chip_smoke.frame_columns(zipf[i:i + 1500])
+              for i in range(0, len(zipf), 1500)]
+    config = BookConfig(cap=256, max_fills=16, dtype=torch.int32)
+    fast = MatchEngine(config, n_slots=512, max_t=16)
+    exact = MatchEngine(config, n_slots=512, max_t=16)
+    match_step.batch_step.launches = 0
+    got_f, _ = chip_smoke.run_frames(fast, frames, fast=True)
+    got_e, _ = chip_smoke.run_frames(exact, frames, fast=False)
+    assert got_f == got_e == chip_smoke.oracle_events(zipf)
+    sf, se = fast.batch.export_state(), exact.batch.export_state()
+    for name, a in se["books"].items():
+        np.testing.assert_array_equal(sf["books"][name], a, err_msg=name)
+    assert (match_step.batch_step.launches
+            == fast.stats.device_calls + exact.stats.device_calls)
+    fast.batch.verify_books()

@@ -230,3 +230,36 @@ def test_unmarked_add_is_dropped_and_nops_never_reach_the_device():
     assert eng.process([a, b, nop]) == []
     assert eng.stats.dropped_no_prepool == 1
     assert int(eng.books.count[0, 0]) == 1
+
+
+def _cap_below_max_fills_streams():
+    """(a) 3 resting SALEs then 1 BUY crossing all of them; (b) the stream
+    of tests/test_frames.py::test_fast_path_cap_below_max_fills (a sweep
+    across 12 resting SALEs, more than the cap, then a second symbol)."""
+    rest = [JOrder(uuid="u", oid=f"r{i}", symbol="s", side=JSide.SALE,
+                   price=100 + i, volume=2) for i in range(3)]
+    small = rest + [JOrder(uuid="u", oid="b", symbol="s", side=JSide.BUY,
+                           price=200, volume=5)]
+    sweep = [JOrder(uuid="u", oid=f"r{i}", symbol="s", side=JSide.SALE,
+                    price=100 + i, volume=2) for i in range(12)]
+    sweep.append(JOrder(uuid="u", oid="sweep", symbol="s", side=JSide.BUY,
+                        price=200, volume=11))
+    sweep += [JOrder(uuid="u", oid=f"p{i}", symbol="s2", side=JSide(i % 2),
+                     price=150 + (i % 2), volume=3) for i in range(8)]
+    return {"small": (small, 4), "sweep": (sweep, 7)}
+
+
+@pytest.mark.parametrize("stream", ["small", "sweep"])
+@pytest.mark.parametrize("columnar", [False, True])
+def test_cap_below_max_fills_matches(stream, columnar):
+    """A book whose cap is below max_fills: every launch runs with
+    K = min(max_fills, cap), as gome_tpu's step clamps its record slice
+    (the port raised ValueError here before)."""
+    orders, batch = _cap_below_max_fills_streams()[stream]
+    j, t = engines("int32", cap=4, k=8, n_slots=2, max_t=8)
+    got, want = run_pair(j, t, orders, batch, columnar)
+    assert got == want == oracle_keys(orders)
+    assert len(got) > 0
+    assert_states_equal(t.batch.export_state(), j.batch.export_state())
+    assert_stats_equal(t, j)
+    t.batch.verify_books()
