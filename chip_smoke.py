@@ -38,7 +38,20 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      class's fills floor, and the next such frame does not fall back;
      then orders/s, the device steps' share, the split into gather,
      kernel, scatter, compaction and grid builds, the two fetch phases'
-     seconds, and phase 3's orders/s from the same run.
+     seconds, and phase 3's orders/s from the same run;
+  6. the order consumer: (a) phase 3's flow as ORDER frames through
+     OrderConsumer(pipeline_depth=2, match_wire="frame") in bench.py
+     --latency's closed loop (per frame a gateway step, encode +
+     mark_frame + publish to doOrder, then one run_once), a MatchFeed
+     drained over matchOrder: events equal to the oracle, seqs 0..n-1
+     once each, every offset committed, books verified, no host sync in
+     any submit_frame; (b) the same at depth 0: match-queue bodies
+     byte-equal to (a)'s, books equal; (c) a fills-buffer trip with frames
+     in flight (rewind, exact re-run, resubmission), and a failed
+     consumer.commit (FaultPlan) with frames in flight, replayed through
+     step_with_policy; (d) the threaded consumer (start/stop); the kernel
+     held against its plain version at the inputs (a)-(c) gave it; then
+     orders/s, order->publish p50/p99 and the two fetch phases per depth.
 
 The last two lines are the kernel table (JSON) and
 {"ok": true, "device": {...}}.
@@ -47,6 +60,7 @@ The last two lines are the kernel table (JSON) and
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -749,30 +763,32 @@ def check_events(label, got, want) -> None:
                          f"first difference at {bad}")
 
 
+def sweep_pair(r: int):
+    """Round r of the fills-buffer flow: 64 symbols with 16 resting one-lot
+    SELLs each, then 64 BUYs that each sweep one symbol's 16 (16 fills = K:
+    only the fills buffer trips, sized 64 for a 64-op frame)."""
+    from gome_tpu_torch.types import Order, Side
+
+    syms = [f"fb{i}" for i in range(64)]
+    rest = [Order(uuid="maker", oid=f"fb{r}-{s}-{i}", symbol=s,
+                  side=Side.SALE, price=1000 + i, volume=1)
+            for s in syms for i in range(16)]
+    sweep = [Order(uuid="taker", oid=f"fbx{r}-{s}", symbol=s, side=Side.BUY,
+                   price=2000, volume=16) for s in syms]
+    return rest, sweep
+
+
 def fill_buffer_check(device, symbols: int) -> str:
-    """Phase 5 (b): 64 symbols with 16 resting one-lot SELLs each, then a
-    frame of 64 BUYs that each sweep one symbol's 16 (16 fills = K: only
-    the fills buffer trips, sized 64 for a 64-op frame). The frame must
+    """Phase 5 (b): sweep_pair's frames, twice. The first sweep frame must
     fall back, raise its class's fills floor to 1,024 and equal the oracle;
     the same pair of frames again must not fall back."""
     from gome_tpu_torch.engine import BookConfig, MatchEngine
-    from gome_tpu_torch.types import Order, Side
 
     eng = MatchEngine(BookConfig(cap=256, max_fills=16, dtype=torch.int32),
                       n_slots=symbols, max_t=32, device=device)
-    syms = [f"fb{i}" for i in range(64)]
-
-    def pair(r):
-        rest = [Order(uuid="maker", oid=f"fb{r}-{s}-{i}", symbol=s,
-                      side=Side.SALE, price=1000 + i, volume=1)
-                for s in syms for i in range(16)]
-        sweep = [Order(uuid="taker", oid=f"fbx{r}-{s}", symbol=s,
-                       side=Side.BUY, price=2000, volume=16) for s in syms]
-        return rest, sweep
-
     orders, got, floors = [], [], []
     for r in range(2):
-        rest, sweep = pair(r)
+        rest, sweep = sweep_pair(r)
         orders += rest + sweep
         events, _ = run_frames(eng, [frame_columns(rest),
                                      frame_columns(sweep)])
@@ -846,6 +862,348 @@ def phase5(device, sizes, zipf, want_zipf):
         fill_buffer_check(device, sizes["symbols"]),
     ]
     return launches, worst, len(zipf) / secs, split, secs, fetch, lines
+
+
+# -- phase 6 -----------------------------------------------------------------
+
+def gateway_step(engine, queue, cols) -> None:
+    """The gateway's per-frame work (bench.py's _svc_gateway_step): encode
+    the ORDER frame, mark its ADDs in the pre-pool, publish to doOrder."""
+    from gome_tpu_torch.bus.colwire import encode_order_frame
+
+    payload = encode_order_frame(
+        cols["n"], cols["action"], cols["side"], cols["kind"], cols["price"],
+        cols["volume"], cols["symbols"], cols["symbol_idx"], cols["uuids"],
+        cols["uuid_idx"], cols["oids"])
+    engine.mark_frame(cols)
+    queue.publish(payload)
+
+
+def consumer_stack(device, symbols: int, depth: int, batch_wait_s: float = 0):
+    """A fresh engine (cap 256, K 16, int32), a memory bus and an
+    OrderConsumer on the frame wire at the given pipeline depth."""
+    from gome_tpu_torch.bus import MemoryQueue, QueueBus
+    from gome_tpu_torch.engine import BookConfig, MatchEngine
+    from gome_tpu_torch.service import OrderConsumer
+
+    eng = MatchEngine(BookConfig(cap=256, max_fills=16, dtype=torch.int32),
+                      n_slots=symbols, max_t=32, device=device)
+    bus = QueueBus(MemoryQueue("doOrder"), MemoryQueue("matchOrder"))
+    consumer = OrderConsumer(eng, bus, batch_n=1, batch_wait_s=batch_wait_s,
+                             match_wire="frame", pipeline_depth=depth)
+    return eng, bus, consumer
+
+
+HOST_PARTS = ("gateway", "decode", "admit", "submit", "resolve", "exact",
+              "event_encode")
+
+
+@contextlib.contextmanager
+def host_split(engine):
+    """Host seconds inside the consumer path's parts, by wrapping them for
+    the block: the ORDER-frame decode, admission, submit_frame (packing and
+    queueing the grids), resolve_frame (the fetch and the event decode),
+    the exact re-runs of a fallback, and the EVENT-frame encode. Yields a
+    dict of seconds; closed_loop adds the gateway steps."""
+    from gome_tpu_torch.bus import colwire
+    from gome_tpu_torch.engine import frames
+
+    spent = dict.fromkeys(HOST_PARTS, 0.0)
+
+    def timed(fn, part):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[part] += time.perf_counter() - t0
+        return run
+
+    places = ((colwire, "decode_order_frame", "decode"),
+              (frames, "submit_frame", "submit"),
+              (frames, "resolve_frame", "resolve"),
+              (frames, "apply_frame", "exact"),
+              (colwire, "encode_event_frame", "event_encode"))
+    saved = [getattr(mod, name) for mod, name, _ in places]
+    for (mod, name, part), fn in zip(places, saved):
+        setattr(mod, name, timed(fn, part))
+    engine.admit_frame = timed(engine.admit_frame, "admit")
+    try:
+        yield spent
+    finally:
+        del engine.admit_frame
+        for (mod, name, _), fn in zip(places, saved):
+            setattr(mod, name, fn)
+
+
+def closed_loop(engine, bus, consumer, frame_list, spent):
+    """bench.py --latency's loop: for each frame one gateway step, then one
+    run_once; then run_once until every offset is committed. Returns the
+    seconds, each frame's publish time and each frame's commit time; adds
+    the gateway steps' seconds to spent["gateway"]."""
+    q = bus.order_queue
+    pub_t, done_t = [], []
+
+    def note_commits():
+        now = time.perf_counter()
+        done_t.extend([now] * (q.committed() - len(done_t)))
+
+    t0 = time.perf_counter()
+    for cols in frame_list:
+        pub_t.append(time.perf_counter())
+        gateway_step(engine, q, cols)
+        spent["gateway"] += time.perf_counter() - pub_t[-1]
+        consumer.run_once()
+        note_commits()
+    while q.committed() < q.end_offset():
+        consumer.run_once()
+        note_commits()
+    return time.perf_counter() - t0, pub_t, done_t
+
+
+def latency_ms(frame_list, secs, pub_t, done_t) -> tuple[float, float]:
+    """Order->publish p50 and p99 by bench.py's method: arrivals uniform
+    over each frame's accumulation window (ending at its publish) at the
+    run's sustained rate; completion is the frame's commit, which follows
+    its events' publish."""
+    rate = sum(c["n"] for c in frame_list) / secs
+    lat = np.concatenate([
+        d - (p - (np.arange(c["n"], dtype=np.float64)[::-1] + 1) / rate)
+        for c, p, d in zip(frame_list, pub_t, done_t)])
+    p50, p99 = np.percentile(lat, [50, 99])
+    return 1e3 * p50, 1e3 * p99
+
+
+def match_queue_events(bus):
+    """Every event on the match queue, decoded, in publish order, and a
+    MatchFeed drained over the same queue."""
+    from gome_tpu_torch.bus.colwire import decode_event_frame
+    from gome_tpu_torch.service import MatchFeed
+
+    mq = bus.match_queue
+    events = []
+    for m in mq.read_from(0, mq.end_offset()):
+        events.extend(decode_event_frame(m.body).to_results())
+    feed = MatchFeed(bus, log_events=False)
+    feed.drain()
+    return events, feed
+
+
+def unstamped(events):
+    return [dataclasses.replace(e, seq=None) for e in events]
+
+
+def check_consumer_run(label, engine, bus, want) -> tuple[list, object]:
+    """Events on the match queue equal `want`, stamped 0..n-1; the feed saw
+    each seq once; every offset committed; the books verified."""
+    events, feed = match_queue_events(bus)
+    check_events(label, unstamped(events), want)
+    seqs = [e.seq for e in events]
+    state = feed.seq_state()
+    if seqs != list(range(len(want))) or state["gaps"] or state["dupes"] \
+            or feed.suppressed or feed.events_seen != len(want):
+        raise SystemExit(f"{label}: seqs not 0..{len(want) - 1} once each: "
+                         f"{state}, {feed.events_seen} delivered")
+    q = bus.order_queue
+    if q.committed() != q.end_offset():
+        raise SystemExit(f"{label}: committed {q.committed()} of "
+                         f"{q.end_offset()}")
+    engine.batch.verify_books()
+    return events, feed
+
+
+def consumer_fill_buffer_check(device, symbols: int) -> str:
+    """Phase 6 (c) 1: phase 5 (b)'s frames (sweep_pair, twice) through a
+    depth-2 consumer. The first sweep frame trips the fills buffer while
+    the next pair is already queued on the card: the pipeline rewinds
+    through them, re-runs the sweep exactly and resubmits the rest."""
+    eng, bus, consumer = consumer_stack(device, symbols, 2)
+    orders, frame_list = [], []
+    for r in range(2):
+        rest, sweep = sweep_pair(r)
+        orders += rest + sweep
+        frame_list += [frame_columns(rest), frame_columns(sweep)]
+    for cols in frame_list:
+        gateway_step(eng, bus.order_queue, cols)
+    consumer.drain()
+    events, _ = check_consumer_run("phase 6 (c) fills buffer", eng, bus,
+                                   oracle_events(orders))
+    if eng.stats.frame_fallbacks != 1:
+        raise SystemExit(f"phase 6 (c): {eng.stats.frame_fallbacks} frame "
+                         "fallbacks with frames in flight, expected 1")
+    return (f"phase 6 (c) 1: fills-buffer trip with 2 frames in flight at "
+            f"depth 2: {len(events)} events equal to the oracle, seqs "
+            f"0..{len(events) - 1}, 1 frame fallback (rewound, re-run "
+            f"exactly, later frames resubmitted)")
+
+
+def consumer_commit_fault_check(device, symbols: int, frame_list,
+                                zipf) -> str:
+    """Phase 6 (c) 2: the third commit fails (FaultPlan, consumer.commit,
+    raise) with two frames in flight; step_with_policy rolls the seq back,
+    the pipeline aborts (books rewound to the oldest in-flight frame,
+    marks restored) and the replay runs from the committed offset. The
+    frame whose commit failed was applied and published, and its marks
+    were consumed: its replay drops its ADDs and its DELs miss. So the
+    match queue's events equal the oracle's on frames 0..2, frame 2's
+    DELs again, then the rest; the replay re-stamps seqs from the last
+    commit, and the feed suppresses each seq seen before."""
+    from gome_tpu_torch.engine.pipeline import FramePipeline
+    from gome_tpu_torch.types import Action
+    from gome_tpu_torch.utils.faults import FAULTS, FaultPlan, FaultSpec
+
+    eng, bus, consumer = consumer_stack(device, symbols, 2)
+    q = bus.order_queue
+    for cols in frame_list:
+        gateway_step(eng, q, cols)
+    aborts, inner_abort = [], FramePipeline.abort
+
+    def abort(pipe):  # (committed offset, frames in flight) at each abort
+        aborts.append((q.committed(), len(pipe)))
+        inner_abort(pipe)
+
+    FramePipeline.abort = abort
+    FAULTS.install(FaultPlan(faults=(
+        FaultSpec("consumer.commit", mode="raise", at=(3,)),)))
+    try:
+        for _ in range(10 * len(frame_list)):
+            if q.committed() >= q.end_offset():
+                break
+            consumer.step_with_policy()
+    finally:
+        fired = FAULTS.report()["fired"]
+        FAULTS.disable()
+        FramePipeline.abort = inner_abort
+    if [f["point"] for f in fired] != ["consumer.commit"] or aborts != [(2, 2)]:
+        raise SystemExit(f"phase 6 (c): fault {fired}, aborts (committed, in "
+                         f"flight) {aborts}, expected [(2, 2)]")
+    n = [c["n"] for c in frame_list]
+    head, k_frame, tail = zipf[:sum(n[:2])], zipf[sum(n[:2]):sum(n[:3])], \
+        zipf[sum(n[:3]):sum(n)]
+    replay = [o for o in k_frame if o.action is Action.DEL]
+    want = oracle_events(head + k_frame + replay + tail)
+    events, feed = match_queue_events(bus)
+    check_events("phase 6 (c) commit fault", unstamped(events), want)
+    seqs = [e.seq for e in events]
+    dupes = len(seqs) - len(set(seqs))
+    state = feed.seq_state()
+    if sorted(set(seqs)) != list(range(len(set(seqs)))) or dupes == 0 \
+            or feed.suppressed != dupes or state["gaps"] \
+            or feed.events_seen != len(set(seqs)):
+        raise SystemExit(f"phase 6 (c): seqs after the replay: {dupes} "
+                         f"duplicates, feed {state}, suppressed "
+                         f"{feed.suppressed}, delivered {feed.events_seen}")
+    if q.committed() != q.end_offset():
+        raise SystemExit("phase 6 (c): the replay did not commit every frame")
+    eng.batch.verify_books()
+    return (f"phase 6 (c) 2: consumer.commit failed once with 2 frames in "
+            f"flight; pipeline aborted, seq rolled "
+            f"back, replay from offset 2: {len(events)} events equal to the "
+            f"oracle of the replayed flow, seqs 0..{len(set(seqs)) - 1} with "
+            f"{dupes} re-stamped, the feed delivered each seq once "
+            f"({feed.suppressed} suppressed, 0 gaps)")
+
+
+def consumer_thread_check(device, symbols: int, frame_list, orders) -> str:
+    """Phase 6 (d): start() the consumer, publish 4 frames from this
+    thread, wait (at most 120 s) for every offset to commit, stop(). The
+    kernel launches from the consumer's thread, on its current stream."""
+    eng, bus, consumer = consumer_stack(device, symbols, 2,
+                                        batch_wait_s=0.002)
+    q = bus.order_queue
+    consumer.start()
+    try:
+        for cols in frame_list:
+            gateway_step(eng, q, cols)
+        deadline = time.monotonic() + 120
+        while q.committed() < q.end_offset():
+            if time.monotonic() > deadline:
+                raise SystemExit(f"phase 6 (d): {q.committed()} of "
+                                 f"{q.end_offset()} frames committed in 120 s")
+            time.sleep(0.005)
+    finally:
+        consumer.stop()
+    events, _ = check_consumer_run("phase 6 (d) threaded", eng, bus,
+                                   oracle_events(orders))
+    return (f"phase 6 (d): threaded consumer (start/stop), {len(frame_list)} "
+            f"frames published from the main thread: {len(events)} events "
+            f"equal to the oracle, every offset committed")
+
+
+def phase6(device, sizes, zipf, want_zipf):
+    """The consumer on the card: (a) the closed loop at depth 2, (b) the
+    same flow at depth 0, byte-equal; (c) recovery with frames in flight;
+    (d) the threaded consumer. Returns the launches of (a), the worst
+    kernel |error|, and the report lines and numbers."""
+    from gome_tpu_torch.engine import frames
+    from gome_tpu_torch.ops.match_step import batch_step
+
+    frame_list = [frame_columns(zipf[i:i + sizes["batch"]])
+                  for i in range(0, len(zipf), sizes["batch"])]
+    runs = {}
+    with keep_kernel_inputs() as kept:
+        for depth in (2, 0):
+            eng, bus, consumer = consumer_stack(device, sizes["symbols"],
+                                                depth)
+            frames.FETCH_SECONDS = frames.FETCH_TOTALS_SECONDS = 0.0
+            batch_step.launches = 0
+            with host_split(eng) as spent, no_host_sync() as checked:
+                secs, pub_t, done_t = closed_loop(eng, bus, consumer,
+                                                  frame_list, spent)
+            launches = batch_step.launches
+            fetch = (frames.FETCH_TOTALS_SECONDS,
+                     frames.FETCH_SECONDS - frames.FETCH_TOTALS_SECONDS)
+            label = f"phase 6 ({'a' if depth else 'b'})"
+            check_consumer_run(label, eng, bus, want_zipf)
+            st = eng.stats
+            if launches <= 0 or launches != st.device_calls:
+                raise SystemExit(f"{label}: {launches} kernel launches for "
+                                 f"{st.device_calls} device calls")
+            if checked[0] < len(frame_list):
+                raise SystemExit(f"{label}: {checked[0]} submit_frame calls "
+                                 f"checked for {len(frame_list)} frames")
+            runs[depth] = dict(
+                secs=secs, fetch=fetch, launches=launches, stats=st,
+                split=spent,
+                checked=checked[0], latency=latency_ms(frame_list, secs,
+                                                       pub_t, done_t),
+                bodies=[m.body for m in bus.match_queue.read_from(
+                    0, bus.match_queue.end_offset())],
+                books=eng.batch.lane_books())
+            del eng, bus, consumer
+        a, b = runs[2], runs[0]
+        if a["bodies"] != b["bodies"]:
+            raise SystemExit("phase 6 (b): match-queue bodies at depth 0 "
+                             "differ from depth 2's")
+        for name in a["books"]._fields:
+            if not np.array_equal(getattr(a["books"], name),
+                                  getattr(b["books"], name)):
+                raise SystemExit(f"phase 6 (b): books leaf {name} differs "
+                                 "between depth 0 and depth 2")
+        lines = [
+            f"phase 6 (a): OrderConsumer(pipeline_depth=2, match_wire=frame)"
+            f" closed loop, {len(zipf)} orders over {sizes['symbols']} "
+            f"symbols in {len(frame_list)} frames -> {len(want_zipf)} events "
+            f"equal to the oracle, seqs 0..{len(want_zipf) - 1} once each in "
+            f"the feed; every offset committed; books verified; "
+            f"{a['launches']} kernel launches = device calls; "
+            f"{a['stats'].frame_fallbacks} frame fallbacks; no host sync in "
+            f"{a['checked']} submit_frame calls",
+            f"phase 6 (b): the same flow at pipeline_depth=0: "
+            f"{len(b['bodies'])} match-queue bodies byte-equal to (a)'s, "
+            f"books equal on every leaf; {b['launches']} kernel launches = "
+            f"device calls; {b['stats'].frame_fallbacks} frame fallbacks; "
+            f"no host sync in {b['checked']} submit_frame calls",
+            consumer_fill_buffer_check(device, sizes["symbols"]),
+            consumer_commit_fault_check(device, sizes["symbols"],
+                                        frame_list[:8],
+                                        zipf[:8 * sizes["batch"]]),
+        ]
+        worst, kept_line = check_kept_inputs("phase 6 (a)-(c)", kept)
+    lines.append(kept_line)
+    lines.append(consumer_thread_check(
+        device, sizes["symbols"], frame_list[:4], zipf[:4 * sizes["batch"]]))
+    return a["launches"], worst, runs, lines
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -989,9 +1347,28 @@ def main() -> int:
           f"(phase 2, event prefixes); phase 3 process_columnar "
           f"{orders_per_s:,.0f} orders/s, device steps {step_s:.4f} s, in "
           f"this run")
+    c_launches, c_worst, runs, c_lines = phase6(device, sizes, zipf,
+                                                want_zipf)
+    for line in c_lines:
+        print(line)
+    n_frames = -(-sizes["zipf_n"] // sizes["batch"])
+    for depth, tag in ((2, "a"), (0, "b")):
+        r = runs[depth]
+        print(f"phase 6 [{card}]: ({tag}) OrderConsumer pipeline_depth="
+              f"{depth}: {sizes['zipf_n'] / r['secs']:,.0f} orders/s closed "
+              f"loop (gateway step + run_once per frame of {sizes['batch']}, "
+              f"{sizes['zipf_n']} orders, {r['secs']:.3f} s); order->publish "
+              f"p50 {r['latency'][0]:.2f} ms, p99 {r['latency'][1]:.2f} ms; "
+              f"fetch {r['fetch'][0]:.4f} s (phase 1) + {r['fetch'][1]:.4f} s "
+              f"(phase 2) over {n_frames} frames; host split: "
+              + ", ".join(f"{k} {v:.4f} s" for k, v in r["split"].items())
+              + f", other {r['secs'] - sum(r['split'].values()):.4f} s")
+    print(f"phase 6 [{card}]: K1 launches on the consumer path (a): "
+          f"{c_launches}")
     row = dict(name="match_step", **KERNEL_ROWS["match_step"],
                launches=launches, frame_path_launches=f_launches,
-               max_abs_err=max(worst, f_worst), ms=results["a"]["ms"],
+               consumer_path_launches=c_launches,
+               max_abs_err=max(worst, f_worst, c_worst), ms=results["a"]["ms"],
                device_ms=results["a"]["device_ms"], plain_ms=results["a"]["plain_ms"],
                bound_ms=results["a"]["bound_ms"],
                bound_by=results["a"]["bound_by"], library_ms=None,

@@ -12,7 +12,12 @@ Layout:
                             frame path and the MatchEngine facade
   gome_tpu_torch.ops      — the hand-written CUDA match-step kernel and its
                             plain PyTorch version
-  gome_tpu_torch.utils    — synthetic order streams
+  gome_tpu_torch.bus      — memory and file queues, the JSON codecs and the
+                            columnar ORDER/EVENT frames (host numpy)
+  gome_tpu_torch.service  — the order consumer (cross-frame pipelining) and
+                            the match-event feed
+  gome_tpu_torch.utils    — synthetic order streams, logging, metrics,
+                            fault injection, tracing (torch.profiler)
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; CPU tensors take the kernels' plain versions.

@@ -1,0 +1,64 @@
+"""Message bus — the reference's RabbitMQ layer (gomengine/engine/rabbitmq.go)
+re-expressed as a pluggable queue abstraction. The port of
+``gome_tpu/bus/__init__.py``: the memory and file backends and both wire
+codecs; `make_bus` (it reads a BusConfig from the YAML config) and the
+amqp backend come with the service-config slice.
+
+Topology parity: two named queues, inbound ``doOrder`` (orders + cancels)
+and outbound ``matchOrder`` (fill/cancel events) — rabbitmq.go:60-84 and the
+two consume loops rabbitmq.go:86-177. Backends:
+
+  memory — in-process deques; the single-binary deployment (and tests).
+  file   — durable append-only log segments with consumer offsets; unlike
+           the reference's non-durable auto-ack queues (rabbitmq.go:64,102 —
+           in-flight messages die with the process, SURVEY §2.3.6), a file
+           queue doubles as the replay log for crash recovery (§5.4).
+  amqp   — (not ported yet) the reference's AMQP 0-9-1 client and its
+           fake broker.
+
+Deliberately NOT reproduced: the reference opens a brand-new AMQP connection
+per published message (NewSimpleRabbitMQ inline at engine.go:37,112,157,174,
+193; dial at rabbitmq.go:35-38) — the documented anti-pattern. Publishers
+here hold their queue handle.
+"""
+
+from .base import Message, Queue, QueueBus
+from .codec import (
+    decode_match_result,
+    decode_order,
+    encode_match_result,
+    encode_order,
+)
+from .filelog import FileQueue
+from .memory import MemoryQueue
+from .ordercodec import decode_orders_batch
+
+__all__ = [
+    "decode_message_orders",
+    "decode_orders_batch",
+    "Message",
+    "Queue",
+    "QueueBus",
+    "MemoryQueue",
+    "FileQueue",
+    "encode_order",
+    "decode_order",
+    "encode_match_result",
+    "decode_match_result",
+]
+
+
+def decode_message_orders(body: bytes) -> list:
+    """Orders carried by one bus message, whichever wire kind it is: a
+    binary ORDER frame (colwire) holds a batch, a reference-shape JSON
+    document holds one. The single dispatch point shared by the consumer's
+    quarantine replay and the persistence layer's recovery scan — live
+    decoding and recovery must never diverge."""
+    from .colwire import decode_order_frame, is_frame
+
+    if is_frame(body):
+        from ..engine.frames import orders_from_frame
+
+        return orders_from_frame(decode_order_frame(body))
+    return decode_orders_batch([body])
+

@@ -1,0 +1,171 @@
+"""Queue interface shared by all bus backends (the port's copy of
+``gome_tpu/bus/base.py``).
+
+Semantics (deliberately stronger than the reference's): at-least-once
+delivery with explicit commit of consumer progress, vs the reference's
+auto-ack at-most-once (rabbitmq.go:102,148). `poll_batch` is the
+micro-batching primitive the batched engine needs (SURVEY §7: N orders or T µs,
+whichever first) that the reference's one-message-at-a-time loop
+(rabbitmq.go:116-125) lacks.
+"""
+
+from __future__ import annotations
+
+import abc
+import dataclasses
+import threading
+import time
+
+
+@dataclasses.dataclass(frozen=True)
+class Message:
+    offset: int  # monotonically increasing position in the queue
+    body: bytes
+    # Per-message metadata (AMQP basic-properties headers / the memory
+    # backend's equivalent): trace propagation rides here as "x-trace".
+    # None on backends without header support and excluded from equality
+    # (a replayed message is the same message, headers or not).
+    headers: dict | None = dataclasses.field(default=None, compare=False)
+
+
+class Queue(abc.ABC):
+    """A single named FIFO queue of byte messages."""
+
+    name: str
+
+    #: True on backends whose publish() accepts a `headers` dict that is
+    #: delivered back on the Message (amqp, memory). Publishers that want
+    #: to attach trace context check this instead of try/except-ing the
+    #: signature.
+    supports_headers = False
+
+    @abc.abstractmethod
+    def publish(self, body: bytes) -> int:
+        """Append one message; returns its offset."""
+
+    def publish_batch(self, bodies: list[bytes]) -> int:
+        """Append many messages; returns the first's offset (-0 convention:
+        for an empty list, the current end offset). Backends override to
+        amortize I/O (the native queue does one write+fsync for the whole
+        batch); this default just loops."""
+        if not bodies:
+            return self.end_offset()
+        first = self.publish(bodies[0])
+        for body in bodies[1:]:
+            self.publish(body)
+        return first
+
+    @abc.abstractmethod
+    def read_from(self, offset: int, max_n: int) -> list[Message]:
+        """Read up to max_n messages at >= offset (non-destructive)."""
+
+    @abc.abstractmethod
+    def end_offset(self) -> int:
+        """Offset one past the last published message."""
+
+    @abc.abstractmethod
+    def committed(self) -> int:
+        """The durable consumer offset (next message to process)."""
+
+    @abc.abstractmethod
+    def commit(self, offset: int) -> None:
+        """Durably record that messages below `offset` are fully processed."""
+
+    @abc.abstractmethod
+    def rollback(self, offset: int) -> None:
+        """Recovery-only: move the committed offset BACK to `offset` so the
+        consumer replays from there (crash recovery rewinds to the snapshot's
+        consistent point; normal commits only move forward)."""
+
+    @abc.abstractmethod
+    def truncate_to(self, offset: int) -> None:
+        """Recovery-only: drop all messages at >= offset (the tail beyond the
+        snapshot's consistent point is re-generated by deterministic replay,
+        so truncation never loses data — it prevents duplicates)."""
+
+    def depth(self) -> int:
+        """Published-minus-committed message count — the consumer lag
+        this queue is carrying right now. Scrape-time observability
+        (gome_bus_depth{queue=...} + the timeline bus probe): backends
+        whose end_offset() does network I/O (amqp) override this with a
+        local-state read so a /metrics scrape never blocks on a broker
+        round trip."""
+        return self.end_offset() - self.committed()
+
+    def poll_batch(
+        self, max_n: int, max_wait_s: float, poll_interval_s: float = 0.001
+    ) -> list[Message]:
+        """Micro-batch read from the committed offset: returns as soon as
+        max_n messages are available, else whatever arrived after max_wait_s
+        (possibly empty). Does NOT commit — the caller commits after the
+        batch is fully processed (crash ⇒ replay, at-least-once)."""
+        deadline = time.monotonic() + max_wait_s
+        start = self.committed()
+        while True:
+            msgs = self.read_from(start, max_n)
+            if len(msgs) >= max_n or time.monotonic() >= deadline:
+                return msgs
+            self._wait_for_publish(poll_interval_s)
+
+    def _wait_for_publish(self, timeout_s: float) -> None:
+        time.sleep(timeout_s)
+
+
+@dataclasses.dataclass
+class QueueBus:
+    """The reference's two-queue topology (rabbitmq.go: "doOrder" inbound,
+    "matchOrder" outbound)."""
+
+    order_queue: Queue
+    match_queue: Queue
+
+
+def export_queue_metrics(queue: Queue, registry=None) -> None:
+    """Register the per-queue depth/offset gauges for one queue:
+    ``gome_bus_depth{queue=}`` (published minus committed — the consumer
+    lag the fleet's fan-in trade-off shows up in, per partition),
+    ``gome_bus_end_offset{queue=}``, and ``gome_bus_committed_offset
+    {queue=}``. All scrape-time callback gauges — nothing on the publish
+    or consume path; re-registration rebinds the callbacks to the newest
+    queue object (services are rebuilt across tests). Lazy metrics
+    import keeps bus.base dependency-free for non-service users."""
+    from ..utils.metrics import REGISTRY
+
+    reg = registry or REGISTRY
+    labels = {"queue": queue.name}
+    reg.callback_gauge(
+        "gome_bus_depth",
+        "queue depth: published minus committed (consumer lag, messages)",
+        queue.depth,
+        labels=labels,
+    )
+    reg.callback_gauge(
+        "gome_bus_end_offset",
+        "offset one past the last published message (local view)",
+        # Derived from depth()+committed() rather than end_offset() so
+        # the amqp backend's scrape stays free of broker round trips.
+        lambda: queue.depth() + queue.committed(),
+        labels=labels,
+    )
+    reg.callback_gauge(
+        "gome_bus_committed_offset",
+        "durable consumer offset (next message to process)",
+        queue.committed,
+        labels=labels,
+    )
+
+
+class _Waitable:
+    """Mixin: condition-variable publish notification so poll_batch wakes
+    immediately instead of sleeping the full poll interval."""
+
+    def _init_wait(self):
+        self._cond = threading.Condition()
+
+    def _notify_publish(self):
+        with self._cond:
+            self._cond.notify_all()
+
+    def _wait_for_publish(self, timeout_s: float) -> None:
+        with self._cond:
+            self._cond.wait(timeout_s)

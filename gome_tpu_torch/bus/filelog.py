@@ -1,0 +1,226 @@
+"""Durable append-only file queue.
+
+Format: length-prefixed records in one log file per queue
+(``<dir>/<name>.log``: 4-byte big-endian length + payload per record) plus a
+sidecar ``<name>.offset`` holding the committed consumer offset as ASCII.
+Publishes fsync per append batch; commits rewrite the sidecar atomically
+(tmp + rename). A torn final record (crash mid-append) is detected on open
+and truncated away. Readers TAIL the log across processes: read_from/
+end_offset re-scan for records another process appended since the last
+look (single writer per queue; an incomplete tail record is the live
+writer mid-append and is skipped, not truncated) — the split
+gateway/consumer fleet topology runs on exactly this.
+
+This is the durability the reference lacks on its bus (non-durable queues +
+auto-ack, rabbitmq.go:64,102 — SURVEY §2.3.6): with a FileQueue, the order
+log doubles as the replay source for crash recovery (the persist layer), the
+role the raw Redis book plays in the reference (§5.4).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import struct
+import threading
+
+from ..utils.faults import FAULTS
+from .base import Message, Queue, _Waitable
+
+_LEN = struct.Struct(">I")
+
+# Committed-offset sidecar parse: accept any leading decimal run. A torn
+# write of "1234" can leave "12" — and any prefix of a decimal string is
+# numerically <= the full value, so the digit prefix IS the last valid
+# committed prefix (commits only move forward; re-delivery is safe,
+# losing acknowledged work is not).
+_OFF_RE = re.compile(rb"\s*(\d+)")
+
+
+class FileQueue(_Waitable, Queue):
+    def __init__(self, name: str, path_base: str, fsync: bool = True):
+        self.name = name
+        self._log_path = path_base + ".log"
+        self._off_path = path_base + ".offset"
+        self._fsync = fsync
+        self._lock = threading.Lock()
+        os.makedirs(os.path.dirname(self._log_path) or ".", exist_ok=True)
+        # In-memory index: byte position of each record (offset -> filepos).
+        self._positions: list[int] = []
+        # Byte position one past the last fully-indexed record: the
+        # cross-process tail point (_refresh_locked resumes scanning
+        # here when ANOTHER process appended since we last looked).
+        self._scan_end = 0  # guarded by self._lock
+        with self._lock:
+            self._scan_existing_locked()
+        self._f = open(self._log_path, "ab")
+        self._committed = self._read_committed()
+        self._init_wait()
+
+    # -- recovery-time scan --------------------------------------------------
+    def _scan_existing_locked(self) -> None:
+        if not os.path.exists(self._log_path):
+            return
+        valid_end = 0
+        with open(self._log_path, "rb") as f:
+            data = f.read()
+        pos = 0
+        while pos + _LEN.size <= len(data):
+            (n,) = _LEN.unpack_from(data, pos)
+            if pos + _LEN.size + n > len(data):
+                break  # torn tail record
+            self._positions.append(pos)
+            pos += _LEN.size + n
+            valid_end = pos
+        self._scan_end = valid_end
+        if valid_end < len(data):
+            with open(self._log_path, "ab") as f:
+                f.truncate(valid_end)
+
+    def _refresh_locked(self) -> None:
+        """Index records appended by ANOTHER process since our last look
+        (caller holds self._lock). The fleet topology runs one writer and
+        one reader process per queue over the same log file: the reader's
+        in-memory index must tail the writer's appends. Only complete
+        records are indexed — an incomplete tail is a record the live
+        writer is mid-append on, so (unlike the open-time scan) it is
+        left alone, never truncated. One stat per call when nothing
+        changed."""
+        try:
+            size = os.path.getsize(self._log_path)
+        except OSError:
+            return
+        if size <= self._scan_end:
+            return
+        with open(self._log_path, "rb") as f:
+            f.seek(self._scan_end)
+            data = f.read(size - self._scan_end)
+        pos = 0
+        while pos + _LEN.size <= len(data):
+            (n,) = _LEN.unpack_from(data, pos)
+            if pos + _LEN.size + n > len(data):
+                break  # writer mid-append; next refresh picks it up
+            self._positions.append(self._scan_end + pos)
+            pos += _LEN.size + n
+        self._scan_end += pos
+
+    def _read_committed(self) -> int:
+        """Parse the sidecar, surviving torn/empty/garbage contents.
+
+        Fallback order: digit prefix of whatever is there (see _OFF_RE),
+        else 0 (full replay from the start). Either way the result is
+        clamped to [0, len(positions)] — a sidecar ahead of a truncated
+        log must not make read_from index past the end.
+        """
+        try:
+            with open(self._off_path, "rb") as f:
+                m = _OFF_RE.match(f.read(64))
+        except OSError:
+            return 0
+        committed = int(m.group(1)) if m else 0
+        return min(committed, len(self._positions))
+
+    # -- Queue interface -----------------------------------------------------
+    def publish(self, body: bytes) -> int:
+        with self._lock:
+            record = _LEN.pack(len(body)) + body
+            cut = FAULTS.fire("filelog.append")
+            if cut:
+                # Torn append: persist a strict prefix of the record and
+                # die. _scan_existing_locked truncates it on the next open.
+                self._f.write(record[: cut % len(record)])
+                self._f.flush()
+                os.fsync(self._f.fileno())
+                FAULTS.hard_exit()
+            pos = self._f.tell()
+            self._f.write(record)
+            self._f.flush()
+            if self._fsync:
+                os.fsync(self._f.fileno())
+            self._positions.append(pos)
+            self._scan_end = pos + len(record)
+            off = len(self._positions) - 1
+        self._notify_publish()
+        return off
+
+    def read_from(self, offset: int, max_n: int) -> list[Message]:
+        with self._lock:
+            self._refresh_locked()
+            end = min(len(self._positions), offset + max_n)
+            if offset >= end:
+                return []
+            start_pos = self._positions[offset]
+        out: list[Message] = []
+        with open(self._log_path, "rb") as f:
+            f.seek(start_pos)
+            for i in range(offset, end):
+                (n,) = _LEN.unpack(f.read(_LEN.size))
+                out.append(Message(offset=i, body=f.read(n)))
+        return out
+
+    def end_offset(self) -> int:
+        with self._lock:
+            self._refresh_locked()
+            return len(self._positions)
+
+    def committed(self) -> int:
+        with self._lock:
+            return self._committed
+
+    def commit(self, offset: int) -> None:
+        with self._lock:
+            if offset < self._committed:
+                raise ValueError(
+                    f"commit going backwards: {offset} < {self._committed}"
+                )
+            if offset > len(self._positions):
+                raise ValueError(
+                    f"commit past end: {offset} > {len(self._positions)}"
+                )
+            self._write_offset(offset)
+            self._committed = offset
+
+    def rollback(self, offset: int) -> None:
+        with self._lock:
+            if offset > self._committed:
+                raise ValueError(
+                    f"rollback going forwards: {offset} > {self._committed}"
+                )
+            self._write_offset(offset)
+            self._committed = offset
+
+    def truncate_to(self, offset: int) -> None:
+        with self._lock:
+            if offset < self._committed:
+                raise ValueError(
+                    f"cannot truncate below committed: {offset} < "
+                    f"{self._committed}"
+                )
+            if offset >= len(self._positions):
+                return
+            pos = self._positions[offset]
+            self._f.truncate(pos)
+            self._f.seek(pos)
+            del self._positions[offset:]
+            self._scan_end = pos
+
+    def _write_offset(self, offset: int) -> None:
+        cut = FAULTS.fire("filelog.offset")
+        if cut:
+            # Torn sidecar: a truncated decimal written straight to the
+            # final path (simulating a filesystem that tore the replace),
+            # then die. _read_committed's digit-prefix parse recovers.
+            text = str(offset)
+            with open(self._off_path, "w") as f:
+                f.write(text[: cut % (len(text) + 1)])
+            FAULTS.hard_exit()
+        tmp = self._off_path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(str(offset))
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, self._off_path)
+
+    def close(self) -> None:
+        with self._lock:
+            self._f.close()

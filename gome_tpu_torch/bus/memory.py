@@ -1,0 +1,118 @@
+"""In-process queue backend (single-binary deployments and tests)."""
+
+from __future__ import annotations
+
+import threading
+
+from .base import Message, Queue, _Waitable
+
+
+class MemoryQueue(_Waitable, Queue):
+    supports_headers = True  # in-process equivalent of AMQP headers
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lock = threading.Lock()
+        # The log: _items[i] holds offset _base + i. compact() releases
+        # the committed prefix (advances _base); offsets stay absolute.
+        self._items: list[bytes] = []  # guarded by self._lock
+        self._headers: list[dict | None] = []  # guarded by self._lock
+        self._base = 0  # guarded by self._lock
+        self._committed = 0  # guarded by self._lock
+        self._init_wait()
+
+    def publish(self, body: bytes, headers: dict | None = None) -> int:
+        with self._lock:
+            self._items.append(bytes(body))
+            self._headers.append(headers)
+            off = self._base + len(self._items) - 1
+        self._notify_publish()
+        return off
+
+    def read_from(self, offset: int, max_n: int) -> list[Message]:
+        with self._lock:
+            if offset < self._base:
+                raise ValueError(
+                    f"offset {offset} was compacted away (base "
+                    f"{self._base}); compact() only frees the committed "
+                    "prefix, so a committed reader can never see this"
+                )
+            end = min(len(self._items), offset - self._base + max_n)
+            return [
+                Message(
+                    offset=self._base + i,
+                    body=self._items[i],
+                    headers=self._headers[i],
+                )
+                for i in range(offset - self._base, end)
+            ]
+
+    def end_offset(self) -> int:
+        with self._lock:
+            return self._base + len(self._items)
+
+    def depth(self) -> int:
+        # One lock acquisition (the base-class default takes it twice —
+        # end then committed — and can interleave with a publish).
+        with self._lock:
+            return self._base + len(self._items) - self._committed
+
+    def committed(self) -> int:
+        with self._lock:
+            return self._committed
+
+    def commit(self, offset: int) -> None:
+        with self._lock:
+            if offset < self._committed:
+                raise ValueError(
+                    f"commit going backwards: {offset} < {self._committed}"
+                )
+            if offset > self._base + len(self._items):
+                raise ValueError(
+                    f"commit past end: {offset} > "
+                    f"{self._base + len(self._items)}"
+                )
+            self._committed = offset
+
+    def rollback(self, offset: int) -> None:
+        with self._lock:
+            if offset > self._committed:
+                raise ValueError(
+                    f"rollback going forwards: {offset} > {self._committed}"
+                )
+            if offset < self._base:
+                raise ValueError(
+                    f"rollback below compacted base: {offset} < "
+                    f"{self._base} — compact() bounds the redelivery "
+                    "window to messages since the last compaction"
+                )
+            self._committed = offset
+
+    def compact(self) -> int:
+        """Release the committed prefix (the memory-bus analog of a log
+        segment delete): message bodies below the committed offset are
+        freed and the base advances. Without this, an in-process queue
+        retains every message for the life of the process — fine for a
+        bounded bench, UNBOUNDED growth for a wall-clock soak (the
+        steady-state proof would be measuring its own harness). Bounds
+        the rollback/redelivery window to messages since the last
+        compaction — callers compact only past state they will never
+        replay. Returns the number of messages released."""
+        with self._lock:
+            n = self._committed - self._base
+            if n <= 0:
+                return 0
+            del self._items[:n]
+            del self._headers[:n]
+            self._base = self._committed
+            return n
+
+    def truncate_to(self, offset: int) -> None:
+        with self._lock:
+            if offset < self._committed:
+                raise ValueError(
+                    f"cannot truncate below committed: {offset} < "
+                    f"{self._committed}"
+                )
+            del self._items[max(offset - self._base, 0):]
+            del self._headers[max(offset - self._base, 0):]

@@ -535,10 +535,14 @@ class PendingFrame:
     everything resolve_frame needs, plus the checkpoint that makes a
     tripped budget or failure recoverable."""
 
-    __slots__ = ("arrays", "checkpoint", "items", "compact", "n_kept",
-                 "fetched")
+    __slots__ = ("cols", "arrays", "checkpoint", "items", "compact",
+                 "n_kept", "fetched")
 
-    def __init__(self, arrays, checkpoint, items, compact, n_kept, fetched):
+    def __init__(self, cols, arrays, checkpoint, items, compact, n_kept,
+                 fetched):
+        # The admitted columns: FramePipeline re-runs them exactly, or
+        # resubmits them, when an earlier frame's recovery rewinds.
+        self.cols = cols
         self.arrays = arrays  # incl. add_counts for the count_ub handoff
         self.checkpoint = checkpoint
         self.items = items  # [(meta, (t_grid, K))]
@@ -620,7 +624,7 @@ def submit_frame(eng: BatchEngine, cols: dict) -> PendingFrame:
                 event = torch.cuda.Event()
                 event.record()
             fetched = (event, totals, counts_max)
-        return PendingFrame(a, cp, items, compact, n_kept, fetched)
+        return PendingFrame(cols, a, cp, items, compact, n_kept, fetched)
     except Exception:
         eng._restore(cp)
         raise

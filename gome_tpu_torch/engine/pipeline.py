@@ -1,0 +1,158 @@
+"""Cross-frame pipelining: overlap frame k+1's host work (decode, intern,
+pack, dispatch) with frame k's device execution and device->host fetch.
+The port of ``gome_tpu/engine/pipeline.py``: a frame's grids, compaction
+and phase-1 copies are queued on the card's current stream at submit, so
+the device runs the submitted frames in order while the host packs the
+next one; resolve_frame syncs on the frame's own CUDA event.
+
+The single-frame fast path (frames.apply_frame_fast) already collapses a
+frame to one overlapped fetch, but a synchronous consumer still serializes
+[host k] -> [fetch k] -> [host k+1] -> ... . submit_frame advances
+eng.books at dispatch time, so a later frame can be SUBMITTED before an
+earlier one is RESOLVED — sequential matching semantics hold because the
+device executes the dispatched grids in order; only the host-side
+resolution (fetch + decode + publish) trails behind. Steady-state
+throughput becomes max(host_time, fetch_time) per frame instead of their
+sum.
+
+Recovery keeps the transactional story:
+
+  * a device budget tripped in frame k (detected at resolve): rewind the
+    engine to k's checkpoint, re-run k on the exact escalating path, then
+    RESUBMIT every later in-flight frame on top (their columns are
+    retained; their pre-pool admission is not repeated — the marks were
+    already consumed at feed time and stay consumed);
+  * a hard failure: rewind to k's checkpoint, restore every in-flight
+    frame's consumed pre-pool marks, clear the pipeline, re-raise — the
+    at-least-once consumer replays all of them from the uncommitted
+    offset.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+
+from . import frames
+from .orchestrator import MatchEngine
+
+
+class FramePipeline:
+    """Depth-D pipelined ORDER-frame executor over one MatchEngine.
+
+    feed(cols, token) submits a frame (admission included) and returns any
+    frames that resolved as a list of (token, EventBatch); flush() drains
+    the rest. Tokens let the caller (the consumer) commit each frame's bus
+    offset only after ITS events resolved and published."""
+
+    def __init__(self, engine: MatchEngine, depth: int = 2):
+        if depth < 1:
+            raise ValueError("pipeline depth must be >= 1")
+        self.engine = engine
+        self.depth = depth
+        self._q: deque = deque()  # (pending, consumed, token)
+
+    def feed(self, cols: dict, token=None) -> list[tuple]:  # gomelint: hotpath
+        eng = self.engine.batch
+        fcols, consumed = self.engine.admit_frame(cols)
+        try:
+            pend = frames.submit_frame(eng, fcols)
+        except Exception:
+            # submit rolled the engine back; this frame's marks restore
+            # here, in-flight frames are untouched (they precede it).
+            self.engine.pre_pool |= consumed
+            raise
+        self._q.append((pend, consumed, token))
+        out = []
+        while len(self._q) > self.depth:
+            out.append(self._resolve_oldest())
+        return out
+
+    def flush(self) -> list[tuple]:
+        out = []
+        while self._q:
+            out.append(self._resolve_oldest())
+        return out
+
+    # gomelint: hotpath
+    def step(self):
+        """Resolve the oldest in-flight frame, or None if nothing is in
+        flight — the consumer's make-progress primitive when the order
+        queue is momentarily empty."""
+        if not self._q:
+            return None
+        return self._resolve_oldest()
+
+    def abort(self) -> None:
+        """Discard every in-flight frame: rewind the engine to the oldest
+        frame's checkpoint and restore all consumed pre-pool marks, so the
+        at-least-once consumer can replay from its uncommitted offset. Used
+        when a failure OUTSIDE the pipeline (e.g. the match-queue publish of
+        an already-resolved frame) forces the consumer to restart a span
+        whose later frames are still in flight."""
+        if not self._q:
+            return
+        eng = self.engine.batch
+        eng._restore(self._q[0][0].checkpoint)
+        for _pend, consumed, _token in self._q:
+            self.engine.pre_pool |= consumed
+        self._q.clear()
+
+    def _resolve_oldest(self):
+        eng = self.engine.batch
+        pend, consumed, token = self._q.popleft()
+        try:
+            return (token, frames.resolve_frame(eng, pend))
+        except frames._NeedExact:
+            eng.stats.frame_fallbacks += 1
+            # Budget tripped: rewind THROUGH every later in-flight frame
+            # (they were submitted on top of the bad state), replay this
+            # frame exactly, then resubmit the later ones.
+            eng._restore(pend.checkpoint)
+            later = list(self._q)
+            self._q.clear()
+            try:
+                batch = frames.apply_frame(eng, pend.cols)
+            except Exception:
+                # The exact re-run itself failed (e.g. the overflow that
+                # tripped the budget exceeds max_cap). _run_exact commits
+                # books per grid, so partial state may be applied: rewind
+                # to the checkpoint and restore this frame's AND every
+                # later in-flight frame's consumed pre-pool marks — the
+                # at-least-once consumer replays all of them from the
+                # uncommitted offset (mirrors apply_frame_fast's fallback).
+                eng._restore(pend.checkpoint)
+                self.engine.pre_pool |= consumed
+                for _lp, lc, _lt in later:
+                    self.engine.pre_pool |= lc
+                raise
+            try:
+                for lp, lc, lt in later:
+                    self._q.append(
+                        (frames.submit_frame(eng, lp.cols), lc, lt)
+                    )
+            except Exception:
+                # A resubmit failed AFTER the exact re-run committed this
+                # frame. Returning nothing would lose the frame's events
+                # (its marks are consumed, so the replay would drop its
+                # ADDs): treat the whole span as a hard failure instead —
+                # rewind THROUGH the exact re-run to this frame's
+                # checkpoint, restore its and every later frame's marks,
+                # and let the at-least-once replay regenerate everything.
+                eng._restore(pend.checkpoint)
+                self.engine.pre_pool |= consumed
+                for _lp2, lc2, _lt2 in later:
+                    self.engine.pre_pool |= lc2
+                self._q.clear()
+                raise
+            return (token, batch)
+        except Exception:
+            # Hard failure: no trace of this frame or anything after it.
+            eng._restore(pend.checkpoint)
+            self.engine.pre_pool |= consumed
+            for _lp, lc, _lt in self._q:
+                self.engine.pre_pool |= lc
+            self._q.clear()
+            raise
+
+    def __len__(self) -> int:
+        return len(self._q)

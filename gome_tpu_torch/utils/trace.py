@@ -1,0 +1,542 @@
+"""Order-lifecycle tracing — trace ids, stage spans, per-stage latency
+histograms, and a flight recorder (SURVEY §5.1/§5.5: the reference is fully
+async and publishes no latency numbers; CoinTossX makes per-stage latency
+percentiles the headline deliverable of a matching engine, and on an XLA
+stack the dominant costs — batch-wait, padding, compile, device dispatch —
+are invisible without explicit instrumentation, JAX-LOB §4).
+
+Three cooperating pieces, all dependency-free:
+
+  * **Trace context** — every order is assigned a trace id at the gateway
+    (`Tracer.new_trace`). The wire form is ``"<id>@<t>"`` where ``t`` is
+    the publisher's clock at the hop (`encode_context`/`decode_context`):
+    the receiver turns the carried timestamp into a `bus_transit` /
+    `batch_wait` span without any clock negotiation (same-process clocks;
+    cross-process spans are documented as same-host-only). The context
+    rides the JSON order codec (``Trace`` field — reference-shaped
+    messages decode unchanged), the columnar ORDER frame (GCO3 trace
+    column), and AMQP basic-properties headers (``x-trace``).
+
+  * **Stage spans** — named, timestamped intervals at each pipeline stage
+    (STAGES below). Closing a span observes the per-stage latency
+    `Histogram` (one ``gome_stage_seconds{stage=...}`` family in the
+    shared REGISTRY, so /metrics exposes p50/p95/p99 per stage) and, when
+    trace ids are attached, appends the span to those orders' journeys in
+    the flight recorder. Batch-scoped stages (pad_pack, compile,
+    device_execute, decode, publish) attribute to every traced order in
+    the current batch via `Tracer.batch(...)`.
+
+  * **FlightRecorder** — a bounded ring buffer holding the last N
+    COMPLETE order journeys plus every journey exceeding a configurable
+    slow-order threshold, exported as Chrome trace-event JSON
+    (`chrome_trace`; loadable in chrome://tracing or Perfetto) via the
+    ops endpoint's ``/trace``.
+
+Hot-path contract: with no recorder installed (the default) every hook is
+a shared no-op — `Tracer.span`/`stage` return a module-level singleton
+context manager and `new_trace` returns None, so the frame hot path pays
+one attribute check and ZERO allocations (asserted by the no-op-recorder
+guard in tests/test_trace.py).
+"""
+
+from __future__ import annotations
+
+import contextvars
+import itertools
+import os
+import threading
+import time
+from collections import OrderedDict, deque
+
+from .metrics import REGISTRY, Registry
+
+#: The span taxonomy, in pipeline order. `compile_miss`/`compile_hit`
+#: split the device-dispatch cost by whether the shape combo had been
+#: traced+compiled before (engine.frames.submit_frame keys on
+#: BatchEngine.combo_seen).
+STAGES = (
+    "ingress",        # gateway: validate + pre-pool mark
+    "enqueue",        # gateway: hand-off to the batcher / order queue
+    "batch_wait",     # batcher: buffered waiting for the frame to close
+    "bus_transit",    # publish -> consumer receipt (from the carried ts)
+    "pad_pack",       # host: frame arrays + grid packing (NOP padding)
+    "compile_miss",   # dispatch of a first-seen shape combo (trace+compile)
+    "compile_hit",    # dispatch of an already-compiled combo
+    "device_execute", # blocking device fetch (execution drain)
+    "decode",         # device outputs -> event columns
+    "publish",        # event publish to the matchOrder queue
+)
+
+
+# --- trace context (the wire form) ---------------------------------------
+
+
+def encode_context(trace_id: str, t: float) -> str:
+    """Wire form of one hop's trace context: ``"<id>@<t>"`` with ``t``
+    the sender's clock reading at the hop (seconds, same epoch as the
+    tracer clock)."""
+    return f"{trace_id}@{t:.9f}"
+
+
+def decode_context(ctx: str) -> tuple[str, float]:
+    """Inverse of encode_context; a bare id (no ``@``) carries t=0.0."""
+    trace_id, _, ts = ctx.partition("@")
+    return trace_id, (float(ts) if ts else 0.0)
+
+
+# --- flight recorder -----------------------------------------------------
+
+
+class FlightRecorder:
+    """Bounded journey store: open journeys accumulate spans keyed by
+    trace id; `complete()` moves a journey into the last-N ring, and into
+    the slow ring too when it exceeded `slow_threshold_s` end to end.
+    Everything is O(1) per span and strictly bounded: at most `max_open`
+    open journeys (oldest evicted — a lost publish must not leak memory
+    forever) and `keep_n` entries per ring."""
+
+    def __init__(
+        self,
+        keep_n: int = 64,
+        slow_threshold_s: float | None = None,
+        max_open: int = 4096,
+    ):
+        self.keep_n = keep_n
+        self.slow_threshold_s = slow_threshold_s
+        self.max_open = max_open
+        self._lock = threading.Lock()
+        self._open: OrderedDict[str, list] = OrderedDict()  # guarded by self._lock
+        self._done: deque = deque(maxlen=keep_n)  # guarded by self._lock
+        self._slow: deque = deque(maxlen=keep_n)  # guarded by self._lock
+        self.dropped_open = 0  # guarded by self._lock (evictions)
+
+    def record(
+        self, trace_id: str, stage: str, t0: float, t1: float, meta=None
+    ) -> None:
+        with self._lock:
+            spans = self._open.get(trace_id)
+            if spans is None:
+                if len(self._open) >= self.max_open:
+                    self._open.popitem(last=False)
+                    self.dropped_open += 1
+                spans = self._open[trace_id] = []
+            spans.append((stage, t0, t1, meta))
+
+    def complete(self, trace_id: str) -> None:
+        with self._lock:
+            spans = self._open.pop(trace_id, None)
+            if not spans:
+                return
+            start = min(s[1] for s in spans)
+            end = max(s[2] for s in spans)
+            j = {
+                "trace_id": trace_id,
+                "spans": spans,
+                "start": start,
+                "end": end,
+                "duration_s": end - start,
+            }
+            self._done.append(j)
+            if (
+                self.slow_threshold_s is not None
+                and j["duration_s"] > self.slow_threshold_s
+            ):
+                self._slow.append(j)
+
+    def journeys(self) -> list[dict]:
+        """Complete journeys, last-N ring first, then the slow ring's
+        extras (entries already in the last-N ring are not repeated)."""
+        with self._lock:
+            done = list(self._done)
+            slow = list(self._slow)
+        seen = {id(j) for j in done}
+        return done + [j for j in slow if id(j) not in seen]
+
+    def export(self, include_open: bool = True) -> dict:
+        """Wire export for cross-process stitching (obs.fleet): every
+        journey this process knows, tagged with the recorder's pid. Open
+        journeys are included by default — a gateway process never sees
+        the consumer-side `complete()`, so its half of every journey
+        lives in `_open` forever; the aggregator joins the halves by
+        trace id. Spans serialize as [stage, t0, t1, meta] lists (JSON
+        round-trip keeps them list-shaped on the far side)."""
+        out = []
+        for j in self.journeys():
+            out.append(
+                {
+                    "trace_id": j["trace_id"],
+                    "spans": [list(s) for s in j["spans"]],
+                    "start": j["start"],
+                    "end": j["end"],
+                    "duration_s": j["duration_s"],
+                    "open": False,
+                }
+            )
+        if include_open:
+            with self._lock:
+                open_items = [
+                    (tid, list(spans)) for tid, spans in self._open.items()
+                ]
+            for tid, spans in open_items:
+                if not spans:
+                    continue
+                start = min(s[1] for s in spans)
+                end = max(s[2] for s in spans)
+                out.append(
+                    {
+                        "trace_id": tid,
+                        "spans": [list(s) for s in spans],
+                        "start": start,
+                        "end": end,
+                        "duration_s": end - start,
+                        "open": True,
+                    }
+                )
+        return {"pid": os.getpid(), "journeys": out}
+
+    def journey(self, trace_id: str) -> dict | None:
+        for j in self.journeys():
+            if j["trace_id"] == trace_id:
+                return j
+        return None
+
+    def chrome_trace(self) -> dict:
+        """The recorder's contents as Chrome trace-event JSON (the
+        ``traceEvents`` array format chrome://tracing and Perfetto load).
+        One tid per journey (named by its trace id via metadata events);
+        spans are complete ``"ph": "X"`` events in microseconds."""
+        events = []
+        for tid_ix, j in enumerate(self.journeys()):
+            events.append(
+                {
+                    "ph": "M",
+                    "name": "thread_name",
+                    "pid": 1,
+                    "tid": tid_ix,
+                    "args": {"name": f"order {j['trace_id']}"},
+                }
+            )
+            for stage, t0, t1, meta in j["spans"]:
+                ev = {
+                    "name": stage,
+                    "cat": "order",
+                    "ph": "X",
+                    "pid": 1,
+                    "tid": tid_ix,
+                    "ts": t0 * 1e6,
+                    "dur": max(t1 - t0, 0.0) * 1e6,
+                    "args": {"trace_id": j["trace_id"]},
+                }
+                if meta:
+                    ev["args"].update(meta)
+                events.append(ev)
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+# --- spans ---------------------------------------------------------------
+
+
+class _NoopSpan:
+    """Shared do-nothing context manager: the disabled-tracer fast path.
+    A module-level singleton — entering/exiting it allocates nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
+
+
+NOOP_SPAN = _NoopSpan()
+
+
+class _Span:
+    """One timed stage interval; exit observes the stage histogram and
+    records into the recorder for the explicit trace id and/or the
+    tracer's current batch ids."""
+
+    __slots__ = ("_tracer", "stage", "trace_id", "t0")
+
+    def __init__(self, tracer: "Tracer", stage: str, trace_id: str | None):
+        self._tracer = tracer
+        self.stage = stage
+        self.trace_id = trace_id
+
+    def __enter__(self):
+        self.t0 = self._tracer.clock()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self._tracer.observe_span(
+            self.stage, self.t0, self._tracer.clock(), self.trace_id
+        )
+        return False
+
+
+class _AnnotatedSpan(_Span):
+    """_Span + a torch.profiler.record_function over the same interval, so
+    the host-side stage span lands on the device trace timeline too
+    (utils.tracing.annotate; utils.tracing.trace captures both)."""
+
+    __slots__ = ("_ann",)
+
+    def __enter__(self):
+        from .tracing import annotate
+
+        self._ann = annotate(f"gome:{self.stage}")
+        self._ann.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, exc_type, exc, tb):
+        try:
+            self._ann.__exit__(exc_type, exc, tb)
+        finally:
+            return super().__exit__(exc_type, exc, tb)
+
+
+class _Batch:
+    """Context manager attaching a set of trace ids to every batch-scoped
+    span closed inside it (thread-local: the consumer thread owns its
+    batch)."""
+
+    __slots__ = ("_tracer", "_ids", "_prev")
+
+    def __init__(self, tracer: "Tracer", ids):
+        self._tracer = tracer
+        self._ids = ids
+
+    def __enter__(self):
+        local = self._tracer._local
+        self._prev = getattr(local, "batch_ids", None)
+        local.batch_ids = self._ids
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self._tracer._local.batch_ids = self._prev
+        return False
+
+
+# --- logging join --------------------------------------------------------
+
+_current_trace: contextvars.ContextVar = contextvars.ContextVar(
+    "gome_trace_id", default=None
+)
+
+
+def current_trace_id() -> str | None:
+    """The trace id bound to the current context (utils.logging's JSON
+    formatter injects it into every record emitted under `Tracer.bind`)."""
+    return _current_trace.get()
+
+
+class _Bind:
+    __slots__ = ("_tid", "_tok")
+
+    def __init__(self, tid):
+        self._tid = tid
+
+    def __enter__(self):
+        self._tok = _current_trace.set(self._tid)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        _current_trace.reset(self._tok)
+        return False
+
+
+# --- tracer --------------------------------------------------------------
+
+
+class Tracer:
+    """Process-wide tracing facade. Disabled (no recorder) by default:
+    every hook degrades to a no-op singleton / None, so instrumented hot
+    paths cost one attribute check. `install()` arms it — typically once
+    at service boot (service.app wires it from the ops config) or per
+    test/bench run with a private Registry."""
+
+    def __init__(
+        self,
+        recorder: FlightRecorder | None = None,
+        registry: Registry | None = None,
+        clock=time.perf_counter,
+        new_id=None,
+    ):
+        self.clock = clock  # single-writer: install() caller (boot/test)
+        self.recorder = None  # single-writer: install()/disable() caller
+        self._new_id = new_id  # single-writer: install() caller (boot/test)
+        self._counter = itertools.count(1)
+        self._prefix = f"{os.getpid() & 0xFFFF:04x}"
+        self._hist: dict[str, object] = {}  # single-writer: install() caller
+        self._local = threading.local()
+        if recorder is not None:
+            self.install(recorder, registry=registry, clock=clock,
+                         new_id=new_id)
+
+    # -- lifecycle ---------------------------------------------------------
+    @property
+    def enabled(self) -> bool:
+        return self.recorder is not None
+
+    def install(
+        self,
+        recorder: FlightRecorder,
+        registry: Registry | None = None,
+        clock=None,
+        new_id=None,
+    ) -> "Tracer":
+        """Arm the tracer: journeys land in `recorder`, stage histograms
+        in `registry` (the process REGISTRY by default; benches pass a
+        private one so runs do not pollute each other). `clock` and
+        `new_id` are injectable for deterministic tests (scripted clock,
+        scripted ids)."""
+        registry = registry or REGISTRY
+        self._hist = {
+            stage: registry.histogram(
+                "gome_stage_seconds",
+                "per-stage order pipeline latency (order-lifecycle tracing)",
+                labels={"stage": stage},
+            )
+            for stage in STAGES
+        }
+        if clock is not None:
+            self.clock = clock
+        if new_id is not None:
+            self._new_id = new_id
+        self.recorder = recorder
+        return self
+
+    def disable(self) -> None:
+        """Back to the zero-overhead state (hooks become no-ops again)."""
+        self.recorder = None
+
+    # -- trace ids ---------------------------------------------------------
+    def new_trace(self) -> str | None:
+        """A fresh trace id, or None while disabled (callers gate all
+        per-order work on the None)."""
+        if self.recorder is None:
+            return None
+        if self._new_id is not None:
+            return self._new_id()
+        return f"{self._prefix}-{next(self._counter):08x}"
+
+    def context(self, trace_id: str) -> str:
+        """Wire context for a hop happening NOW."""
+        return encode_context(trace_id, self.clock())
+
+    def bind(self, trace_id: str | None):
+        """Bind `trace_id` as the logging context (current_trace_id) for
+        the duration; no-op singleton for None."""
+        if trace_id is None:
+            return NOOP_SPAN
+        return _Bind(trace_id)
+
+    # -- spans -------------------------------------------------------------
+    def span(self, stage: str, trace_id: str | None = None):
+        """Timed span CM; shared no-op while disabled."""
+        if self.recorder is None:
+            return NOOP_SPAN
+        return _Span(self, stage, trace_id)
+
+    def stage(self, stage: str, trace_id: str | None = None):
+        """span() + torch.profiler record_function (host/device timeline
+        alignment) — for stages bracketing device work."""
+        if self.recorder is None:
+            return NOOP_SPAN
+        return _AnnotatedSpan(self, stage, trace_id)
+
+    def annotation(self, name: str):
+        """Bare torch.profiler record_function gated on the tracer (no
+        histogram) — for regions whose stage label is only known after
+        the fact (compile miss vs hit: the shape-combo key needs the
+        dispatched outputs' shapes)."""
+        if self.recorder is None:
+            return NOOP_SPAN
+        from .tracing import annotate
+
+        return annotate(f"gome:{name}")
+
+    def batch(self, trace_ids):
+        """Attach `trace_ids` to batch-scoped spans closed inside the
+        with-block (pad_pack/compile/device_execute/decode/publish record
+        one histogram observation and one journey span per id)."""
+        if self.recorder is None or not trace_ids:
+            return NOOP_SPAN
+        return _Batch(self, trace_ids)
+
+    # -- recording ---------------------------------------------------------
+    def observe(self, stage: str, dt: float) -> None:
+        """Histogram-only observation (no journey attribution)."""
+        if self.recorder is None:
+            return
+        h = self._hist.get(stage)
+        if h is not None:
+            h.observe(dt)
+
+    def observe_span(
+        self, stage: str, t0: float, t1: float, trace_id: str | None = None
+    ) -> None:
+        """One closed span: histogram once, journey record for the
+        explicit id and every current batch id."""
+        rec = self.recorder
+        if rec is None:
+            return
+        h = self._hist.get(stage)
+        if h is not None:
+            h.observe(t1 - t0)
+        if trace_id is not None:
+            rec.record(trace_id, stage, t0, t1)
+        ids = getattr(self._local, "batch_ids", None)
+        if ids:
+            for tid in ids:
+                if tid != trace_id:
+                    rec.record(tid, stage, t0, t1)
+
+    def add_span(
+        self, trace_id: str | None, stage: str, t0: float, t1: float,
+        meta=None,
+    ) -> None:
+        """Record an explicitly-timed span (spans reconstructed from a
+        carried context timestamp: batch_wait, bus_transit)."""
+        rec = self.recorder
+        if rec is None:
+            return
+        h = self._hist.get(stage)
+        if h is not None:
+            h.observe(t1 - t0)
+        if trace_id is not None:
+            rec.record(trace_id, stage, t0, t1, meta)
+
+    def complete(self, trace_id: str | None) -> None:
+        rec = self.recorder
+        if rec is not None and trace_id is not None:
+            rec.complete(trace_id)
+
+    # -- views -------------------------------------------------------------
+    def stage_summary(self) -> dict:
+        """{stage: Histogram.value()} for every stage with observations —
+        what bench.py --latency folds into the BENCH payload."""
+        return {
+            stage: h.value()
+            for stage, h in self._hist.items()
+            if h.value()["count"]
+        }
+
+    def stage_percentiles(self, qs=(0.5, 0.9, 0.99)) -> dict:
+        """{stage: {"count", "mean", "p50", "p90", "p99", ...}} at the
+        requested quantiles — the measured per-stage latency block the
+        soak/latency reports publish (scripts/soak.py)."""
+        out = {}
+        for stage, h in self._hist.items():
+            v = h.value()
+            if not v["count"]:
+                continue
+            row = {"count": v["count"], "mean": v["mean"]}
+            row.update(h.percentiles(qs))
+            out[stage] = row
+        return out
+
+
+#: Process-global tracer (disabled until something installs a recorder).
+TRACER = Tracer()

@@ -35,7 +35,7 @@ def _order(types, o):
     return types.Order(
         uuid=o.uuid, oid=o.oid, symbol=o.symbol, side=types.Side(int(o.side)),
         price=o.price, volume=o.volume, action=types.Action(int(o.action)),
-        order_type=types.OrderType(int(o.order_type)),
+        order_type=types.OrderType(int(o.order_type)), trace=o.trace,
     )
 
 

@@ -187,3 +187,46 @@ def test_fast_frames_equal_exact_frames_on_the_card(cuda):
     assert (match_step.batch_step.launches
             == fast.stats.device_calls + exact.stats.device_calls)
     fast.batch.verify_books()
+
+
+def _consume(cuda, frames, depth, symbols=64):
+    """Publish every frame through the gateway step, drain a frame-wire
+    OrderConsumer at the given depth; returns the engine, the match-queue
+    bodies and the decoded events."""
+    eng, bus, consumer = chip_smoke.consumer_stack(cuda, symbols, depth)
+    for cols in frames:
+        chip_smoke.gateway_step(eng, bus.order_queue, cols)
+    consumer.drain()
+    assert bus.order_queue.committed() == bus.order_queue.end_offset()
+    events, feed = chip_smoke.match_queue_events(bus)
+    assert [e.seq for e in events] == list(range(len(events)))
+    assert feed.suppressed == 0 and feed.seq_state()["gaps"] == 0
+    bodies = [m.body for m in bus.match_queue.read_from(0, 1 << 20)]
+    return eng, bodies, chip_smoke.unstamped(events)
+
+
+def test_pipelined_consumer_equals_synchronous_on_the_card(cuda):
+    """A 64-symbol Zipf flow through the consumer on the card at depth 2
+    and at depth 0: byte-equal match-queue bodies, equal books, events
+    equal to the oracle."""
+    zipf = multi_symbol_stream(n=6000, n_symbols=64, zipf_a=1.2,
+                               cancel_prob=0.3, seed=8)
+    frames = [chip_smoke.frame_columns(zipf[i:i + 500])
+              for i in range(0, len(zipf), 500)]
+    e2, bodies2, events = _consume(cuda, frames, 2)
+    e0, bodies0, _ = _consume(cuda, frames, 0)
+    assert bodies2 == bodies0
+    assert events == chip_smoke.oracle_events(zipf)
+    b2, b0 = e2.batch.lane_books(), e0.batch.lane_books()
+    for name in b0._fields:
+        np.testing.assert_array_equal(getattr(b2, name), getattr(b0, name),
+                                      err_msg=name)
+    e2.batch.verify_books()
+
+
+def test_need_exact_with_a_frame_in_flight_on_the_card(cuda):
+    """A frame whose fills overflow the compaction buffer resolves while
+    the next frames are queued on the card: one fallback, the later frames
+    resubmitted, events equal to the oracle."""
+    line = chip_smoke.consumer_fill_buffer_check(cuda, 64)
+    assert "1 frame fallback" in line

@@ -58,7 +58,9 @@ def test_scan_recognises_forbidden_imports():
 def test_importing_the_port_loads_neither():
     code = (
         "import sys, gome_tpu_torch.engine, gome_tpu_torch.ops, "
-        "gome_tpu_torch.oracle, gome_tpu_torch.utils.streams, chip_smoke\n"
+        "gome_tpu_torch.oracle, gome_tpu_torch.utils.streams, chip_smoke, "
+        "gome_tpu_torch.bus, gome_tpu_torch.service, "
+        "gome_tpu_torch.engine.pipeline\n"
         "bad = [m for m in sys.modules if m in ('jax', 'gome_tpu') or "
         "m.startswith(('jax.', 'gome_tpu.'))]\n"
         "print(bad)\n"
