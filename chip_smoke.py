@@ -6,7 +6,10 @@
 Phases, in order; any mismatch or fault ends the run with a non-zero exit:
 
   1. device and build: requires CUDA, prints the card's name and power
-     limit, builds the match-step kernel from gome_tpu_torch/ops/csrc;
+     limit, builds the match-step kernel from gome_tpu_torch/ops/csrc
+     (nvcc) and, at the same time, the port's native host library from
+     gome_tpu_torch/native/csrc (g++); a failed build of either, or no
+     g++, fails the run;
   2. the kernel against its plain PyTorch version on the card, equal on
      every book and StepOutput leaf: (a) S=10,240 x T=32, cap 256, K 16,
      int32, three chained grids; (b) the same flow at int64, S=1,024;
@@ -52,6 +55,21 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      step_with_policy; (d) the threaded consumer (start/stop); the kernel
      held against its plain version at the inputs (a)-(c) gave it; then
      orders/s, order->publish p50/p99 and the two fetch phases per depth.
+     Phases 5 and 6 run on the port's native host layer (C++ interner,
+     pre-pool, grid pack and compact decode) and fail the run without it;
+  7. the host layer: (a) phase 6's flow through the consumer at depths 2
+     and 0, on the native host layer and on the Python branches (selected
+     by patching the port's nativehost.available before the engine is
+     built), in the order native, Python, Python, native per depth: every
+     run's match-queue bodies byte-equal to phase 6 (a)'s and its books
+     equal; orders/s, p50/p99 and the host split of each run; (b) 4
+     frames through a bus of two NativeFileQueues (fsync on) in a
+     temporary directory: events equal to the oracle, and both logs,
+     reopened with the Python FileQueue, give the same records and
+     committed offsets; (c) the 200,000 orders as JSON bodies through
+     decode_orders_batch (the native parser, which must accept every
+     body) against [decode_order(b) ...], in the order native, json,
+     json, native: equal, every time printed.
 
 The last two lines are the kernel table (JSON) and
 {"ok": true, "device": {...}}.
@@ -59,12 +77,15 @@ The last two lines are the kernel table (JSON) and
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -94,6 +115,32 @@ def card_line() -> str:
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def host_line() -> str:
+    """How the native host library was had: g++'s seconds, or cached."""
+    from gome_tpu_torch.native import build
+
+    secs = build.build_seconds
+    return (f"g++ build {secs:.2f} s" if secs is not None
+            else "cached g++ build")
+
+
+def require_host(engine, label: str, host: str = "native") -> str:
+    """Fail the run unless the engine runs the selected host branches:
+    "native" (nativehost.available(), a NativePrePool, a NativeInterner
+    for oids) or "python" (LocalPrePool, Interner). Returns the tag its
+    report line carries."""
+    from gome_tpu_torch.engine import nativehost
+
+    names = (nativehost.available(), type(engine.pre_pool).__name__,
+             type(engine.batch.oids).__name__)
+    want = {"native": (True, "NativePrePool", "NativeInterner"),
+            "python": (False, "LocalPrePool", "Interner")}[host]
+    if names != want:
+        raise SystemExit(f"{label}: host layer (available, pre-pool, oid "
+                         f"interner) {names}, expected {want}")
+    return f"host={host}" + (f" ({host_line()})" if host == "native" else "")
 
 
 # -- phase 2 inputs ----------------------------------------------------------
@@ -786,6 +833,7 @@ def fill_buffer_check(device, symbols: int) -> str:
 
     eng = MatchEngine(BookConfig(cap=256, max_fills=16, dtype=torch.int32),
                       n_slots=symbols, max_t=32, device=device)
+    host = require_host(eng, "phase 5 (b)")
     orders, got, floors = [], [], []
     for r in range(2):
         rest, sweep = sweep_pair(r)
@@ -801,9 +849,9 @@ def fill_buffer_check(device, symbols: int) -> str:
         raise SystemExit(f"phase 5 (b): (fallbacks, fills floor of class 64) "
                          f"after each pair {floors}, expected [(1, 1024), "
                          "(1, 1024)]")
-    return (f"phase 5 (b): fills-buffer trip: {len(got)} events equal to the "
-            f"oracle; 1 fallback on the first sweep frame, class-64 fills "
-            f"floor 64 -> 1024, no fallback on the second")
+    return (f"phase 5 (b): {host}: fills-buffer trip: {len(got)} events "
+            f"equal to the oracle; 1 fallback on the first sweep frame, "
+            f"class-64 fills floor 64 -> 1024, no fallback on the second")
 
 
 def phase5(device, sizes, zipf, want_zipf):
@@ -820,6 +868,7 @@ def phase5(device, sizes, zipf, want_zipf):
                   for i in range(0, len(zipf), sizes["batch"])]
     eng = MatchEngine(BookConfig(cap=256, max_fills=16, dtype=torch.int32),
                       n_slots=sizes["symbols"], max_t=32, device=device)
+    host = require_host(eng, "phase 5 (a)")
     frames.FETCH_SECONDS = frames.FETCH_TOTALS_SECONDS = 0.0
     batch_step.launches = 0
     with keep_kernel_inputs() as kept, step_timer(eng) as spans, \
@@ -849,7 +898,7 @@ def phase5(device, sizes, zipf, want_zipf):
     fetch = (frames.FETCH_TOTALS_SECONDS,
              frames.FETCH_SECONDS - frames.FETCH_TOTALS_SECONDS)
     lines = [
-        f"phase 5 (a): process_frame(fast) {len(zipf)} orders over "
+        f"phase 5 (a): {host}: process_frame(fast) {len(zipf)} orders over "
         f"{sizes['symbols']} symbols in {len(frame_list)} frames -> {len(got)} "
         f"events equal to the oracle; books verified; {launches} kernel "
         f"launches = device calls; grids per cap class "
@@ -879,8 +928,10 @@ def gateway_step(engine, queue, cols) -> None:
     queue.publish(payload)
 
 
-def consumer_stack(device, symbols: int, depth: int, batch_wait_s: float = 0):
-    """A fresh engine (cap 256, K 16, int32), a memory bus and an
+def consumer_stack(device, symbols: int, depth: int, batch_wait_s: float = 0,
+                   host: str = "native", bus=None):
+    """A fresh engine (cap 256, K 16, int32) on the given host branches
+    (require_host), a bus (memory queues unless given) and an
     OrderConsumer on the frame wire at the given pipeline depth."""
     from gome_tpu_torch.bus import MemoryQueue, QueueBus
     from gome_tpu_torch.engine import BookConfig, MatchEngine
@@ -888,7 +939,9 @@ def consumer_stack(device, symbols: int, depth: int, batch_wait_s: float = 0):
 
     eng = MatchEngine(BookConfig(cap=256, max_fills=16, dtype=torch.int32),
                       n_slots=symbols, max_t=32, device=device)
-    bus = QueueBus(MemoryQueue("doOrder"), MemoryQueue("matchOrder"))
+    require_host(eng, f"consumer at depth {depth}", host)
+    if bus is None:
+        bus = QueueBus(MemoryQueue("doOrder"), MemoryQueue("matchOrder"))
     consumer = OrderConsumer(eng, bus, batch_n=1, batch_wait_s=batch_wait_s,
                              match_wire="frame", pipeline_depth=depth)
     return eng, bus, consumer
@@ -1130,7 +1183,7 @@ def consumer_thread_check(device, symbols: int, frame_list, orders) -> str:
             f"equal to the oracle, every offset committed")
 
 
-def phase6(device, sizes, zipf, want_zipf):
+def phase6(device, sizes, zipf, want_zipf, frame_list):
     """The consumer on the card: (a) the closed loop at depth 2, (b) the
     same flow at depth 0, byte-equal; (c) recovery with frames in flight;
     (d) the threaded consumer. Returns the launches of (a), the worst
@@ -1138,8 +1191,6 @@ def phase6(device, sizes, zipf, want_zipf):
     from gome_tpu_torch.engine import frames
     from gome_tpu_torch.ops.match_step import batch_step
 
-    frame_list = [frame_columns(zipf[i:i + sizes["batch"]])
-                  for i in range(0, len(zipf), sizes["batch"])]
     runs = {}
     with keep_kernel_inputs() as kept:
         for depth in (2, 0):
@@ -1163,6 +1214,7 @@ def phase6(device, sizes, zipf, want_zipf):
                 raise SystemExit(f"{label}: {checked[0]} submit_frame calls "
                                  f"checked for {len(frame_list)} frames")
             runs[depth] = dict(
+                host=require_host(eng, label),
                 secs=secs, fetch=fetch, launches=launches, stats=st,
                 split=spent,
                 checked=checked[0], latency=latency_ms(frame_list, secs,
@@ -1181,7 +1233,8 @@ def phase6(device, sizes, zipf, want_zipf):
                 raise SystemExit(f"phase 6 (b): books leaf {name} differs "
                                  "between depth 0 and depth 2")
         lines = [
-            f"phase 6 (a): OrderConsumer(pipeline_depth=2, match_wire=frame)"
+            f"phase 6 (a): {a['host']}: OrderConsumer(pipeline_depth=2, "
+            f"match_wire=frame)"
             f" closed loop, {len(zipf)} orders over {sizes['symbols']} "
             f"symbols in {len(frame_list)} frames -> {len(want_zipf)} events "
             f"equal to the oracle, seqs 0..{len(want_zipf) - 1} once each in "
@@ -1189,7 +1242,7 @@ def phase6(device, sizes, zipf, want_zipf):
             f"{a['launches']} kernel launches = device calls; "
             f"{a['stats'].frame_fallbacks} frame fallbacks; no host sync in "
             f"{a['checked']} submit_frame calls",
-            f"phase 6 (b): the same flow at pipeline_depth=0: "
+            f"phase 6 (b): {b['host']}: the same flow at pipeline_depth=0: "
             f"{len(b['bodies'])} match-queue bodies byte-equal to (a)'s, "
             f"books equal on every leaf; {b['launches']} kernel launches = "
             f"device calls; {b['stats'].frame_fallbacks} frame fallbacks; "
@@ -1204,6 +1257,174 @@ def phase6(device, sizes, zipf, want_zipf):
     lines.append(consumer_thread_check(
         device, sizes["symbols"], frame_list[:4], zipf[:4 * sizes["batch"]]))
     return a["launches"], worst, runs, lines
+
+
+# -- phase 7 -----------------------------------------------------------------
+
+HOST_AB_ORDER = ("native", "python", "python", "native")
+
+
+@contextlib.contextmanager
+def python_host():
+    """The port's Python host branches for the block: its own
+    nativehost.available patched to False, so an engine built inside takes
+    Interner and LocalPrePool, and the frame path its numpy forms."""
+    from gome_tpu_torch.engine import nativehost
+
+    inner = nativehost.available
+    nativehost.available = lambda: False
+    try:
+        yield
+    finally:
+        nativehost.available = inner
+
+
+def host_ab_run(device, sizes, frame_list, host: str, depth: int, want):
+    """Phase 7 (a), one run: phase 6's closed loop on the given host
+    branches, the launch count set to 0 just before it and read just
+    after. Its match-queue bodies and books must equal phase 6 (a)'s
+    (`want`)."""
+    from gome_tpu_torch.ops.match_step import batch_step
+
+    label = f"phase 7 (a) host={host} depth {depth}"
+    with python_host() if host == "python" else contextlib.nullcontext():
+        eng, bus, consumer = consumer_stack(device, sizes["symbols"], depth,
+                                            host=host)
+        batch_step.launches = 0
+        with host_split(eng) as spent:
+            secs, pub_t, done_t = closed_loop(eng, bus, consumer, frame_list,
+                                              spent)
+        launches = batch_step.launches
+    q, mq = bus.order_queue, bus.match_queue
+    if q.committed() != q.end_offset():
+        raise SystemExit(f"{label}: committed {q.committed()} of "
+                         f"{q.end_offset()}")
+    if launches <= 0 or launches != eng.stats.device_calls:
+        raise SystemExit(f"{label}: {launches} kernel launches for "
+                         f"{eng.stats.device_calls} device calls")
+    if [m.body for m in mq.read_from(0, mq.end_offset())] != want["bodies"]:
+        raise SystemExit(f"{label}: match-queue bodies differ from phase 6 "
+                         "(a)'s")
+    books = eng.batch.lane_books()
+    for name in books._fields:
+        if not np.array_equal(getattr(books, name), getattr(want["books"],
+                                                            name)):
+            raise SystemExit(f"{label}: books leaf {name} differs from "
+                             "phase 6 (a)'s")
+    return dict(secs=secs, split=spent, launches=launches,
+                latency=latency_ms(frame_list, secs, pub_t, done_t))
+
+
+def native_file_bus_check(device, symbols: int, frame_list, orders) -> str:
+    """Phase 7 (b): frame_list through a depth-2 consumer whose doOrder and
+    matchOrder queues are the port's NativeFileQueue (fsync on) in a
+    temporary directory; events equal to the oracle; both logs, closed and
+    reopened with the Python FileQueue, give the same records and
+    committed offsets."""
+    from gome_tpu_torch.bus import FileQueue, NativeFileQueue, QueueBus
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {name: os.path.join(tmp, name)
+                 for name in ("doOrder", "matchOrder")}
+        bus = QueueBus(*(NativeFileQueue(name, path, fsync=True)
+                         for name, path in paths.items()))
+        eng, bus, consumer = consumer_stack(device, symbols, 2, bus=bus)
+        for cols in frame_list:
+            gateway_step(eng, bus.order_queue, cols)
+        consumer.drain()
+        events, _ = check_consumer_run("phase 7 (b)", eng, bus,
+                                       oracle_events(orders))
+        logs = {}
+        for q in (bus.order_queue, bus.match_queue):
+            logs[q.name] = ([(m.offset, m.body) for m in
+                             q.read_from(0, q.end_offset())], q.committed())
+            q.close()
+        for name, path in paths.items():
+            q = FileQueue(name, path)
+            got = ([(m.offset, m.body) for m in
+                    q.read_from(0, q.end_offset())], q.committed())
+            q.close()
+            if got != logs[name]:
+                raise SystemExit(f"phase 7 (b): the {name} log reopened with "
+                                 "FileQueue differs from what the native "
+                                 "queue wrote")
+    return (f"phase 7 (b): {len(frame_list)} frames through two "
+            f"NativeFileQueues (fsync on): {len(events)} events equal to the "
+            f"oracle; doOrder ({len(logs['doOrder'][0])} records) and "
+            f"matchOrder ({len(logs['matchOrder'][0])} records) reopened "
+            f"with the Python FileQueue: the same records and committed "
+            f"offsets")
+
+
+def json_codec_check(orders) -> tuple[str, list, list]:
+    """Phase 7 (c): the orders as JSON bodies through decode_orders_batch
+    (the native parser) and through [decode_order(b) ...], timed in the
+    order native, json, json, native after a gc.collect() each: equal, and
+    equal to the orders, and the native parser accepted every body (none
+    went through its per-message json fallback). Returns the line and the
+    seconds of the native and of the json runs."""
+    import gc
+
+    from gome_tpu_torch.bus import decode_orders_batch, encode_order
+    from gome_tpu_torch.bus import ordercodec
+    from gome_tpu_torch.bus.codec import decode_order
+
+    if ordercodec._load() is None:
+        raise SystemExit("phase 7 (c): the native order parser is not loaded")
+    bodies = [encode_order(o) for o in orders]
+    declined, inner = [0], ordercodec.decode_order
+
+    def counted(body):
+        declined[0] += 1
+        return inner(body)
+
+    ways = {"native": lambda: decode_orders_batch(bodies),
+            "json": lambda: [decode_order(b) for b in bodies]}
+    secs = {"native": [], "json": []}
+    ordercodec.decode_order = counted
+    try:
+        for way in ("native", "json", "json", "native"):
+            gc.collect()
+            t0 = time.perf_counter()
+            got = ways[way]()
+            secs[way].append(time.perf_counter() - t0)
+            if got != list(orders):
+                raise SystemExit(f"phase 7 (c): the {way} decode differs "
+                                 "from the orders")
+            del got
+    finally:
+        ordercodec.decode_order = inner
+    if declined[0]:
+        raise SystemExit(f"phase 7 (c): the native parser declined "
+                         f"{declined[0]} of {2 * len(bodies)} bodies")
+    return (f"phase 7 (c): {len(bodies)} JSON order bodies, twice each way: "
+            f"decode_orders_batch (native, every body parsed natively) "
+            f"equal to [decode_order(b) ...] and to the orders"), \
+        secs["native"], secs["json"]
+
+
+def phase7(device, sizes, zipf, frame_list, want):
+    """The host layer: (a) the A/B of phase 6's flow on the native host
+    layer and on the Python branches, per depth in HOST_AB_ORDER; (b) the
+    native file bus; (c) the native JSON decode. Returns the runs of (a),
+    the report lines and (c)'s seconds."""
+    runs = []
+    for depth in (2, 0):
+        for host in HOST_AB_ORDER:
+            runs.append((depth, host, host_ab_run(device, sizes, frame_list,
+                                                  host, depth, want)))
+    lines = [
+        f"phase 7 (a): phase 6's flow on the native host layer and on the "
+        f"Python branches, {len(runs)} runs (depths 2 and 0, each "
+        f"{', '.join(HOST_AB_ORDER)}): every run's match-queue bodies "
+        f"byte-equal to phase 6 (a)'s, books equal on every leaf, every "
+        f"offset committed, kernel launches = device calls",
+        native_file_bus_check(device, sizes["symbols"], frame_list[:4],
+                              zipf[:4 * sizes["batch"]]),
+    ]
+    line, native_s, json_s = json_codec_check(zipf)
+    lines.append(line)
+    return runs, lines, (native_s, json_s)
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -1268,15 +1489,25 @@ def bound_ms(config, books, ops) -> tuple[float, str]:
 
 
 def load_kernel(card: str) -> None:
-    """Phase 1: build (or load) the kernel; ptxas lines go to stderr."""
+    """Phase 1: build (or load) the kernel with nvcc and the native host
+    library with g++, both at once; ptxas lines go to stderr. A failed
+    build raises; no g++ fails the run."""
+    from gome_tpu_torch.native import build as host_build
     from gome_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    build.load("match_step")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        kernel = pool.submit(build.load, "match_step")
+        host = pool.submit(host_build.load)
+        kernel.result()
+        if host.result() is None:
+            raise SystemExit("phase 1: no g++ on PATH: the port's native "
+                             "host layer cannot be built")
     info = build.build_info.get("match_step")
     print(f"phase 1 [{card}]: match_step kernel ready in "
           f"{time.perf_counter() - t0:.1f} s"
-          + (" (built by nvcc)" if info else " (cached build)"))
+          + (" (built by nvcc)" if info else " (cached build)")
+          + f"; native host library: {host_line()}")
     if info:
         for line in info[1].splitlines():
             if any(w in line for w in ("entry function", "registers",
@@ -1347,8 +1578,10 @@ def main() -> int:
           f"(phase 2, event prefixes); phase 3 process_columnar "
           f"{orders_per_s:,.0f} orders/s, device steps {step_s:.4f} s, in "
           f"this run")
+    frame_list = [frame_columns(zipf[i:i + sizes["batch"]])
+                  for i in range(0, len(zipf), sizes["batch"])]
     c_launches, c_worst, runs, c_lines = phase6(device, sizes, zipf,
-                                                want_zipf)
+                                                want_zipf, frame_list)
     for line in c_lines:
         print(line)
     n_frames = -(-sizes["zipf_n"] // sizes["batch"])
@@ -1365,9 +1598,29 @@ def main() -> int:
               + f", other {r['secs'] - sum(r['split'].values()):.4f} s")
     print(f"phase 6 [{card}]: K1 launches on the consumer path (a): "
           f"{c_launches}")
+    ab_runs, h_lines, (native_s, json_s) = phase7(device, sizes, zipf,
+                                                  frame_list, runs[2])
+    for line in h_lines:
+        print(line)
+    for depth, host, r in ab_runs:
+        print(f"phase 7 [{card}]: (a) host={host} pipeline_depth={depth}: "
+              f"{sizes['zipf_n'] / r['secs']:,.0f} orders/s closed loop "
+              f"({r['secs']:.3f} s); order->publish p50 {r['latency'][0]:.2f}"
+              f" ms, p99 {r['latency'][1]:.2f} ms; {r['launches']} kernel "
+              f"launches; host split: "
+              + ", ".join(f"{k} {v:.4f} s" for k, v in r["split"].items())
+              + f", other {r['secs'] - sum(r['split'].values()):.4f} s")
+    print(f"phase 7 [{card}]: (c) decode_orders_batch "
+          + " / ".join(f"{t:.4f}" for t in native_s)
+          + " s, [decode_order(b) ...] "
+          + " / ".join(f"{t:.4f}" for t in json_s)
+          + f" s for {sizes['zipf_n']} bodies (json / native "
+          f"{min(json_s) / min(native_s):.2f}x, best of each)")
+    h_launches = ab_runs[0][2]["launches"]
     row = dict(name="match_step", **KERNEL_ROWS["match_step"],
                launches=launches, frame_path_launches=f_launches,
                consumer_path_launches=c_launches,
+               host_layer_path_launches=h_launches,
                max_abs_err=max(worst, f_worst, c_worst), ms=results["a"]["ms"],
                device_ms=results["a"]["device_ms"], plain_ms=results["a"]["plain_ms"],
                bound_ms=results["a"]["bound_ms"],

@@ -1,8 +1,8 @@
 """Message bus — the reference's RabbitMQ layer (gomengine/engine/rabbitmq.go)
 re-expressed as a pluggable queue abstraction. The port of
-``gome_tpu/bus/__init__.py``: the memory and file backends and both wire
-codecs; `make_bus` (it reads a BusConfig from the YAML config) and the
-amqp backend come with the service-config slice.
+``gome_tpu/bus/__init__.py``: the memory, file and native file backends and
+both wire codecs; `make_bus` (it reads a BusConfig from the YAML config) and
+the amqp backend come with the service-config slice.
 
 Topology parity: two named queues, inbound ``doOrder`` (orders + cancels)
 and outbound ``matchOrder`` (fill/cancel events) — rabbitmq.go:60-84 and the
@@ -13,6 +13,8 @@ two consume loops rabbitmq.go:86-177. Backends:
            the reference's non-durable auto-ack queues (rabbitmq.go:64,102 —
            in-flight messages die with the process, SURVEY §2.3.6), a file
            queue doubles as the replay log for crash recovery (§5.4).
+  cfile  — the same on-disk format through the port's C++ log
+           (NativeFileQueue; one write+fsync per published batch).
   amqp   — (not ported yet) the reference's AMQP 0-9-1 client and its
            fake broker.
 
@@ -31,6 +33,7 @@ from .codec import (
 )
 from .filelog import FileQueue
 from .memory import MemoryQueue
+from .native import NativeFileQueue, native_available
 from .ordercodec import decode_orders_batch
 
 __all__ = [
@@ -41,6 +44,8 @@ __all__ = [
     "QueueBus",
     "MemoryQueue",
     "FileQueue",
+    "NativeFileQueue",
+    "native_available",
     "encode_order",
     "decode_order",
     "encode_match_result",

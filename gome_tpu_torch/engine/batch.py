@@ -53,6 +53,7 @@ from .book import (
     torch_dtype,
 )
 from .host import Interner, OpContext, decode_events, encode_op
+from .nativehost import make_interner
 from .step import ACTION_ADD, LOT_MAX32
 
 #: Element budget of one dense grid's [R, T, K] record tensors: deep dense
@@ -316,7 +317,9 @@ class BatchEngine:
         # symbol-dictionary object -> (lane-id array, max lane); hits are
         # revalidated against n_slots (frames._lane_map).
         self._lane_map_cache = IdentityCache()
-        self.oids = Interner()
+        # oids are the one per-order-unique string column: interned in C++
+        # wherever the native branches run (nativehost).
+        self.oids = make_interner()
         self.uids = Interner()
         self.stats = EngineStats()
         # Price rebasing (32-bit books only): device prices are stored
@@ -997,8 +1000,9 @@ class BatchEngine:
 
     def import_state(self, state: dict) -> None:
         """Restore a state exported by export_state (this engine's or
-        gome_tpu's). Replaces books, interners and rebasing state; stats
-        are not restored."""
+        gome_tpu's, including one written before price rebasing, without
+        price_base / base_set / env_lo / env_hi). Replaces books,
+        interners and rebasing state; stats are not restored."""
         self.config = dataclasses.replace(
             self.config,
             cap=int(state["cap"]),
@@ -1016,17 +1020,41 @@ class BatchEngine:
         )
         self.symbols = Interner.from_list(list(state["symbols"]))
         self._lane_map_cache.clear()  # lane ids come from the new interner
-        self.oids = Interner.from_list(list(state["oids"]))
+        self.oids = make_interner(from_list=list(state["oids"]))
         self.uids = Interner.from_list(list(state["uids"]))
         self._rebase = numpy_dtype(self.config.dtype).itemsize <= 4
+        n = self.n_slots
         # count_ub restarts exact from the restored books (nothing in
         # flight after a restore).
         self._ub_base = np.asarray(b["count"], np.int64).max(axis=1)
-        self._ub_extra = np.zeros(self.n_slots, np.int64)
-        self.price_base = np.asarray(state["price_base"], np.int64).copy()
-        self._base_set = np.asarray(state["base_set"], bool).copy()
-        self._env_lo = np.asarray(state["env_lo"], np.int64).copy()
-        self._env_hi = np.asarray(state["env_hi"], np.int64).copy()
+        self._ub_extra = np.zeros(n, np.int64)
+        if "price_base" in state:
+            self.price_base = np.asarray(state["price_base"], np.int64).copy()
+            self._base_set = np.asarray(state["base_set"], bool).copy()
+            self._env_lo = np.asarray(state["env_lo"], np.int64).copy()
+            self._env_hi = np.asarray(state["env_hi"], np.int64).copy()
+        else:
+            # Pre-rebasing snapshot: stored prices are absolute, i.e. base
+            # 0. Lanes holding resting orders MUST be marked base-set at 0
+            # — otherwise the next batch seeds a fresh base and encodes
+            # takers relative to it while the restored book stays absolute
+            # (silent non-matching). Envelope from the restored books.
+            self.price_base = np.zeros(n, np.int64)
+            counts = np.asarray(b["count"])  # [S, 2]
+            occupied = counts.sum(axis=1) > 0
+            self._base_set = occupied.copy()
+            prices = np.asarray(b["price"]).astype(np.int64)  # [S, 2, cap]
+            cap = prices.shape[-1]
+            slot = np.arange(cap)
+            active = slot[None, None, :] < counts[:, :, None]
+            self._env_lo = np.where(
+                occupied,
+                np.where(active, prices, np.iinfo(np.int64).max).min((1, 2)),
+                0,
+            )
+            self._env_hi = np.where(
+                occupied, np.where(active, prices, 0).max((1, 2)), 0
+            )
 
     def verify_books(self) -> None:
         """Check every lane against the book invariants (priority-sorted

@@ -1,19 +1,24 @@
 """Frame path: apply a columnar order batch with no per-order Python.
 
-The port of ``gome_tpu/engine/frames.py`` (its numpy branches). A decoded
+The port of ``gome_tpu/engine/frames.py``. A decoded
 ORDER frame (numpy columns: uint8 action/side/kind, int64 price/volume,
 uint32 symbol_idx/uuid_idx into per-frame ``symbols``/``uuids`` lists, and
 an ``S`` array of oids) is applied straight from its columns:
 
   * interning is vectorized: the interner is touched once per UNIQUE
     symbol and uuid (lane maps are cached by dictionary identity), and a
-    take() broadcasts ids back to all N orders;
+    take() broadcasts ids back to all N orders; oids intern in one native
+    call where the C++ interner backs eng.oids;
   * the rebasing envelope, the unrepresentable-DEL drop mask and the
     per-lane time-slot assignment are numpy;
   * the frame's kept ops split into per-cap-class partitions by lane
     (count_ub), each packed into a train of grids; every grid's ops go to
     the card as packed columns and are scattered into the padded [R, T]
     grid there (_scatter_grid_fn).
+
+The occurrence pass, each grid's pack and the compact decode run in C++
+(engine.nativehost) wherever the native branches run; their numpy forms
+here give the same arrays and run where no g++ is found.
 
 Two execution strategies:
 
@@ -37,6 +42,7 @@ import numpy as np
 import torch
 
 from ..types import Action, Order, OrderType, Side
+from . import nativehost
 from .batch import BatchEngine, _cap_ladder, _next_pow2, _next_pow4, splice_outs
 from .book import GRID_I32_FIELDS, DeviceOp, _host, numpy_dtype
 from .events import EventBatch, _COLUMNS, decode_grid_columnar, empty_batch
@@ -113,11 +119,16 @@ def _frame_arrays(eng: BatchEngine, cols: dict) -> dict:
     uid_of = intern_column(eng.uids, cols["uuids"])
     uid_ids = uid_of[np.asarray(cols["uuid_idx"], np.int64)]
     # oids are raw per-order strings, almost all new in exchange flow: a
-    # dedup sort would cost more than it saves, so intern directly.
-    intern = eng.oids.intern
-    oid_ids = np.fromiter(
-        (intern(o.decode()) for o in cols["oids"].tolist()), np.int64, n
-    )
+    # dedup sort would cost more than it saves, so intern directly — one
+    # native call when the C++ interner backs eng.oids.
+    intern_batch = getattr(eng.oids, "intern_batch", None)
+    if intern_batch is not None:
+        oid_ids = intern_batch(cols["oids"])
+    else:
+        intern = eng.oids.intern
+        oid_ids = np.fromiter(
+            (intern(o.decode()) for o in cols["oids"].tolist()), np.int64, n
+        )
 
     is_add = action == ACTION_ADD
     bad = is_add & (volume <= 0)
@@ -140,23 +151,15 @@ def _frame_arrays(eng: BatchEngine, cols: dict) -> dict:
     drop = _prepare_bases_vec(eng, lanes, action, kind, price)
     bases = eng.price_base[lanes]
 
-    # Occurrence index of each op within its lane, in arrival order: a
-    # stable sort by lane groups each lane's ops contiguously with arrival
-    # order preserved; index-in-group = arange minus the group's start.
+    # Occurrence index of each op within its lane, in arrival order: one
+    # native linear pass where available.
     keep = ~drop
-    t = np.full(n, -1, np.int64)
-    if keep.any():
-        ki = np.nonzero(keep)[0]
-        order = np.argsort(lanes[ki], kind="stable")
-        sorted_lanes = lanes[ki][order]
-        starts = np.concatenate(
-            ([0], np.nonzero(np.diff(sorted_lanes))[0] + 1)
+    if nativehost.available():
+        t = nativehost.occurrences(
+            lanes, None if keep.all() else keep, eng.n_slots
         )
-        group_start = np.zeros(len(sorted_lanes), np.int64)
-        group_start[starts] = starts
-        group_start = np.maximum.accumulate(group_start)
-        occ = np.arange(len(sorted_lanes)) - group_start
-        t[ki[order]] = occ
+    else:
+        t = _occurrences_numpy(lanes, keep)
 
     # count_ub upkeep (cap-class selection): every kept limit ADD may rest
     # at most once. The increment happens at PACK time, so the classes
@@ -174,6 +177,25 @@ def _frame_arrays(eng: BatchEngine, cols: dict) -> dict:
         dels_total=int((action == ACTION_DEL).sum()),
         add_counts=add_counts,
     )
+
+
+def _occurrences_numpy(lanes: np.ndarray, keep: np.ndarray) -> np.ndarray:
+    """The numpy form of nativehost.occurrences: a stable sort by lane
+    groups each lane's kept ops contiguously with arrival order preserved;
+    index-in-group = arange minus the group's start (-1 where not kept)."""
+    t = np.full(len(lanes), -1, np.int64)
+    if keep.any():
+        ki = np.nonzero(keep)[0]
+        order = np.argsort(lanes[ki], kind="stable")
+        sorted_lanes = lanes[ki][order]
+        starts = np.concatenate(
+            ([0], np.nonzero(np.diff(sorted_lanes))[0] + 1)
+        )
+        group_start = np.zeros(len(sorted_lanes), np.int64)
+        group_start[starts] = starts
+        group_start = np.maximum.accumulate(group_start)
+        t[ki[order]] = np.arange(len(sorted_lanes)) - group_start
+    return t
 
 
 def _scatter_grid_fn(cols: torch.Tensor, flat: torch.Tensor, n_rows: int,
@@ -240,7 +262,7 @@ def _pack_class_train(eng: BatchEngine, a: dict, active_idx, t_sub,
     """Pack one cap class's grid train. Each grid touches only the ops
     still alive at its time offset, so a G-grid train costs O(survivors),
     not O(G * frame)."""
-    lanes, t = a["lanes"], a["t"]
+    lanes = a["lanes"]
     dt = numpy_dtype(eng.config.dtype)
     t_off = 0
     while len(active_idx):
@@ -289,37 +311,17 @@ def _pack_class_train(eng: BatchEngine, a: dict, active_idx, t_sub,
         in_window = t_sub < t_off + t_grid
         m = int(np.count_nonzero(in_window))
         m_pad = _next_pow4(max(m, 64))
-        sel = active_idx[in_window]
-        cols = np.zeros((7, m_pad), dt)
-        flat = np.full(m_pad, n_rows * t_grid, np.int64)
-        pr, pt = row_of[lanes[sel]], t[sel] - t_off
-        flat[:m] = pr * t_grid + pt
-        is_mkt = (a["kind"][sel] == MARKET) & (a["action"][sel] == ACTION_ADD)
-        for i, val in enumerate(
-            (
-                a["action"][sel],
-                a["side"][sel],
-                is_mkt,
-                np.where(is_mkt, 0, a["price"][sel] - a["bases"][sel]),
-                a["volume"][sel],
-                a["oid_ids"][sel],
-                a["uid_ids"][sel],
+        if nativehost.available():
+            # Column pack + the 11 meta extractions in ONE native pass.
+            cols, flat, meta = nativehost.pack_grid(
+                a, active_idx, row_of, t_off, t_grid, n_rows, m_pad, dt,
+                MARKET, ACTION_ADD,
             )
-        ):
-            cols[i, :m] = val
-        meta = {
-            "lane": lanes[sel],
-            "row": pr,
-            "t": pt,
-            "arrival": sel.astype(np.int64),
-            "action": a["action"][sel],
-            "side": a["side"][sel],
-            "is_market": is_mkt.astype(np.int64),
-            "price": a["price"][sel],
-            "price_base": a["bases"][sel],
-            "oid_id": a["oid_ids"][sel],
-            "uid_id": a["uid_ids"][sel],
-        }
+        else:
+            cols, flat, meta = _pack_grid_numpy(
+                a, active_idx[in_window], row_of, t_off, t_grid, n_rows,
+                m_pad, dt,
+            )
         ops = _scatter_grid_fn(
             eng._upload(cols), eng._upload(flat), n_rows, t_grid
         )
@@ -329,6 +331,44 @@ def _pack_class_train(eng: BatchEngine, a: dict, active_idx, t_sub,
         alive = t_sub >= t_off
         active_idx = active_idx[alive]
         t_sub = t_sub[alive]
+
+
+def _pack_grid_numpy(a: dict, sel, row_of, t_off: int, t_grid: int,
+                     n_rows: int, m_pad: int, dt) -> tuple:
+    """The numpy form of nativehost.pack_grid, over the ops `sel` of this
+    grid's window: (cols [7, m_pad], flat [m_pad] int64, meta)."""
+    m = len(sel)
+    cols = np.zeros((7, m_pad), dt)
+    flat = np.full(m_pad, n_rows * t_grid, np.int64)
+    pr, pt = row_of[a["lanes"][sel]], a["t"][sel] - t_off
+    flat[:m] = pr * t_grid + pt
+    is_mkt = (a["kind"][sel] == MARKET) & (a["action"][sel] == ACTION_ADD)
+    for i, val in enumerate(
+        (
+            a["action"][sel],
+            a["side"][sel],
+            is_mkt,
+            np.where(is_mkt, 0, a["price"][sel] - a["bases"][sel]),
+            a["volume"][sel],
+            a["oid_ids"][sel],
+            a["uid_ids"][sel],
+        )
+    ):
+        cols[i, :m] = val
+    meta = {
+        "lane": a["lanes"][sel],
+        "row": pr,
+        "t": pt,
+        "arrival": sel.astype(np.int64),
+        "action": a["action"][sel],
+        "side": a["side"][sel],
+        "is_market": is_mkt.astype(np.int64),
+        "price": a["price"][sel],
+        "price_base": a["bases"][sel],
+        "oid_id": a["oid_ids"][sel],
+        "uid_id": a["uid_ids"][sel],
+    }
+    return cols, flat, meta
 
 
 def _tables(eng):
@@ -410,6 +450,10 @@ def _decode_compact(eng, meta, shape, fetched) -> dict:
     t_len, k = shape
     totals, fills, cancels = fetched
     nf, nc = int(totals[0]), int(totals[1])
+    if nativehost.available():
+        return nativehost.decode_compact(
+            meta, t_len, k, nf, nc, fills, cancels
+        )
 
     # (row, t) -> packed-op index join table.
     n_rows = int(meta["_n_rows"])

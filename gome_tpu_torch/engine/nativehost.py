@@ -1,0 +1,402 @@
+"""ctypes bindings for the port's native host ops (native/csrc/hostops.cc):
+the C++ string interner and pre-pool, and the one-pass grid pack,
+occurrence pass and compact decode of the frame hot path.
+
+The port of ``gome_tpu/engine/nativehost.py``. It loads the port's own
+library (``gome_tpu_torch/native/build.py``, g++ at first use). Where no g++
+is found, `available()` is False and every caller takes its Python branch
+(engine.host.Interner, engine.prepool.LocalPrePool, the numpy forms in
+engine.frames): the results are identical, the speed is not. A compile that
+fails raises; it never selects the Python branches.
+
+Threading: PrePool calls are mutex-guarded in C++ (the gateway marks while
+the consumer admits); the Interner is only touched from the consumer thread
+(BatchEngine is single-consumer by design).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+
+from ..native import build
+
+_i64 = ctypes.c_int64
+_p_char = ctypes.c_char_p
+_p_i64 = ctypes.POINTER(ctypes.c_int64)
+
+#: The library whose prototypes are declared.
+_declared = None
+
+
+def _declare(lib) -> None:
+    lib.gi_new.restype = ctypes.c_void_p
+    lib.gi_free.argtypes = [ctypes.c_void_p]
+    lib.gi_len.restype = _i64
+    lib.gi_len.argtypes = [ctypes.c_void_p]
+    lib.gi_max_len.restype = _i64
+    lib.gi_max_len.argtypes = [ctypes.c_void_p]
+    lib.gi_intern_one.restype = _i64
+    lib.gi_intern_one.argtypes = [ctypes.c_void_p, _p_char, _i64]
+    lib.gi_get.restype = _i64
+    lib.gi_get.argtypes = [ctypes.c_void_p, _p_char, _i64]
+    lib.gi_intern_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, _i64, _i64, _p_i64,
+    ]
+    lib.gi_lookup.restype = _i64
+    lib.gi_lookup.argtypes = [ctypes.c_void_p, _i64, ctypes.c_void_p, _i64]
+    lib.gi_gather.restype = _i64
+    lib.gi_gather.argtypes = [
+        ctypes.c_void_p, _p_i64, _i64, ctypes.c_void_p, _i64,
+    ]
+    lib.gi_gather_width.restype = _i64
+    lib.gi_gather_width.argtypes = [ctypes.c_void_p, _p_i64, _i64]
+    lib.gi_export.restype = _i64
+    lib.gi_export.argtypes = [ctypes.c_void_p, ctypes.c_void_p, _i64]
+    lib.gi_import.restype = _i64
+    lib.gi_import.argtypes = [ctypes.c_void_p, _p_char, _i64, _i64]
+
+    lib.gp_new.restype = ctypes.c_void_p
+    lib.gp_free.argtypes = [ctypes.c_void_p]
+    lib.gp_len.restype = _i64
+    lib.gp_len.argtypes = [ctypes.c_void_p]
+    for f in (lib.gp_add, lib.gp_discard, lib.gp_contains):
+        f.restype = _i64
+        f.argtypes = [ctypes.c_void_p, _p_char, _i64]
+    lib.gp_clear.argtypes = [ctypes.c_void_p]
+    lib.gp_dump.restype = _i64
+    lib.gp_dump.argtypes = [ctypes.c_void_p, ctypes.c_void_p, _i64]
+    lib.gp_frame.restype = _i64
+    lib.gp_frame.argtypes = [
+        ctypes.c_void_p, _i64, ctypes.c_void_p,  # h, n, action
+        _p_char, _p_i64, ctypes.c_void_p,  # sym data/offs/idx
+        _p_char, _p_i64, ctypes.c_void_p,  # uuid data/offs/idx
+        ctypes.c_void_p, _i64,  # oids, width
+        _i64, _i64,  # add_val, del_val
+        ctypes.c_void_p, ctypes.c_void_p, _i64,  # keep, existed, mode
+    ]
+    lib.go_occurrences.argtypes = [
+        _p_i64, ctypes.c_void_p, _i64, _i64, _p_i64,
+    ]
+    lib.go_pack_grid.restype = _i64
+    lib.go_pack_grid.argtypes = (
+        [_i64, _p_i64]  # n_sub, idx
+        + [_p_i64, _p_i64, _p_i64, _i64, _i64, _i64]  # row_of..n_rows
+        + [_p_i64] * 8  # action..bases
+        + [_i64, _i64]  # market_val, add_val
+        + [ctypes.c_void_p, ctypes.c_void_p, _i64, _i64]  # cols/flat/stride/itemsize
+        + [_p_i64] * 11  # meta outputs
+    )
+    lib.go_decode_compact.restype = _i64
+    lib.go_decode_compact.argtypes = (
+        [_i64] * 6
+        + [_p_i64] * 7  # fills
+        + [_p_i64] * 2  # cancels
+        + [_i64] + [_p_i64] * 10  # meta
+        + [
+            _p_i64, ctypes.c_void_p, _p_i64, _p_i64, _p_i64,
+            ctypes.c_void_p, _p_i64, _p_i64, _p_i64, _p_i64, _p_i64,
+            _p_i64, _p_i64, ctypes.c_void_p,
+        ]  # outputs
+    )
+
+
+def load():
+    """The port's native library with its gi_*/gp_*/go_* prototypes set,
+    or None where no g++ is found (a failed compile raises)."""
+    global _declared
+    lib = build.load()
+    if lib is not None and lib is not _declared:
+        _declare(lib)
+        _declared = lib
+    return lib
+
+
+def available() -> bool:
+    """Whether the native branches run: True wherever g++ is found (the
+    library then builds at first use)."""
+    return load() is not None
+
+
+def decode_compact(meta: dict, t_len: int, k: int, nf: int, nc: int,
+                   fills: dict, cancels: dict) -> dict:
+    """One grid's compacted device events -> final event columns in the
+    reference's global emission order (C++ join + stable counting sort).
+    Mirrors the numpy branch of engine.frames._decode_compact exactly."""
+    lib = load()
+    ne = nf + nc
+
+    def i64(a):
+        return np.ascontiguousarray(a, np.int64)
+
+    f = {name: i64(fills[name][:nf]) for name in (
+        "src", "fill_price", "fill_qty", "maker_oid", "maker_uid",
+        "maker_volume", "taker_after",
+    )}
+    c = {name: i64(cancels[name][:nc]) for name in ("src", "volume")}
+    ms = {name: i64(meta[name]) for name in (
+        "row", "t", "arrival", "lane", "uid_id", "oid_id", "side",
+        "price", "price_base", "is_market",
+    )}
+    m = len(ms["row"])
+    frame_n = int(ms["arrival"].max()) + 1 if m else 0
+
+    out = {
+        "arrival": np.empty(ne, np.int64),
+        "is_cancel": np.empty(ne, np.bool_),
+        "symbol_id": np.empty(ne, np.int64),
+        "taker_uid": np.empty(ne, np.int64),
+        "taker_oid": np.empty(ne, np.int64),
+        "taker_side": np.empty(ne, np.int8),
+        "taker_price": np.empty(ne, np.int64),
+        "taker_volume": np.empty(ne, np.int64),
+        "maker_uid": np.empty(ne, np.int64),
+        "maker_oid": np.empty(ne, np.int64),
+        "fill_price": np.empty(ne, np.int64),
+        "maker_volume": np.empty(ne, np.int64),
+        "match_volume": np.empty(ne, np.int64),
+        "is_market": np.empty(ne, np.bool_),
+    }
+    p = lambda a: a.ctypes.data_as(_p_i64)
+    v = lambda a: a.ctypes.data_as(ctypes.c_void_p)
+    rc = lib.go_decode_compact(
+        int(meta["_n_rows"]), t_len, k, nf, nc, frame_n,
+        p(f["src"]), p(f["fill_price"]), p(f["fill_qty"]),
+        p(f["maker_oid"]), p(f["maker_uid"]), p(f["maker_volume"]),
+        p(f["taker_after"]),
+        p(c["src"]), p(c["volume"]),
+        m, p(ms["row"]), p(ms["t"]), p(ms["arrival"]), p(ms["lane"]),
+        p(ms["uid_id"]), p(ms["oid_id"]), p(ms["side"]), p(ms["price"]),
+        p(ms["price_base"]), p(ms["is_market"]),
+        p(out["arrival"]), v(out["is_cancel"]), p(out["symbol_id"]),
+        p(out["taker_uid"]), p(out["taker_oid"]), v(out["taker_side"]),
+        p(out["taker_price"]), p(out["taker_volume"]), p(out["maker_uid"]),
+        p(out["maker_oid"]), p(out["fill_price"]), p(out["maker_volume"]),
+        p(out["match_volume"]), v(out["is_market"]),
+    )
+    if rc != 0:
+        raise RuntimeError("native compact decode failed (corrupt grid)")
+    return out
+
+
+_META_NAMES = (
+    "lane", "row", "t", "arrival", "action", "side", "is_market",
+    "price", "price_base", "oid_id", "uid_id",
+)
+
+
+def pack_grid(
+    a: dict, idx: np.ndarray, row_of: np.ndarray, t_off: int, t_grid: int,
+    n_rows: int, m_pad: int, val_dtype, market_val: int, add_val: int,
+) -> tuple[np.ndarray, np.ndarray, dict]:
+    """One grid's column pack + meta extraction in a single native pass
+    (the C++ form of frames._pack_class_train's per-grid pack). `a` is the
+    _frame_arrays dict; `idx` the candidate op indices still alive at this
+    grid's time offset; `row_of` the [n_slots] lane -> grid-row map
+    (identity for full grids); `m_pad` the pow4-padded column count
+    (padding columns are zero and carry the out-of-grid sentinel flat
+    index, so they land in the sentinel column on the card). Returns
+    (cols [7, m_pad] in DeviceOp field order, flat [m_pad] int64 grid
+    positions, meta dict of [m] int64 columns; meta['arrival'] carries
+    original frame indices) — the numpy branch's arrays exactly."""
+    lib = load()
+    i64 = lambda x: np.ascontiguousarray(x, np.int64)
+    idx = i64(idx)
+    row_of = i64(row_of)
+    t = i64(a["t"])
+    t_sub = t[idx]
+    m = int(np.count_nonzero((t_sub >= t_off) & (t_sub < t_off + t_grid)))
+    if m > m_pad:
+        raise ValueError(f"grid pack: {m} ops for {m_pad} columns")
+    val_dtype = np.dtype(val_dtype)
+    cols = np.zeros((7, m_pad), val_dtype)
+    flat = np.full(m_pad, n_rows * t_grid, np.int64)  # sentinel: dropped
+    meta = {name: np.empty(m, np.int64) for name in _META_NAMES}
+    p = lambda arr: arr.ctypes.data_as(_p_i64)
+    v = lambda arr: arr.ctypes.data_as(ctypes.c_void_p)
+    got = lib.go_pack_grid(
+        len(idx), p(idx), p(row_of), p(i64(a["lanes"])), p(t), t_off,
+        t_grid, n_rows,
+        p(i64(a["action"])), p(i64(a["side"])), p(i64(a["kind"])),
+        p(i64(a["price"])), p(i64(a["volume"])), p(i64(a["oid_ids"])),
+        p(i64(a["uid_ids"])), p(i64(a["bases"])), market_val, add_val,
+        v(cols), v(flat), m_pad, val_dtype.itemsize,
+        *(p(meta[name]) for name in _META_NAMES),
+    )
+    if got != m:
+        raise RuntimeError(f"native grid pack failed (packed {got} != {m})")
+    return cols, flat, meta
+
+
+def occurrences(lanes: np.ndarray, keep, n_lanes: int) -> np.ndarray:
+    """t[i] = occurrence index of row i within its lane over kept rows in
+    arrival order (-1 where keep is False). keep=None means all kept."""
+    lib = load()
+    lanes = np.ascontiguousarray(lanes, np.int64)
+    out = np.empty(len(lanes), np.int64)
+    if keep is not None:
+        keep = np.ascontiguousarray(keep, np.uint8)
+    lib.go_occurrences(
+        lanes.ctypes.data_as(_p_i64),
+        keep.ctypes.data_as(ctypes.c_void_p) if keep is not None else None,
+        len(lanes), n_lanes, out.ctypes.data_as(_p_i64),
+    )
+    return out
+
+
+def _ptr(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.c_void_p)
+
+
+def pack_strlist(strs) -> tuple[bytes, np.ndarray]:
+    """Concatenate a list of strings for the C side: (bytes, offsets[n+1])."""
+    bs = [s.encode() if isinstance(s, str) else s for s in strs]
+    offs = np.zeros(len(bs) + 1, np.int64)
+    if bs:
+        np.cumsum(
+            np.fromiter(map(len, bs), np.int64, len(bs)), out=offs[1:]
+        )
+    return b"".join(bs), offs
+
+
+def _parse_len_prefixed(buf: bytes, n: int) -> list[str]:
+    out = []
+    pos = 0
+    for _ in range(n):
+        ln = int.from_bytes(buf[pos : pos + 4], "little")
+        pos += 4
+        out.append(buf[pos : pos + ln].decode())
+        pos += ln
+    return out
+
+
+class _LazyTable:
+    """id -> string view over a NativeInterner, quacking like the Python
+    Interner's list table (indexing, len, iteration). Hot paths never
+    materialize strings from it — colwire's id-table packer uses
+    gather_padded instead."""
+
+    __slots__ = ("_interner",)
+
+    def __init__(self, interner: "NativeInterner"):
+        self._interner = interner
+
+    def __getitem__(self, i: int) -> str:
+        return self._interner.lookup(int(i))
+
+    def __len__(self) -> int:
+        return len(self._interner)
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self._interner.lookup(i)
+
+    def gather_padded(self, ids: np.ndarray) -> np.ndarray:
+        return self._interner.gather_padded(ids)
+
+
+class NativeInterner:
+    """Drop-in for engine.host.Interner backed by the C++ table, plus the
+    batch ops the frame path uses (intern_batch, gather_padded)."""
+
+    def __init__(self):
+        self._lib = load()
+        if self._lib is None:
+            raise RuntimeError("native host ops unavailable (no g++)")
+        self._h = ctypes.c_void_p(self._lib.gi_new())
+        self._table = _LazyTable(self)
+
+    def __del__(self):
+        h, self._h = getattr(self, "_h", None), None
+        if h and getattr(self, "_lib", None) is not None:
+            self._lib.gi_free(h)
+
+    # -- Interner API ------------------------------------------------------
+    def intern(self, s: str) -> int:
+        b = s.encode()
+        return self._lib.gi_intern_one(self._h, b, len(b))
+
+    def get(self, s: str) -> int | None:
+        b = s.encode()
+        i = self._lib.gi_get(self._h, b, len(b))
+        return None if i == 0 else i
+
+    def lookup(self, i: int) -> str:
+        if i == 0:
+            return ""
+        cap = max(self._lib.gi_max_len(self._h), 1)
+        buf = ctypes.create_string_buffer(cap)
+        ln = self._lib.gi_lookup(self._h, i, buf, cap)
+        if ln < 0:
+            raise IndexError(f"interner id {i} out of range")
+        return buf.raw[:ln].decode()
+
+    @property
+    def table(self) -> _LazyTable:
+        return self._table
+
+    def __len__(self) -> int:
+        # The Python Interner's len counts the reserved "" at id 0 too.
+        return int(self._lib.gi_len(self._h)) + 1
+
+    def to_list(self) -> list[str]:
+        n = int(self._lib.gi_len(self._h))
+        need = self._lib.gi_export(self._h, None, 0)
+        buf = ctypes.create_string_buffer(max(int(need), 1))
+        self._lib.gi_export(self._h, buf, need)
+        return _parse_len_prefixed(buf.raw[:need], n)
+
+    @classmethod
+    def from_list(cls, strs: list[str]):
+        self = cls()
+        parts = []
+        for s in strs:
+            b = s.encode()
+            parts.append(len(b).to_bytes(4, "little"))
+            parts.append(b)
+        blob = b"".join(parts)
+        if self._lib.gi_import(self._h, blob, len(blob), len(strs)) != 0:
+            raise ValueError("interner import failed")
+        return self
+
+    # -- batch ops (the frame hot path) ------------------------------------
+    def intern_batch(self, arr: np.ndarray) -> np.ndarray:
+        """Intern a numpy 'S'-dtype column; returns int64 ids."""
+        arr = np.ascontiguousarray(arr)
+        if arr.dtype.kind != "S":
+            raise TypeError(f"intern_batch takes an 'S' column, not {arr.dtype}")
+        n = len(arr)
+        out = np.empty(n, np.int64)
+        self._lib.gi_intern_batch(
+            self._h, _ptr(arr), n, arr.dtype.itemsize,
+            out.ctypes.data_as(_p_i64),
+        )
+        return out
+
+    def gather_padded(self, ids: np.ndarray) -> np.ndarray:
+        ids = np.ascontiguousarray(ids, np.int64)
+        # Pad to the max over the REQUESTED ids, not the process-lifetime
+        # max — one long id must not inflate every later frame's tables.
+        width = self._lib.gi_gather_width(
+            self._h, ids.ctypes.data_as(_p_i64), len(ids)
+        )
+        if width < 0:
+            raise IndexError("gather: interner id out of range")
+        width = max(int(width), 1)
+        out = np.empty(len(ids), dtype=f"S{width}")
+        rc = self._lib.gi_gather(
+            self._h, ids.ctypes.data_as(_p_i64), len(ids), _ptr(out), width
+        )
+        if rc != 0:
+            raise IndexError("gather: interner id out of range")
+        return out
+
+
+def make_interner(from_list=None):
+    """A NativeInterner wherever the native branches run (`available()`),
+    else the Python one."""
+    from .host import Interner
+
+    cls = NativeInterner if available() else Interner
+    return cls.from_list(from_list) if from_list is not None else cls()

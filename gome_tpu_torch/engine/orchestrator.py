@@ -129,6 +129,16 @@ class MatchEngine:
         """Frame admission: returns (filtered columns, the consumed marks);
         the caller restores `consumed` (pre_pool |= consumed) if the batch
         later fails."""
+        consume_frame = getattr(self.pre_pool, "consume_frame", None)
+        if consume_frame is not None:
+            # Fused native pass: compose keys + pop markers + masks in C++.
+            keep, consumed = consume_frame(cols)
+            dropped = int(
+                ((cols["action"] == int(Action.ADD)) & ~keep).sum()
+            )
+            self.stats.dropped_no_prepool += dropped
+            return self._keep_rows(cols, keep), consumed
+
         n = int(cols["n"])
         action = cols["action"].tolist()
         syms, uuids = cols["symbols"], cols["uuids"]
@@ -160,19 +170,26 @@ class MatchEngine:
                 if ex:
                     consumed.add(keys[i])
         self.stats.dropped_no_prepool += dropped
-        if not keep.all():
-            cols = dict(
-                cols,
-                n=int(keep.sum()),
-                **{
-                    k: np.ascontiguousarray(cols[k][keep])
-                    for k in (
-                        "action", "side", "kind", "price", "volume",
-                        "symbol_idx", "uuid_idx", "oids",
-                    )
-                },
-            )
-        return cols, consumed
+        return self._keep_rows(cols, keep), consumed
+
+    @staticmethod
+    def _keep_rows(cols: dict, keep: np.ndarray) -> dict:
+        """The frame's admitted rows: `cols` itself when every row is kept,
+        else a new dict of fresh column arrays (the input is never
+        written: a NativeConsumed holds it for the rollback)."""
+        if keep.all():
+            return cols
+        return dict(
+            cols,
+            n=int(keep.sum()),
+            **{
+                k: np.ascontiguousarray(cols[k][keep])
+                for k in (
+                    "action", "side", "kind", "price", "volume",
+                    "symbol_idx", "uuid_idx", "oids",
+                )
+            },
+        )
 
     def _admit(
         self, indexed: list[tuple[int, Order]]

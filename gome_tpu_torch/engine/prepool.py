@@ -6,6 +6,13 @@ reference), the consumer consumes the mark when the ADD reaches the book,
 and a cancel clears it first — that is what makes the cancel-before-consume
 race drop the queued ADD.
 
+Two implementations of one contract:
+
+  LocalPrePool  — a set subclass; the Python branch.
+  NativePrePool — the marker set in C++ (native/csrc/hostops.cc): admission
+      of a whole ORDER frame is one C call (consume_frame). The engine's
+      pool wherever the native branches run (make_prepool).
+
 The contract the engine uses (beyond set-ish add/discard/contains/iter):
 
   consume_batch(keys) -> list[bool]   pop each (symbol, uuid, oid) key in
@@ -14,9 +21,12 @@ The contract the engine uses (beyond set-ish add/discard/contains/iter):
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 
 from ..types import Action
+from ..utils.cache import IdentityCache
 
 Key = tuple[str, str, str]  # (symbol, uuid, oid)
 
@@ -76,6 +86,209 @@ def consume_batch_of(pool, keys: list[Key]) -> list[bool]:
     return LocalPrePool.consume_batch(pool, keys)  # set-protocol fallback
 
 
-def make_prepool() -> LocalPrePool:
-    """The engine's marker store: the in-process pool."""
-    return LocalPrePool()
+class NativeConsumed:
+    """The marks one frame admission consumed, represented compactly: the
+    frame's columns plus the per-row consumed mask. Restoring them
+    (`pool |= consumed`, the failed-batch rollback) replays the same fused
+    C++ pass in mark mode instead of materializing per-order key tuples.
+    It holds the columns by reference: they are immutable by contract
+    (decoded wire views, or fresh arrays from admission)."""
+
+    __slots__ = ("cols", "sel")
+
+    def __init__(self, cols: dict, sel):
+        self.cols = cols
+        self.sel = sel  # uint8[n]: 1 where this row's mark was consumed
+
+    def __len__(self) -> int:
+        return int(self.sel.sum())
+
+    def __iter__(self):
+        """Key tuples of the consumed rows (snapshot/debug; not hot)."""
+        c = self.cols
+        syms, uuids = c["symbols"], c["uuids"]
+        for i in np.nonzero(self.sel)[0].tolist():
+            yield (
+                syms[int(c["symbol_idx"][i])],
+                uuids[int(c["uuid_idx"][i])],
+                c["oids"][i].decode(),
+            )
+
+
+class NativePrePool:
+    """In-process marker store backed by the C++ set: same semantics as
+    LocalPrePool, but admission of a whole decoded ORDER frame is ONE C
+    call (compose key + pop marker + keep/existed masks) instead of a
+    per-order Python loop. Construction raises where the native library
+    is not available (no g++)."""
+
+    SEP = "\x1f"  # ASCII unit separator; ids on the reference JSON wire
+    #               contract never contain control bytes
+
+    def __init__(self):
+        from . import nativehost
+
+        self._nh = nativehost
+        self._lib = nativehost.load()
+        if self._lib is None:
+            raise RuntimeError("native host ops unavailable (no g++)")
+        self._h = ctypes.c_void_p(self._lib.gp_new())
+        # String-list -> packed (data, offs) for the C call, keyed by list
+        # identity: the wire decoder returns the same list object for a
+        # repeated dictionary (bus.colwire), so a stable symbol universe
+        # encodes its strings once, not once per frame.
+        self._packed_cache = IdentityCache()
+
+    def __del__(self):
+        h, self._h = getattr(self, "_h", None), None
+        if h and getattr(self, "_lib", None) is not None:
+            self._lib.gp_free(h)
+
+    # -- set protocol ------------------------------------------------------
+    def _ckey(self, key: Key) -> bytes:
+        return self.SEP.join(key).encode()
+
+    def add(self, key: Key) -> None:
+        b = self._ckey(key)
+        self._lib.gp_add(self._h, b, len(b))
+
+    def discard(self, key: Key) -> None:
+        b = self._ckey(key)
+        self._lib.gp_discard(self._h, b, len(b))
+
+    def __contains__(self, key: Key) -> bool:
+        b = self._ckey(key)
+        return bool(self._lib.gp_contains(self._h, b, len(b)))
+
+    def __len__(self) -> int:
+        return int(self._lib.gp_len(self._h))
+
+    def __iter__(self):
+        need = self._lib.gp_dump(self._h, None, 0)
+        buf = ctypes.create_string_buffer(max(int(need), 1))
+        got = self._lib.gp_dump(self._h, buf, need)
+        if got != need:
+            # A concurrent mark grew the pool between the size probe and
+            # the fill (each takes the C mutex separately): the
+            # set-mutated-during-iteration contract — never yield garbage.
+            raise RuntimeError("pre-pool changed size during iteration")
+        pos = 0
+        raw = buf.raw
+        while pos < need:
+            ln = int.from_bytes(raw[pos : pos + 4], "little")
+            pos += 4
+            yield tuple(raw[pos : pos + ln].decode().split(self.SEP))
+            pos += ln
+
+    def clear(self) -> None:
+        self._lib.gp_clear(self._h)
+
+    def __eq__(self, other):
+        if isinstance(other, (set, frozenset, NativePrePool)):
+            return set(self) == set(other)
+        return NotImplemented
+
+    def __ne__(self, other):
+        eq = self.__eq__(other)
+        return NotImplemented if eq is NotImplemented else not eq
+
+    def __ior__(self, other):
+        if isinstance(other, NativeConsumed):
+            self._frame(other.cols, mode=2, sel=other.sel)
+        else:
+            for key in other:
+                self.add(key)
+        return self
+
+    def update(self, keys) -> None:
+        self.__ior__(keys)
+
+    def consume_batch(self, keys: list[Key]) -> list[bool]:
+        lib, h = self._lib, self._h
+        out = []
+        for key in keys:
+            b = self._ckey(key)
+            out.append(bool(lib.gp_discard(h, b, len(b))))
+        return out
+
+    # -- fused frame passes ------------------------------------------------
+    def _packed(self, strs):
+        ent = self._packed_cache.get(strs)
+        if ent is None:
+            ent = self._packed_cache.put(strs, self._nh.pack_strlist(strs))
+        return ent
+
+    def _frame(self, cols: dict, mode: int, sel=None):
+        """mode 0 consumes (admission), 1 marks the ADD rows (the
+        gateway), 2 restores the rows `sel` selects (rollback)."""
+        nh = self._nh
+        n = int(cols["n"])
+        action = np.ascontiguousarray(cols["action"], np.uint8)
+        sym_data, sym_offs = self._packed(cols["symbols"])
+        uuid_data, uuid_offs = self._packed(cols["uuids"])
+        sym_idx = np.ascontiguousarray(cols["symbol_idx"], np.uint32)
+        uuid_idx = np.ascontiguousarray(cols["uuid_idx"], np.uint32)
+        # The C pass indexes the offset tables unchecked; a frame whose
+        # index column exceeds its dictionary must fail HERE, loudly.
+        if n and (
+            int(sym_idx.max()) >= len(cols["symbols"])
+            or int(uuid_idx.max()) >= len(cols["uuids"])
+        ):
+            raise ValueError(
+                "ORDER frame index column exceeds its dictionary "
+                f"(symbols {len(cols['symbols'])}, uuids "
+                f"{len(cols['uuids'])})"
+            )
+        oids = np.ascontiguousarray(cols["oids"])
+        keep = np.empty(n, np.uint8) if mode == 0 else None
+        existed = sel if sel is not None else (
+            np.empty(n, np.uint8) if mode == 0 else None
+        )
+        c_void = ctypes.c_void_p
+        as_p = lambda a: a.ctypes.data_as(c_void) if a is not None else None
+        rc = self._lib.gp_frame(
+            self._h, n, as_p(action),
+            sym_data, sym_offs.ctypes.data_as(nh._p_i64), as_p(sym_idx),
+            uuid_data, uuid_offs.ctypes.data_as(nh._p_i64), as_p(uuid_idx),
+            as_p(oids), oids.dtype.itemsize,
+            int(Action.ADD), int(Action.DEL),
+            as_p(keep), as_p(existed), mode,
+        )
+        if rc != 0:
+            raise RuntimeError("native pre-pool frame pass failed")
+        return keep, existed
+
+    def consume_frame(self, cols: dict):
+        """Fused frame admission: returns (keep mask (bool[n]), consumed) —
+        unmarked ADDs drop, DELs pass and clear their marks, in one native
+        pass."""
+        keep, existed = self._frame(cols, mode=0)
+        return keep.view(np.bool_), NativeConsumed(cols, existed)
+
+    def mark_frame(self, cols: dict) -> None:
+        """Gateway-side bulk marking of an ORDER frame's ADDs."""
+        self._frame(cols, mode=1)
+
+    def unmark_frame(self, cols: dict) -> None:
+        """Undo mark_frame for the frame's ADD rows. The emit-failure path
+        (rare by construction), so a per-row gp_discard loop."""
+        act = np.ascontiguousarray(cols["action"])
+        sel = np.nonzero(act == int(Action.ADD))[0]
+        if not len(sel):
+            return
+        syms, uuids = cols["symbols"], cols["uuids"]
+        sidx = np.asarray(cols["symbol_idx"])[sel].tolist()
+        uidx = np.asarray(cols["uuid_idx"])[sel].tolist()
+        oids = np.asarray(cols["oids"])[sel].tolist()
+        lib, h = self._lib, self._h
+        for s, u, o in zip(sidx, uidx, oids):
+            b = self._ckey((syms[s], uuids[u], o.decode()))
+            lib.gp_discard(h, b, len(b))
+
+
+def make_prepool():
+    """The engine's marker store: a NativePrePool wherever the native
+    branches run (nativehost.available()), else LocalPrePool."""
+    from . import nativehost
+
+    return NativePrePool() if nativehost.available() else LocalPrePool()

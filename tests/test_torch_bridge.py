@@ -29,6 +29,32 @@ def torch_dtype(name):
     return {"int32": torch.int32, "int64": torch.int64}[name]
 
 
+# -- host branches ------------------------------------------------------------
+
+HOSTS = ("native", "python")
+
+
+def use_host(monkeypatch, host):
+    """Select the port's host branches before an engine is built: "native"
+    (its C++ interner, pre-pool, grid pack and compact decode; g++ is
+    required here) or "python" (the branches that run without g++), by
+    patching the port's nativehost.available for the test."""
+    from gome_tpu_torch.engine import nativehost
+
+    if host == "python":
+        monkeypatch.setattr(nativehost, "available", lambda: False)
+    else:
+        assert nativehost.available()
+
+
+def assert_host(engine, host):
+    """A port MatchEngine runs the selected branches."""
+    names = (type(engine.pre_pool).__name__,
+             type(engine.batch.oids).__name__)
+    assert names == ({"native": ("NativePrePool", "NativeInterner"),
+                      "python": ("LocalPrePool", "Interner")}[host])
+
+
 # -- orders and events --------------------------------------------------------
 
 def _order(types, o):

@@ -1,4 +1,4 @@
-"""The port's bus (gome_tpu_torch.bus: memory and file queues, the JSON
+"""The port's bus (gome_tpu_torch.bus: memory, file and native file queues, the JSON
 codecs, the batch order decode, the columnar ORDER and EVENT frames) on
 the CPU against gome_tpu.bus: the same operations on both packages give
 the same offsets, bodies, errors and bytes, and each package decodes the
@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 import gome_tpu.bus as jbus
+import gome_tpu.bus.native as jnative
 import gome_tpu.types as jtypes
 import gome_tpu_torch.bus as tbus
 import gome_tpu_torch.types as ttypes
@@ -32,8 +33,10 @@ from test_torch_frames import assert_batches_equal, batch_pair
 def make_queue(pkg, kind, tmp_path, name="doOrder"):
     if kind == "memory":
         return pkg.MemoryQueue(name)
-    return pkg.FileQueue(name, str(tmp_path / ("j" if pkg is jbus else "t")
-                                   / name))
+    path = str(tmp_path / ("j" if pkg is jbus else "t") / name)
+    if kind == "cfile":  # the native (C++) file log of each package
+        return (jnative if pkg is jbus else tbus).NativeFileQueue(name, path)
+    return pkg.FileQueue(name, path)
 
 
 def outcome(fn):
@@ -66,7 +69,7 @@ def msgs(ms):
 
 # -- queues -------------------------------------------------------------------
 
-@pytest.mark.parametrize("kind", ["memory", "file"])
+@pytest.mark.parametrize("kind", ["memory", "file", "cfile"])
 def test_queue_semantics_match(kind, tmp_path):
     """Publish, batch publish, read, commit, rollback, truncate and depth,
     valid and invalid, give the same results on both packages."""
@@ -110,7 +113,7 @@ def test_memory_queue_headers_and_compaction():
     assert out[0] == out[1]
 
 
-@pytest.mark.parametrize("kind", ["memory", "file"])
+@pytest.mark.parametrize("kind", ["memory", "file", "cfile"])
 def test_poll_batch_timing(kind, tmp_path):
     """Early return when full, a partial batch at the deadline, and a wake
     on publish from another thread."""
@@ -159,6 +162,48 @@ def test_file_queue_reopen_torn_tail_and_interop(tmp_path):
         q3 = writer.FileQueue("q", base)
         assert q3.end_offset() == 11
         assert q3.read_from(10, 9)[0].body == b"post-restart"
+        with open(base + ".log", "rb") as f:
+            size = len(f.read())
+        assert size == sum(4 + len(m.body) for m in q3.read_from(0, 99))
+        q3.close()
+
+
+FILE_QUEUES = {
+    "port_cfile": tbus.NativeFileQueue, "port_file": tbus.FileQueue,
+    "ref_cfile": jnative.NativeFileQueue, "ref_file": jbus.FileQueue,
+}
+
+
+@pytest.mark.parametrize("writer,reader", [
+    ("port_cfile", "ref_file"), ("port_cfile", "ref_cfile"),
+    ("port_cfile", "port_file"), ("ref_file", "port_cfile"),
+    ("ref_cfile", "port_cfile"),
+])
+def test_native_file_queue_interop_batch_and_torn_tail(writer, reader,
+                                                       tmp_path):
+    """The port's NativeFileQueue and the other file logs read each other's
+    directories: batch publishes (one write each), the committed sidecar,
+    appends after a reopen, and a torn tail record truncated on open."""
+    base = str(tmp_path / "q")
+    q = FILE_QUEUES[writer]("q", base)
+    first = [q.publish_batch([f"msg-{i}".encode() for i in range(j, j + 3)])
+             for j in (0, 3, 6)] + [q.publish(b"msg-9")]
+    assert first == [0, 3, 6, 9]
+    q.commit(4)
+    q.close()
+    q2 = FILE_QUEUES[reader]("q", base)
+    assert (q2.end_offset(), q2.committed()) == (10, 4)
+    assert [m.body for m in q2.read_from(0, 99)] == [
+        f"msg-{i}".encode() for i in range(10)]
+    assert q2.publish_batch([b"post-restart", b"second"]) == 10
+    q2.close()
+    with open(base + ".log", "ab") as f:
+        f.write(b"\x00\x00\x00\xff partial")
+    for kind in (writer, reader):
+        q3 = FILE_QUEUES[kind]("q", base)
+        assert (q3.end_offset(), q3.committed()) == (12, 4)
+        assert [m.body for m in q3.read_from(10, 9)] == [b"post-restart",
+                                                          b"second"]
         with open(base + ".log", "rb") as f:
             size = len(f.read())
         assert size == sum(4 + len(m.body) for m in q3.read_from(0, 99))

@@ -26,6 +26,7 @@ from gome_tpu_torch.service import MatchFeed, OrderConsumer
 from gome_tpu_torch.service.matchfeed import SeqTracker
 from gome_tpu_torch.utils import faults as tfaults
 from test_pipeline import _oracle_lines
+from test_torch_bridge import HOSTS, assert_host, use_host
 from test_torch_pipeline import (
     CHUNK,
     ENGINE_KW,
@@ -120,18 +121,23 @@ def test_poison_quarantine_dead_letters_the_same_orders(depth):
     assert ("eth2usdt", "u", "fpoison") not in t.pre_pool
 
 
+@pytest.mark.parametrize("host", HOSTS)
 @pytest.mark.parametrize("depth", [0, 2])
-def test_commit_fault_replays_with_the_same_seqs(depth):
+def test_commit_fault_replays_with_the_same_seqs(depth, host, monkeypatch):
     """A raise-mode fault at consumer.commit (the third commit, frames in
     flight at depth 2): step_with_policy rolls match_seq back and the
     pipeline aborts; the replay re-stamps from the last commit. Both
     packages publish the same bytes, and both feeds suppress the same
-    re-stamped seqs with no gap."""
+    re-stamped seqs with no gap; the port on its native host layer and on
+    its Python branches."""
+    use_host(monkeypatch, host)
     orders = flow()
     out = {}
     for side in (J, T):
         engine, bus, consumer = stack(side, ENGINE_KW, depth,
                                       match_wire="frame", batch_n=1)
+        if side == T:
+            assert_host(engine, host)
         publish(side, engine, bus, orders, frames_for(orders, CHUNK))
         f = FAULTS[side]
         f.FAULTS.install(f.FaultPlan(faults=(

@@ -263,3 +263,42 @@ def test_cap_below_max_fills_matches(stream, columnar):
     assert_states_equal(t.batch.export_state(), j.batch.export_state())
     assert_stats_equal(t, j)
     t.batch.verify_books()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pre_rebasing_snapshot_restores(dtype):
+    """A snapshot written before price rebasing (no price_base / base_set /
+    env_lo / env_hi; prices absolute) restores into both packages alike:
+    gome_tpu's state with the four keys dropped and its resting prices made
+    absolute is imported into a fresh engine of each, and the same second
+    half of the flow gives equal events (and the oracle's) and equal state,
+    the rebasing arrays included."""
+    orders = jstreams.multi_symbol_stream(n=240, n_symbols=24, seed=13,
+                                          zipf_a=1.2, cancel_prob=0.3)
+    first, second = orders[:120], orders[120:]
+    src, _ = engines(dtype, cap=8, k=2, n_slots=32, max_t=8)
+    for o in first:
+        src.mark(o)
+    head = event_keys(src.process(first))
+    state = src.batch.export_state()
+    base = np.asarray(state.pop("price_base"), np.int64)
+    for key in ("base_set", "env_lo", "env_hi"):
+        del state[key]
+    books = {k: np.asarray(v) for k, v in state["books"].items()}
+    resting = (np.arange(books["price"].shape[-1])[None, None, :]
+               < books["count"][:, :, None])
+    if dtype == "int32":
+        assert base.any()  # the flow rebased: the books hold offsets
+    books["price"] = np.where(
+        resting, books["price"].astype(np.int64) + base[:, None, None],
+        books["price"]).astype(books["price"].dtype)
+    state["books"] = books
+    j, t = engines(dtype, cap=8, k=2, n_slots=32, max_t=8)
+    j.batch.import_state(dict(state))
+    t.batch.import_state(dict(state))
+    assert_states_equal(t.batch.export_state(), j.batch.export_state())
+    got, want = run_pair(j, t, second, batch=40, columnar=False)
+    assert got == want
+    assert head + got == oracle_keys(orders)
+    assert_states_equal(t.batch.export_state(), j.batch.export_state())
+    t.batch.verify_books()

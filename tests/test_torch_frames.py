@@ -27,11 +27,14 @@ from gome_tpu_torch.engine.batch import BatchEngine
 from gome_tpu_torch.engine.book import StepOutput
 from test_frames import _oracle
 from test_torch_bridge import (
+    HOSTS,
+    assert_host,
     event_keys,
     oracle_keys,
     random_grid,
     to_torch_orders,
     torch_dtype,
+    use_host,
 )
 from test_torch_engine import assert_states_equal
 
@@ -228,15 +231,19 @@ def test_frame_admission_cancel_race(fast):
     assert_engines_equal(t.batch, j.batch)
 
 
-def test_process_frame_marks_and_matches_a_flow():
+@pytest.mark.parametrize("host", HOSTS)
+def test_process_frame_marks_and_matches_a_flow(host, monkeypatch):
     """MatchEngine.process_frame with mark_frame on a Zipf flow with
-    cancels: equal to gome_tpu's MatchEngine and to the oracle (every ADD
-    marked at submit); unmark_frame clears what mark_frame set."""
+    cancels, on the port's native host layer and on its Python branches:
+    equal to gome_tpu's MatchEngine and to the oracle (every ADD marked at
+    submit); unmark_frame clears what mark_frame set."""
+    use_host(monkeypatch, host)
     orders = multi_symbol_stream(n=600, n_symbols=24, seed=5, zipf_a=1.2,
                                  cancel_prob=0.3)
     j = JEngine(config=JConfig(cap=32, max_fills=8), n_slots=64, max_t=8)
     t = MatchEngine(BookConfig(cap=32, max_fills=8), n_slots=64, max_t=8,
                     device="cpu")
+    assert_host(t, host)
     got, frames = [], [frame_of(orders[i:i + 150])
                        for i in range(0, len(orders), 150)]
     for cols in frames:

@@ -60,7 +60,8 @@ def test_importing_the_port_loads_neither():
         "import sys, gome_tpu_torch.engine, gome_tpu_torch.ops, "
         "gome_tpu_torch.oracle, gome_tpu_torch.utils.streams, chip_smoke, "
         "gome_tpu_torch.bus, gome_tpu_torch.service, "
-        "gome_tpu_torch.engine.pipeline\n"
+        "gome_tpu_torch.engine.pipeline, gome_tpu_torch.native, "
+        "gome_tpu_torch.engine.nativehost\n"
         "bad = [m for m in sys.modules if m in ('jax', 'gome_tpu') or "
         "m.startswith(('jax.', 'gome_tpu.'))]\n"
         "print(bad)\n"

@@ -25,6 +25,7 @@ from gome_tpu_torch.engine.pipeline import FramePipeline
 from gome_tpu_torch.service import OrderConsumer
 from test_cap_classes import _hot_tail_orders
 from test_pipeline import _oracle_lines
+from test_torch_bridge import HOSTS, assert_host, use_host
 from test_torch_bus import port_order
 from test_torch_frames import STAT_FIELDS, assert_batches_equal, record_steps
 
@@ -103,7 +104,7 @@ def assert_books_equal(a, b, fields=("price", "lots", "seq", "count",
         np.testing.assert_array_equal(np.asarray(getattr(ba, name)),
                                       np.asarray(getattr(bb, name)),
                                       err_msg=name)
-    assert a.pre_pool == b.pre_pool
+    assert set(a.pre_pool) == set(b.pre_pool)
 
 
 def assert_pair_equal(t, j):
@@ -175,13 +176,18 @@ def test_count_ub_with_three_frames_in_flight_and_cap_classes():
     t.batch.verify_books()
 
 
+@pytest.mark.parametrize("host", HOSTS)
 @pytest.mark.parametrize("broken", ["resolve", "exact_rerun", "resubmit"])
-def test_pipeline_hard_failures_restore_marks_and_replay(broken, monkeypatch):
+def test_pipeline_hard_failures_restore_marks_and_replay(broken, host,
+                                                        monkeypatch):
     """Hard failures inside the pipeline, at resolve (twice), in the exact
     re-run after a budget trip, and in the resubmission of the later
     frames after it: each rewinds to the failed frame's checkpoint and
-    restores every in-flight frame's marks; the at-least-once replay
-    converges to the synchronous result on both packages."""
+    restores every in-flight frame's marks (a NativeConsumed on the port's
+    native host layer, key tuples on its Python branches); the
+    at-least-once replay converges to the synchronous result on both
+    packages."""
+    use_host(monkeypatch, host)
     if broken == "resolve":
         orders, kw, chunk = flow(), ENGINE_KW, CHUNK
     else:
@@ -191,6 +197,8 @@ def test_pipeline_hard_failures_restore_marks_and_replay(broken, monkeypatch):
     for side in (J, T):
         mod = SIDES[side]["frames"]
         engine, bus, consumer = stack(side, kw, 2)
+        if side == T:
+            assert_host(engine, host)
         publish(side, engine, bus, orders, frames_for(orders, chunk))
         fail = {"left": 2, "tripped": False}
         real_resolve, real_apply = mod.resolve_frame, mod.apply_frame
@@ -254,7 +262,7 @@ def test_pipeline_submit_failure_restores_own_marks(monkeypatch):
         assert engine.pre_pool == marks_after_first
         assert len(pipe) == 1
         pools.append(engine.pre_pool)
-    assert pools[0] == pools[1]
+    assert set(pools[0]) == set(pools[1])
 
 
 def test_pipeline_feed_flush_step_abort():
