@@ -69,7 +69,26 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      committed offsets; (c) the 200,000 orders as JSON bodies through
      decode_orders_batch (the native parser, which must accept every
      body) against [decode_order(b) ...], in the order native, json,
-     json, native: equal, every time printed.
+     json, native: equal, every time printed;
+  8. the service: EngineService, built from a Config written in code
+     (gRPC on port 0, the ops endpoint on, the engine at 10,240 lanes,
+     cap 256, K 16, max_t 32, int64, the json match wire), started on the
+     card, three runs: (b) depth 0 and (a) depth 2 with a SubscribeMatches
+     stream opened first through the port's OrderStub, (c) depth 0 with
+     no subscriber. Phase 3's 200,000 orders go over the wire as
+     DoOrderBatch requests of 4,096 (cancels in the mask), one at a time,
+     then two DoOrder and one DeleteOrder; the stream must deliver the
+     oracle's events through match_result_to_pb, byte for byte, in order
+     ((c): the match queue's documents must decode to them); /healthz
+     answers 200 and /metrics counts the requests, the orders and the
+     events sent; clients.doorder.load_client (concurrency 8,
+     DoOrderBatch of 1,024) sends 200,000 more orders over the 10,240
+     symbols, every one accepted; books verified; K1 held against its
+     plain version at the inputs the service gave it. Printed per run:
+     orders/s over the wire beside phase 6's in this run, the
+     DoOrderBatch round trip p50/p99, K1's launches, the split between
+     gateway admission, consumer (and its parts) and feed, and
+     load_client's orders/s.
 
 The last two lines are the kernel table (JSON) and
 {"ok": true, "device": {...}}.
@@ -86,6 +105,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1427,6 +1447,399 @@ def phase7(device, sizes, zipf, frame_list, want):
     return runs, lines, (native_s, json_s)
 
 
+# -- phase 8 -----------------------------------------------------------------
+
+WIRE_BATCH = 4096  # DoOrderBatch entries per request
+SERVICE_PARTS = ("gateway", "consumer", "consumer_wait", "publish", "feed",
+                 "feed_wait")
+# (label, pipeline depth, whether a SubscribeMatches stream takes the events)
+SERVICE_RUNS = (("b", 0, True), ("a", 2, True), ("c", 0, False))
+
+
+def wire_request(pb, order):
+    """A port Order as the OrderRequest a client sends. fixed.unscale is
+    the reference's internal float64 of the scaled integer (what a
+    MatchEvent carries); a client sends external units, which the gateway
+    scales back to the same ticks: unscale_external."""
+    from gome_tpu_torch.fixed import unscale_external
+
+    return pb.OrderRequest(
+        uuid=order.uuid, oid=order.oid, symbol=order.symbol,
+        transaction=int(order.side), price=unscale_external(order.price),
+        volume=unscale_external(order.volume), kind=int(order.order_type))
+
+
+def wire_batches(pb, orders):
+    """The flow as DoOrderBatch requests of WIRE_BATCH entries, DELs
+    flagged in the cancel mask."""
+    from gome_tpu_torch.types import Action
+
+    reqs = [wire_request(pb, o) for o in orders]
+    cancel = [o.action is Action.DEL for o in orders]
+    return [pb.OrderBatchRequest(orders=reqs[i:i + WIRE_BATCH],
+                                 cancel=cancel[i:i + WIRE_BATCH])
+            for i in range(0, len(orders), WIRE_BATCH)]
+
+
+def unary_tail():
+    """The unary calls sent after the flow, on its hottest symbol: a SALE
+    and a BUY through DoOrder, then DeleteOrder of the SALE."""
+    from gome_tpu_torch.types import Action, Order, Side
+
+    sale = Order(uuid="unary", oid="ua", symbol="sym0", side=Side.SALE,
+                 price=100_000_000, volume=500_000_000)
+    buy = Order(uuid="unary", oid="ub", symbol="sym0", side=Side.BUY,
+                price=100_000_000, volume=300_000_000)
+    return [sale, buy, dataclasses.replace(sale, action=Action.DEL)]
+
+
+class StreamCollector(threading.Thread):
+    """A SubscribeMatches stream read on its own thread: every event's
+    serialized bytes, and the time the `want`-th one arrived."""
+
+    def __init__(self, stub, pb, want: int):
+        super().__init__(name="phase8-subscriber", daemon=True)
+        self.call = stub.SubscribeMatches(pb.SubscribeRequest())
+        self.want = want
+        self.got: list[bytes] = []
+        self.t_done = None
+        self.reached = threading.Event()
+        self.error = None
+
+    def run(self):
+        import grpc
+
+        try:
+            for ev in self.call:
+                self.got.append(ev.SerializeToString())
+                if len(self.got) == self.want:
+                    self.t_done = time.perf_counter()
+                    self.reached.set()
+        except grpc.RpcError as e:
+            if e.code() != grpc.StatusCode.CANCELLED:
+                self.error = e
+        self.reached.set()
+
+
+def timed_parts(svc) -> dict:
+    """Seconds inside the service's parts, summed over their threads, by
+    wrapping them before start(): the gateway's columnar admission
+    (_apply_columnar: validate, intern, mark_frame, encode, publish), the
+    consumer's steps and the feed's, each with its queue poll's wait
+    (the *_wait parts) counted apart, and inside the consumer's steps its
+    event publish (the JSON encode and publish_batch)."""
+    spent = dict.fromkeys(SERVICE_PARTS, 0.0)
+    lock = threading.Lock()
+
+    def wrap(obj, name, part):
+        inner = getattr(obj, name)
+
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return inner(*args, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                with lock:
+                    spent[part] += dt
+        setattr(obj, name, run)
+
+    wrap(svc.gateway, "_apply_columnar", "gateway")
+    wrap(svc.consumer, "run_once", "consumer")
+    wrap(svc.bus.order_queue, "poll_batch", "consumer_wait")
+    wrap(svc.consumer, "_publish", "publish")
+    wrap(svc.feed, "run_once", "feed")
+    wrap(svc.bus.match_queue, "poll_batch", "feed_wait")
+    return spent
+
+
+def http_get(port: int, path: str) -> tuple[int, str]:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def metric(text: str, sample: str) -> float:
+    """The value of one sample line of the /metrics text."""
+    for line in text.splitlines():
+        if not line.startswith("#") and line.rsplit(" ", 1)[0] == sample:
+            return float(line.rsplit(" ", 1)[1])
+    raise SystemExit(f"phase 8: /metrics has no sample {sample}")
+
+
+def send_flow(label, stub, pb, requests, tail) -> list[float]:
+    """The flow's DoOrderBatch requests one at a time, each fully
+    accepted, then the unary tail; returns the round trips' seconds."""
+    rtt = []
+    for req in requests:
+        t = time.perf_counter()
+        resp = stub.DoOrderBatch(req, timeout=120)
+        rtt.append(time.perf_counter() - t)
+        if resp.code or resp.accepted != len(req.orders) or \
+                resp.reject_index:
+            raise SystemExit(f"{label}: DoOrderBatch answered code "
+                             f"{resp.code} ({resp.message!r}), accepted "
+                             f"{resp.accepted} of {len(req.orders)}, "
+                             f"{len(resp.reject_index)} rejects")
+    sale, buy, cancel = (wire_request(pb, o) for o in tail)
+    for name, resp in (
+            ("DoOrder", stub.DoOrder(sale, timeout=60)),
+            ("DoOrder", stub.DoOrder(buy, timeout=60)),
+            ("DeleteOrder", stub.DeleteOrder(cancel, timeout=60))):
+        if resp.code:
+            raise SystemExit(f"{label}: {name} answered code {resp.code} "
+                             f"({resp.message!r})")
+    return rtt
+
+
+def wait_drained(label, svc, limit_s: float, n_events: int = 0) -> float:
+    """Wait until every order is committed and the feed has committed
+    n_events match-queue messages (one JSON document per event); returns
+    the time it did."""
+    q, mq = svc.bus.order_queue, svc.bus.match_queue
+    deadline = time.monotonic() + limit_s
+    while q.committed() < q.end_offset() or mq.committed() < n_events:
+        if time.monotonic() > deadline:
+            raise SystemExit(f"{label}: {q.committed()} of {q.end_offset()} "
+                             f"orders and {mq.committed()} of {n_events} "
+                             f"events committed in {limit_s} s")
+        time.sleep(0.001)
+    return time.perf_counter()
+
+
+def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
+                kernel, subscribe: bool = True):
+    """Phase 8, one run: EngineService from a Config written in code (gRPC
+    on port 0, ops on), started on the card; with `subscribe`, a
+    SubscribeMatches stream opened through the port's OrderStub first; the
+    flow's DoOrderBatch requests one at a time, then the unary tail. The
+    stream must deliver the oracle's events (`want`, MatchResults) through
+    match_result_to_pb byte for byte; without it, the match queue's
+    documents must decode to them, seqs 0..n-1. Then /healthz, /metrics,
+    and load_client over the same server. `kernel` is the match-step
+    wrapper whose launch count is read (imported before
+    keep_kernel_inputs wraps it). The consumer's own parts are timed as
+    in phase 6 (host_split)."""
+    import grpc
+
+    from gome_tpu_torch.api import order_pb2 as pb
+    from gome_tpu_torch.api.service import OrderStub
+    from gome_tpu_torch.bus import decode_match_result
+    from gome_tpu_torch.clients import load_client
+    from gome_tpu_torch.config import Config, EngineConfig, GrpcConfig, \
+        OpsConfig
+    from gome_tpu_torch.service import EngineService
+    from gome_tpu_torch.service.app import OBS_FLAGS
+    from gome_tpu_torch.service.matchfeed import match_result_to_pb
+
+    label = f"phase 8 depth {depth}" + ("" if subscribe else ", no subscriber")
+    cfg = Config(
+        grpc=GrpcConfig(host="127.0.0.1", port=0),
+        engine=EngineConfig(cap=256, max_fills=16, n_slots=sizes["symbols"],
+                            max_t=32, pipeline_depth=depth),
+        ops=OpsConfig(enabled=True, port=0, trace=False,
+                      **dict.fromkeys(OBS_FLAGS, False)))
+    svc = EngineService(cfg)
+    host = require_host(svc.engine, label)
+    if svc.engine.config.dtype != torch.int64 or svc.consumer.batch_n != \
+            32 * (sizes["symbols"] // 8) or svc.consumer.match_wire != "json":
+        raise SystemExit(f"{label}: service built with {svc.engine.config}, "
+                         f"batch_n {svc.consumer.batch_n}, "
+                         f"{svc.consumer.match_wire} wire")
+    spent = timed_parts(svc)
+    svc.start()
+    try:
+        port = svc._server.bound_port
+        m0 = http_get(svc.ops.port, "/metrics")[1]
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as channel:
+            stub = OrderStub(channel)
+            if subscribe:
+                want_pb = [match_result_to_pb(e).SerializeToString()
+                           for e in want]
+                sub = StreamCollector(stub, pb, len(want))
+                sub.start()
+                deadline = time.monotonic() + 30
+                while not svc.feed._subs:
+                    if time.monotonic() > deadline:
+                        raise SystemExit(f"{label}: the subscriber never "
+                                         "registered")
+                    time.sleep(0.001)
+            for part in spent:
+                spent[part] = 0.0
+            kernel.launches = 0
+            with host_split(svc.engine) as consumer_split:
+                t0 = time.perf_counter()
+                rtt = send_flow(label, stub, pb, requests, tail)
+                if subscribe:
+                    if not sub.reached.wait(300) or sub.t_done is None:
+                        raise SystemExit(
+                            f"{label}: the stream delivered {len(sub.got)} "
+                            f"of {len(want)} events in 300 s ({sub.error})")
+                    t_end = sub.t_done
+                else:
+                    t_end = wait_drained(label, svc, 300, len(want))
+                secs = t_end - t0
+                launches = kernel.launches
+                split = dict(spent)
+                consumer_split = dict(consumer_split)
+            calls = svc.engine.stats.device_calls
+            if launches <= 0 or launches != calls:
+                raise SystemExit(f"{label}: {launches} kernel launches for "
+                                 f"{calls} device calls")
+            if subscribe:
+                sub.call.cancel()
+                sub.join(30)
+                if sub.got != want_pb or sub.error is not None:
+                    bad = next((i for i, (a, b) in enumerate(
+                        zip(sub.got, want_pb)) if a != b),
+                        min(len(sub.got), len(want_pb)))
+                    raise SystemExit(f"{label}: {len(sub.got)} streamed "
+                                     f"MatchEvents against the oracle's "
+                                     f"{len(want)}, first difference at "
+                                     f"{bad} ({sub.error})")
+            else:
+                mq = svc.bus.match_queue
+                got = [decode_match_result(m.body)
+                       for m in mq.read_from(0, mq.end_offset())]
+                check_events(label, unstamped(got), want)
+                if [e.seq for e in got] != list(range(len(want))):
+                    raise SystemExit(f"{label}: seqs not 0..{len(want) - 1}")
+            wait_drained(label, svc, 30, len(want))
+            code, body = http_get(svc.ops.port, "/healthz")
+            health = json.loads(body)
+            m1 = http_get(svc.ops.port, "/metrics")[1]
+            counters = {
+                "doOrder messages": (
+                    metric(m1, 'gome_bus_end_offset{queue="doOrder"}')
+                    - metric(m0, 'gome_bus_end_offset{queue="doOrder"}'),
+                    len(requests) + len(tail)),
+                "orders consumed": (
+                    metric(m1, "gome_orders_consumed_total")
+                    - metric(m0, "gome_orders_consumed_total"),
+                    n_orders + len(tail)),
+                "events published": (
+                    metric(m1, "gome_match_events_total")
+                    - metric(m0, "gome_match_events_total"), len(want)),
+            }
+            wrong = {k: v for k, v in counters.items() if v[0] != v[1]}
+            if code != 200 or not health["healthy"] or wrong:
+                raise SystemExit(f"{label}: /healthz {code} "
+                                 f"healthy={health.get('healthy')}; counters "
+                                 f"(read, sent) off: {wrong}")
+            state = svc.feed.seq_state()
+            if state["gaps"] or state["dupes"] or svc.feed.suppressed \
+                    or svc.feed.events_seen != len(want):
+                raise SystemExit(f"{label}: feed seqs {state}, "
+                                 f"{svc.feed.events_seen} events seen")
+            n_load = sizes["zipf_n"]
+            t_load = time.perf_counter()
+            load = load_client(
+                f"127.0.0.1:{port}", n=n_load + 1, concurrency=8,
+                batch_n=1024, seed=8,
+                symbols=[f"sym{i}" for i in range(sizes["symbols"])],
+                price_lo=0.9, price_hi=1.1, decimals=2)
+            if (load["ok"], load["rejected"], load["aborted"]) != (
+                    n_load, 0, 0):
+                raise SystemExit(f"{label}: load_client {load}")
+            load_secs = wait_drained(label, svc, 300) - t_load
+    finally:
+        svc.stop()
+    svc.engine.batch.verify_books()
+    return dict(host=host, secs=secs, rtt=rtt, launches=launches,
+                split=split, consumer_split=consumer_split,
+                subscribe=subscribe, counters=counters, load=load,
+                load_secs=load_secs, events=len(want),
+                requests=len(requests))
+
+
+def phase8(sizes, zipf):
+    """The service on the card (grpc and protobuf import on the card's
+    machine): the flow over the wire at depths 0 and 2 (SERVICE_RUNS; (c)
+    repeats depth 0 with no subscriber, the stream's cost set apart), each
+    event streamed back byte-equal to the oracle's, K1 held against its
+    plain version at the inputs the service gave it. Returns the runs, the
+    kernel's worst |error| and the report lines."""
+    import logging
+
+    from gome_tpu_torch.api import order_pb2 as pb
+    from gome_tpu_torch.ops.match_step import batch_step
+
+    # The feed logs every event at INFO (the reference's per-event print);
+    # 116,000 lines on stderr would bury this run's report.
+    logging.getLogger("gome_tpu_torch.matchfeed").setLevel(logging.WARNING)
+    tail = unary_tail()
+    want = oracle_events(list(zipf) + tail)
+    requests = wire_batches(pb, zipf)
+    runs = {}
+    with keep_kernel_inputs() as kept:
+        for tag, depth, subscribe in SERVICE_RUNS:
+            runs[tag] = service_run(sizes, depth, requests, tail, want,
+                                    len(zipf), batch_step, subscribe)
+            runs[tag]["depth"] = depth
+            torch.cuda.empty_cache()
+        worst, kept_line = check_kept_inputs("phase 8", kept)
+    lines = [
+        f"phase 8 ({tag}): {r['host']}: EngineService "
+        f"(grpc port 0, ops on, pipeline_depth={r['depth']}, json match wire, "
+        f"int64, cap 256, K 16, max_t 32, batch_n {32 * (sizes['symbols'] // 8)}) "
+        f"started on the card; {len(zipf)} orders over {sizes['symbols']} "
+        f"symbols sent as {r['requests']} DoOrderBatch requests of "
+        f"{WIRE_BATCH} (cancel mask) plus 2 DoOrder and 1 DeleteOrder; "
+        + (f"SubscribeMatches streamed {r['events']} MatchEvents byte-equal "
+           f"to the oracle's through match_result_to_pb, in order"
+           if r["subscribe"] else
+           f"no subscriber: the {r['events']} match-queue documents equal "
+           f"the oracle's events, seqs 0..{r['events'] - 1}")
+        + "; /healthz 200; "
+        f"/metrics " + ", ".join(f"{k} {int(v[0])}" for k, v in
+                                 r["counters"].items())
+        + f" = sent; {r['launches']} kernel launches = device calls; "
+        f"load_client (concurrency 8, batch_n 1024) {r['load']['ok']} of "
+        f"{r['load']['sent']} ok; books verified"
+        for tag, r in runs.items()]
+    lines.append(kept_line)
+    return runs, worst, lines
+
+
+def print_phase8(card: str, sizes, s_runs, p6_runs) -> None:
+    """Phase 8's numbers, each run beside phase 6's rate at its depth in
+    this run (p6_runs: phase 6's runs by depth)."""
+    for tag, r in s_runs.items():
+        depth = r["depth"]
+        rate = sizes["zipf_n"] / r["secs"]
+        p6 = sizes["zipf_n"] / p6_runs[depth]["secs"]
+        rtt_p50, rtt_p99 = np.percentile(np.array(r["rtt"]) * 1e3, [50, 99])
+        sp = r["split"]
+        load = r["load"]
+        end = ("the last of {} MatchEvents streamed" if r["subscribe"] else
+               "the feed's commit of the last of {} events, no subscriber")
+        print(f"phase 8 [{card}]: ({tag}) pipeline_depth={depth}: {rate:,.0f} "
+              f"orders/s over the wire (first DoOrderBatch sent to "
+              f"{end.format(r['events'])}, {r['secs']:.3f} s); "
+              f"phase 6 at depth {depth} in this run {p6:,.0f} orders/s "
+              f"(int32, no wire; ratio {rate / p6:.3f}); DoOrderBatch round "
+              f"trip p50 {rtt_p50:.2f} ms, p99 {rtt_p99:.2f} ms over "
+              f"{r['requests']} requests of {WIRE_BATCH}; split, seconds "
+              f"summed over threads: gateway admission {sp['gateway']:.4f}, "
+              f"consumer {sp['consumer'] - sp['consumer_wait']:.4f} "
+              f"(+ {sp['consumer_wait']:.4f} polling), feed "
+              f"{sp['feed'] - sp['feed_wait']:.4f} (+ {sp['feed_wait']:.4f} "
+              f"polling); in the consumer: event publish {sp['publish']:.4f}, "
+              + ", ".join(f"{k} {v:.4f}" for k, v in
+                          r["consumer_split"].items() if k != "gateway")
+              + f"; {r['launches']} K1 launches; load_client "
+              f"{load['sent'] / load['elapsed_s']:,.0f} orders/s accepted "
+              f"({load['elapsed_s']:.3f} s), "
+              f"{load['sent'] / r['load_secs']:,.0f} orders/s to the last "
+              f"commit")
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 def time_ms(fn, runs: int, warmup: int = 3) -> float:
@@ -1616,12 +2029,18 @@ def main() -> int:
           + " / ".join(f"{t:.4f}" for t in json_s)
           + f" s for {sizes['zipf_n']} bodies (json / native "
           f"{min(json_s) / min(native_s):.2f}x, best of each)")
+    s_runs, s_worst, s_lines = phase8(sizes, zipf)
+    for line in s_lines:
+        print(line)
+    print_phase8(card, sizes, s_runs, runs)
     h_launches = ab_runs[0][2]["launches"]
     row = dict(name="match_step", **KERNEL_ROWS["match_step"],
                launches=launches, frame_path_launches=f_launches,
                consumer_path_launches=c_launches,
                host_layer_path_launches=h_launches,
-               max_abs_err=max(worst, f_worst, c_worst), ms=results["a"]["ms"],
+               service_path_launches=s_runs["a"]["launches"],
+               max_abs_err=max(worst, f_worst, c_worst, s_worst),
+               ms=results["a"]["ms"],
                device_ms=results["a"]["device_ms"], plain_ms=results["a"]["plain_ms"],
                bound_ms=results["a"]["bound_ms"],
                bound_by=results["a"]["bound_by"], library_ms=None,

@@ -12,10 +12,19 @@ Layout:
                             frame path and the MatchEngine facade
   gome_tpu_torch.ops      — the hand-written CUDA match-step kernel and its
                             plain PyTorch version
+  gome_tpu_torch.config   — the typed YAML configuration (the same file
+                            loads into gome_tpu's)
   gome_tpu_torch.bus      — memory and file queues, the JSON codecs and the
-                            columnar ORDER/EVENT frames (host numpy)
-  gome_tpu_torch.service  — the order consumer (cross-frame pipelining) and
-                            the match-event feed
+                            columnar ORDER/EVENT frames (host numpy), and
+                            make_bus
+  gome_tpu_torch.api      — the gRPC wire contract (order.proto's messages,
+                            the Order service, server reflection)
+  gome_tpu_torch.service  — the gRPC gateway, admission control, the order
+                            consumer (cross-frame pipelining), the
+                            match-event feed, health, the ops endpoint and
+                            EngineService (python -m
+                            gome_tpu_torch.service.app)
+  gome_tpu_torch.clients  — the gRPC load and cancel clients
   gome_tpu_torch.utils    — synthetic order streams, logging, metrics,
                             fault injection, tracing (torch.profiler)
 

@@ -1,0 +1,86 @@
+"""gRPC service wiring for the Order service.
+
+Equivalent of the protoc-grpc-generated order_pb2_grpc module (the handler
+table and stub are written out by hand — same wire behavior: method paths
+``/gome_tpu.api.Order/DoOrder`` etc.). Mirrors the reference's service
+surface (api/order.proto:26-29) plus the SubscribeMatches streaming
+extension, and the DoOrderBatch / DoOrderStream ingest RPCs.
+
+The port of ``gome_tpu/api/service.py``. SERVICE_NAME is the reference's
+(the proto package is shared), so either package's stub calls either
+package's server.
+"""
+
+from __future__ import annotations
+
+import grpc
+
+from . import order_pb2 as pb
+
+SERVICE_NAME = "gome_tpu.api.Order"
+
+
+def add_order_servicer(server: grpc.Server, servicer) -> None:
+    """Register a servicer exposing DoOrder / DeleteOrder / SubscribeMatches
+    (api.RegisterOrderServer's role, gomengine/main.go:31)."""
+    handlers = {
+        "DoOrder": grpc.unary_unary_rpc_method_handler(
+            servicer.DoOrder,
+            request_deserializer=pb.OrderRequest.FromString,
+            response_serializer=pb.OrderResponse.SerializeToString,
+        ),
+        "DeleteOrder": grpc.unary_unary_rpc_method_handler(
+            servicer.DeleteOrder,
+            request_deserializer=pb.OrderRequest.FromString,
+            response_serializer=pb.OrderResponse.SerializeToString,
+        ),
+        "SubscribeMatches": grpc.unary_stream_rpc_method_handler(
+            servicer.SubscribeMatches,
+            request_deserializer=pb.SubscribeRequest.FromString,
+            response_serializer=pb.MatchEvent.SerializeToString,
+        ),
+        "DoOrderBatch": grpc.unary_unary_rpc_method_handler(
+            servicer.DoOrderBatch,
+            request_deserializer=pb.OrderBatchRequest.FromString,
+            response_serializer=pb.OrderBatchResponse.SerializeToString,
+        ),
+        "DoOrderStream": grpc.stream_unary_rpc_method_handler(
+            servicer.DoOrderStream,
+            request_deserializer=pb.OrderRequest.FromString,
+            response_serializer=pb.OrderBatchResponse.SerializeToString,
+        ),
+    }
+    server.add_generic_rpc_handlers(
+        (grpc.method_handlers_generic_handler(SERVICE_NAME, handlers),)
+    )
+
+
+class OrderStub:
+    """Client stub (api.NewOrderClient's role, doorder.go:32)."""
+
+    def __init__(self, channel: grpc.Channel):
+        self.DoOrder = channel.unary_unary(
+            f"/{SERVICE_NAME}/DoOrder",
+            request_serializer=pb.OrderRequest.SerializeToString,
+            response_deserializer=pb.OrderResponse.FromString,
+        )
+        self.DeleteOrder = channel.unary_unary(
+            f"/{SERVICE_NAME}/DeleteOrder",
+            request_serializer=pb.OrderRequest.SerializeToString,
+            response_deserializer=pb.OrderResponse.FromString,
+        )
+        self.SubscribeMatches = channel.unary_stream(
+            f"/{SERVICE_NAME}/SubscribeMatches",
+            request_serializer=pb.SubscribeRequest.SerializeToString,
+            response_deserializer=pb.MatchEvent.FromString,
+        )
+        self.DoOrderBatch = channel.unary_unary(
+            f"/{SERVICE_NAME}/DoOrderBatch",
+            request_serializer=pb.OrderBatchRequest.SerializeToString,
+            response_deserializer=pb.OrderBatchResponse.FromString,
+        )
+        self.DoOrderStream = channel.stream_unary(
+            f"/{SERVICE_NAME}/DoOrderStream",
+            request_serializer=pb.OrderRequest.SerializeToString,
+            response_deserializer=pb.OrderBatchResponse.FromString,
+        )

@@ -1,0 +1,252 @@
+"""Load-test client — behavioral port of gomengine/doorder.go:18-60.
+
+Fires n-1 randomized limit orders (the reference's loop is
+`for i := 1; i < 2000` → 1,999 orders, doorder.go:37) at one symbol over
+gRPC: random BUY/SALE, price and volume uniform in (0,1] rounded to 2
+decimals (doorder.go:38-47's rand.Float64 + FloatRound(…, 2)), fixed
+uuid="2", oid = loop index. Reports throughput the reference never measured
+(SURVEY §6: baseline must be measured, not quoted).
+
+The port of ``gome_tpu/clients/doorder.py``, over the port's OrderStub.
+"""
+
+from __future__ import annotations
+
+import collections
+import random
+import re
+import time
+
+import grpc
+
+from ..api import order_pb2 as pb
+from ..api.service import OrderStub
+from ..utils.resilience import BackoffPolicy, backoff_delays
+
+#: gateway retryable status (service.gateway.CODE_RETRYABLE): the
+#: remainder was NOT accepted and a later retry should succeed.
+CODE_RETRYABLE = 14
+
+#: retry-after hint embedded in retryable reject messages by the
+#: admission controller (service.admission.RETRY_AFTER_FMT).
+RETRY_AFTER_RE = re.compile(r"retry-after=([0-9.]+)s")
+
+
+def send_batch_retrying(
+    send,
+    orders: list,
+    cancel: list | None = None,
+    policy: BackoffPolicy | None = None,
+    rng: random.Random | None = None,
+    sleep=time.sleep,
+) -> dict:
+    """Submit one logical batch through `send(orders, cancel) -> resp`,
+    retrying the unconsumed remainder whenever the gateway answers the
+    retryable status (code 14: overloaded / degraded) instead of failing
+    the batch outright.
+
+    The consumed prefix of an aborted batch is exactly
+    `resp.accepted + len(resp.reject_index)` (every entry before the
+    abort point was either accepted or per-entry rejected — the
+    gateway's remainder contract), so a retry resubmits only the tail:
+    at-most-once per entry, no duplicates. Waits combine the server's
+    parsed retry-after hint with decorrelated jitter from
+    utils.resilience (`max(hint, jitter)` — the hint is a floor, the
+    jitter de-synchronizes the retrying herd). A non-retryable code or
+    an exhausted retry budget leaves the tail in `aborted`.
+
+    Returns {ok, rejected, aborted, retries}."""
+    policy = policy or BackoffPolicy()
+    delays = backoff_delays(policy, rng or random.Random())
+    ok = rejected = retries = aborted = 0
+    while orders:
+        resp = send(orders, cancel)
+        consumed = resp.accepted + len(resp.reject_index)
+        ok += resp.accepted
+        rejected += len(resp.reject_index)
+        if resp.code != CODE_RETRYABLE:
+            # 0 = fully applied (consumed == len); 3 = permanent abort,
+            # the tail is counted, never silently resubmitted.
+            aborted += len(orders) - consumed
+            break
+        orders = orders[consumed:]
+        if cancel:
+            cancel = cancel[consumed:]
+        if not orders:
+            break
+        m = RETRY_AFTER_RE.search(resp.message or "")
+        hint = float(m.group(1)) if m else 0.0
+        try:
+            delay = next(delays)
+        except StopIteration:  # retry budget exhausted — fail loudly
+            aborted += len(orders)
+            break
+        retries += 1
+        sleep(max(delay, hint))
+    return {
+        "ok": ok, "rejected": rejected, "aborted": aborted,
+        "retries": retries,
+    }
+
+
+def load_client(
+    target: str,
+    n: int = 2000,
+    symbol: str = "eth2usdt",
+    uuid: str = "2",
+    seed: int | None = None,
+    kind: int = 0,
+    concurrency: int = 1,
+    symbols: list[str] | None = None,
+    price_lo: float = 0.01,
+    price_hi: float = 1.0,
+    decimals: int = 2,
+    batch_n: int = 0,
+) -> dict:
+    """Send n-1 orders (the reference's serial loop at concurrency=1; higher
+    values pipeline that many in-flight requests over one HTTP/2 channel —
+    the serial client measures round-trip latency, not server capacity).
+    Defaults reproduce doorder.go:38-47 exactly; `symbols` (random pick per
+    order) and the price band exist for sustained benches, where the
+    reference's full-range prices would pile depth without crossing.
+    batch_n > 0 switches to the amortized DoOrderBatch RPC with batch_n
+    orders per request (still `concurrency` requests in flight) — the
+    fast front door; the per-REQUEST grpc tax spreads over batch_n orders.
+    Returns {sent, ok, rejected, elapsed_s, orders_per_s}."""
+    rng = random.Random(seed)
+    pick = symbols or [symbol]
+
+    def requests():  # lazy: O(window) client memory at any n
+        for i in range(1, n):  # doorder.go:37 loop bounds
+            yield pb.OrderRequest(
+                uuid=uuid,
+                oid=str(i),
+                symbol=pick[rng.randrange(len(pick))] if symbols else symbol,
+                transaction=rng.randrange(2),  # doorder.go:39-44
+                price=round(rng.uniform(price_lo, price_hi), decimals),
+                volume=round(rng.uniform(0.01, 1.0), 2),
+                kind=kind,
+            )
+
+    sent = ok = rejected = aborted = retried = 0
+    window = max(1, concurrency)
+    with grpc.insecure_channel(target) as channel:
+        stub = OrderStub(channel)
+        t0 = time.perf_counter()
+        pending = collections.deque()
+        if batch_n > 0:
+            import itertools
+
+            retry_rng = random.Random(seed)
+
+            def send(orders, cancel):
+                return stub.DoOrderBatch(pb.OrderBatchRequest(orders=orders))
+
+            def settle(f, chunk):
+                nonlocal ok, rejected, aborted, retried
+                resp = f.result()
+                ok += resp.accepted
+                rejected += len(resp.reject_index)
+                consumed = resp.accepted + len(resp.reject_index)
+                if resp.code == CODE_RETRYABLE and consumed < len(chunk):
+                    # Overloaded / degraded gateway: honor the retryable
+                    # status — resubmit the unconsumed tail under
+                    # decorrelated-jitter backoff (synchronously; the
+                    # stall IS the backpressure reaching this client).
+                    r = send_batch_retrying(
+                        send, chunk[consumed:], rng=retry_rng
+                    )
+                    ok += r["ok"]
+                    rejected += r["rejected"]
+                    aborted += r["aborted"]
+                    retried += r["retries"]
+                    return
+                # A code-3 mid-batch abort (batcher closed, bus down)
+                # leaves a tail that was neither accepted nor
+                # per-order-rejected; count it so sent == ok + rejected
+                # + aborted always holds and failures surface HERE, not
+                # as an opaque downstream count mismatch.
+                aborted += len(chunk) - consumed
+
+            reqs = requests()
+            while True:
+                chunk = list(itertools.islice(reqs, batch_n))
+                if not chunk:
+                    break
+                if len(pending) >= window:
+                    settle(*pending.popleft())
+                pending.append(
+                    (
+                        stub.DoOrderBatch.future(
+                            pb.OrderBatchRequest(orders=chunk)
+                        ),
+                        chunk,
+                    )
+                )
+                sent += len(chunk)
+            for f, chunk in pending:
+                settle(f, chunk)
+        else:
+            # One loop for both unary modes: a window of 1 sends
+            # request-after-response, exactly the reference's serial
+            # client.
+            def settle(f):
+                nonlocal ok, rejected
+                resp = f.result()
+                ok += resp.code == 0
+                rejected += resp.code != 0
+
+            for req in requests():
+                if len(pending) >= window:
+                    settle(pending.popleft())
+                pending.append(stub.DoOrder.future(req))
+                sent += 1
+            for f in pending:
+                settle(f)
+        elapsed = time.perf_counter() - t0
+    return {
+        "sent": sent,
+        "ok": ok,
+        "rejected": rejected,
+        "aborted": aborted,  # batch entries lost to a mid-batch abort
+        "retried": retried,  # code-14 retry rounds (backpressure honored)
+        "elapsed_s": elapsed,
+        "orders_per_s": sent / elapsed if elapsed > 0 else 0.0,
+    }
+
+
+def main(argv=None):
+    import json
+    import sys
+
+    argv = sys.argv[1:] if argv is None else argv
+    target = argv[0] if argv else "127.0.0.1:8088"
+    n = int(argv[1]) if len(argv) > 1 else 2000
+    concurrency = int(argv[2]) if len(argv) > 2 else 1
+    n_symbols = int(argv[3]) if len(argv) > 3 else 0
+    kwargs = {}
+    if n_symbols:
+        kwargs["symbols"] = [f"sym{i}" for i in range(n_symbols)]
+    if len(argv) > 4:  # crossing price band for sustained benches
+        if len(argv) < 7:
+            sys.exit(
+                "usage: doorder TARGET [N [CONCURRENCY [N_SYMBOLS "
+                "[PRICE_LO PRICE_HI DECIMALS [SEED]]]]]"
+            )
+        kwargs["price_lo"] = float(argv[4])
+        kwargs["price_hi"] = float(argv[5])
+        kwargs["decimals"] = int(argv[6])
+    if len(argv) > 7:
+        kwargs["seed"] = int(argv[7])
+    if len(argv) > 8:  # orders per DoOrderBatch request (0 = unary)
+        kwargs["batch_n"] = int(argv[8])
+    if len(argv) > 9 and n_symbols:  # symbol-namespace prefix (scaling
+        kwargs["symbols"] = [  # benches give each gateway its own)
+            f"{argv[9]}sym{i}" for i in range(n_symbols)
+        ]
+    stats = load_client(target, n=n, concurrency=concurrency, **kwargs)
+    print(json.dumps(stats))
+
+
+if __name__ == "__main__":
+    main()

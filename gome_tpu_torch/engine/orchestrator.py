@@ -1,8 +1,8 @@
 """The engine facade: pre-pool admission + batched device matching.
 
-The port of ``gome_tpu/engine/orchestrator.py`` (its object, columnar and
-frame entry points). It is the layer the gateway and the order consumer
-talk to:
+The port of ``gome_tpu/engine/orchestrator.py`` (its object, single-order,
+columnar and frame entry points). It is the layer the gateway and the order
+consumer talk to:
 
   gateway side   mark(order) / mark_frame(cols)
                    — HSET S:comparison S:U:O 1 in the reference
@@ -96,6 +96,9 @@ class MatchEngine:
         except Exception:
             self.pre_pool |= consumed
             raise
+
+    def process_one(self, order: Order) -> list[MatchResult]:
+        return self.process([order])
 
     def process_columnar(self, orders: list[Order]):
         """process() with the vectorized decode path: same admission, same

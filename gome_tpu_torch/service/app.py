@@ -1,0 +1,222 @@
+"""EngineService — the whole stack assembled from one Config.
+
+The reference runs three processes wired by external RabbitMQ/Redis
+(README.md run instructions; SURVEY §1): gRPC server, order consumer, match
+consumer. Here the deployment is one binary hosting all three components
+around the in-process (or file) bus.
+
+The port of ``gome_tpu/service/app.py``. The engine runs on the CUDA card
+(`device=None`); only tests pass `device="cpu"`. What the port does not
+have yet is refused at construction with the ROADMAP item that will port
+it, never replaced by a fallback (refuse_unported).
+
+    python -m gome_tpu_torch.service.app [config.yaml]
+"""
+
+from __future__ import annotations
+
+from ..bus import make_bus
+from ..config import Config
+from ..engine.orchestrator import MatchEngine
+from ..utils.logging import configure as configure_logging, get_logger
+from .consumer import OrderConsumer
+from .matchfeed import MatchFeed
+
+log = get_logger("app")
+
+#: ops: flags that arm the reference's obs/ surfaces, which the port has not.
+OBS_FLAGS = ("cost", "timeline", "profile", "hostprof", "placement")
+
+
+def refuse_unported(config: Config, persist=None) -> None:
+    """Raise for every part of `config` the port cannot run yet, naming
+    the ROADMAP item that will port it. The reference falls back in two
+    of these cases (an unreachable broker boots the memory bus, an
+    unusable store keeps the in-process pool); the port has neither
+    backend, so a config naming one is refused rather than quietly run
+    on something else. (bus.backend amqp is refused by make_bus.)"""
+    if config.store.enabled:
+        raise NotImplementedError(
+            "a redis: store section: the port has no RESP pre-pool yet "
+            "(ROADMAP Queue 1 item 4)"
+        )
+    if config.persist.enabled or persist is not None:
+        raise NotImplementedError(
+            "a persist: section: the port has no persist/ yet "
+            "(ROADMAP Queue 1 item 4)"
+        )
+    if config.engine.mesh_devices > 0:
+        raise NotImplementedError(
+            f"engine.mesh_devices={config.engine.mesh_devices}: the port has "
+            "no multi-card mesh yet (ROADMAP Queue 1 item 6)"
+        )
+    if config.ops.enabled:
+        armed = [f for f in OBS_FLAGS if getattr(config.ops, f)]
+        if armed:
+            raise NotImplementedError(
+                f"ops: {', '.join(armed)} on: the port has no obs/ yet "
+                "(ROADMAP Queue 1 item 8); set them false"
+            )
+    if config.fleet.enabled:
+        raise NotImplementedError(
+            "a fleet: section: the port has no fleet aggregator yet "
+            "(ROADMAP Queue 1 item 9)"
+        )
+
+
+class EngineService:
+    def __init__(self, config: Config | None = None, persist=None,
+                 device=None):
+        """device: the CUDA card by default (raises if there is none);
+        "cpu" runs the engine's plain PyTorch version (tests)."""
+        self.config = config or Config()
+        refuse_unported(self.config, persist)
+        configure_logging()
+        if self.config.faults.enabled:
+            # Arm the deterministic fault-injection registry (utils.faults)
+            # BEFORE the bus exists so boot-time injection points (torn
+            # sidecar reads, first appends) are covered. Chaos/test
+            # tooling only; without a `faults:` section FAULTS stays a
+            # zero-allocation no-op.
+            from ..utils.faults import FAULTS
+
+            FAULTS.install(self.config.faults.fault_plan())
+            log.warning(
+                "fault injection ARMED (seed=%d, %d specs) — chaos/test "
+                "mode, never production",
+                self.config.faults.seed,
+                len(self.config.faults.fault_plan().faults),
+            )
+        self.bus = make_bus(self.config.bus)
+        from ..bus.base import export_queue_metrics
+
+        # Per-queue depth/lag gauges (gome_bus_depth{queue=...}): scrape-
+        # time reads of local queue state, registered for both queues.
+        export_queue_metrics(self.bus.order_queue)
+        export_queue_metrics(self.bus.match_queue)
+        e = self.config.engine
+        self.engine = MatchEngine(
+            config=e.book_config(),
+            n_slots=e.n_slots,
+            max_t=e.max_t,
+            auto_grow=e.auto_grow,
+            device=device,
+        )
+        self.feed = MatchFeed(self.bus)
+        self.consumer = OrderConsumer(
+            self.engine,
+            self.bus,
+            batch_n=e.max_t * max(1, e.n_slots // 8),
+            match_wire=self.config.bus.match_wire,
+            pipeline_depth=e.pipeline_depth,
+        )
+        from ..engine.step import LOT_MAX32
+
+        self.admission = None
+        if self.config.admission.enabled:
+            # End-to-end overload protection: the gateway sheds retryable
+            # once order-queue consumer lag crosses the configured ceiling
+            # — backpressure reaches the client instead of piling into
+            # the bus.
+            from .admission import AdmissionController
+
+            a = self.config.admission
+            self.admission = AdmissionController(
+                self.bus.order_queue.depth,
+                max_depth=a.max_depth,
+                min_deadline_s=a.min_deadline_s,
+                retry_after_s=a.retry_after_s,
+                retry_after_max_s=a.retry_after_max_s,
+                cache_s=a.cache_s,
+            )
+        from .gateway import OrderGateway
+
+        self.gateway = OrderGateway(
+            self.bus,
+            accuracy=e.accuracy,
+            mark=self.engine.mark,
+            unmark=self.engine.unmark,
+            mark_frame=self.engine.mark_frame,
+            unmark_frame=self.engine.unmark_frame,
+            match_feed=self.feed,
+            max_volume=LOT_MAX32 if e.dtype == "int32" else None,
+            admission=self.admission,
+        )
+        self._server = None
+        self.ops = None
+        if self.config.ops.enabled:
+            from .ops import OpsServer
+
+            if self.config.ops.trace:
+                # Arm the order-lifecycle tracer (utils.trace): trace ids
+                # at the gateway, per-stage histograms in /metrics, and
+                # the flight recorder behind the ops /trace endpoint.
+                from ..utils.trace import TRACER, FlightRecorder
+
+                TRACER.install(
+                    FlightRecorder(
+                        keep_n=self.config.ops.trace_keep,
+                        slow_threshold_s=self.config.ops.slow_ms / 1e3,
+                    )
+                )
+            self.ops = OpsServer(
+                self, host=self.config.ops.host, port=self.config.ops.port
+            )
+        # The reference's GOME_RACECHECK=1 hook (analysis.racecheck) comes
+        # with the port of analysis/ (ROADMAP Queue 1 item 10).
+
+    def start(self):
+        """Start gRPC server + consumer + feed threads (+ the ops HTTP
+        endpoint when configured); returns self."""
+        from .gateway import serve_gateway
+
+        self._server = serve_gateway(self.gateway, self.config)
+        self.consumer.start()
+        self.feed.start()
+        if self.ops is not None:
+            self.ops.start()
+        return self
+
+    def stop(self):
+        if self._server is not None:
+            self._server.stop(grace=2).wait()
+            self._server = None
+        self.consumer.stop()
+        self.feed.stop()
+        if self.ops is not None:
+            self.ops.stop()
+
+    def wait(self):
+        if self._server is not None:
+            self._server.wait_for_termination()
+
+    # -- synchronous conveniences (tests, embedded use) ----------------------
+    def pump(self) -> int:
+        """Drain order queue then match queue once, synchronously (no
+        threads). Returns orders processed."""
+        n = self.consumer.drain()
+        self.feed.drain()
+        return n
+
+
+def main(argv=None):
+    """CLI entry: `python -m gome_tpu_torch.service.app [config.yaml]` — the
+    single-binary replacement for the reference's three `go run` processes
+    (README.md:11-15). Runs on the CUDA card."""
+    import sys
+
+    from ..config import load_config
+
+    argv = sys.argv[1:] if argv is None else argv
+    config = load_config(argv[0] if argv else None)
+    svc = EngineService(config).start()
+    log.info("engine service up (grpc %s:%d)", config.grpc.host,
+             svc._server.bound_port)
+    try:
+        svc.wait()
+    except KeyboardInterrupt:
+        svc.stop()
+
+
+if __name__ == "__main__":
+    main()

@@ -2,13 +2,15 @@
 (consume_match_order.go:7-10 → rabbitmq.go:132-177): drains the
 "matchOrder" queue, logs each MatchResult (rabbitmq.go:162-171), and — where
 the reference leaves a "your code..." stub (rabbitmq.go:169) — fans events
-out to in-process subscribers.
+out to in-process subscribers (the gateway's SubscribeMatches stream).
 
-The port of ``gome_tpu/service/matchfeed.py`` without its gRPC half: the
-protobuf conversions (snapshot_to_pb, match_result_to_pb) and subscribe(),
-which serve the gateway's SubscribeMatches stream, come with the gateway
-slice. Until then run_once fans the MatchResult objects themselves out to
-the queues in its subscriber list.
+The port of ``gome_tpu/service/matchfeed.py``. One difference, in cost
+only: the reference converts every event to a pb.MatchEvent
+(match_result_to_pb) whether or not anyone subscribed; the port converts
+only while at least one subscriber is registered. What a subscriber
+receives is byte-identical either way. The protobuf module (the port's
+api.order_pb2) is imported only by the conversion functions, so the feed
+imports and runs on a machine without protobuf.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import queue
 import threading
 
 from ..bus import QueueBus, decode_match_result
+from ..fixed import unscale
+from ..types import MatchResult, OrderSnapshot
 from ..utils.logging import get_logger
 from ..utils.metrics import REGISTRY
 
@@ -85,6 +89,31 @@ class SeqTracker:
         }
 
 
+def snapshot_to_pb(s: OrderSnapshot):
+    from ..api import order_pb2 as pb
+
+    # Wire doubles carry the reference's observable values: the scaled
+    # float64 (SURVEY §2.2 — events serialize post-scaling nodes).
+    return pb.OrderSnapshot(
+        uuid=s.uuid,
+        oid=s.oid,
+        symbol=s.symbol,
+        transaction=int(s.side),
+        price=unscale(s.price),
+        volume=unscale(s.volume),
+    )
+
+
+def match_result_to_pb(mr: MatchResult):
+    from ..api import order_pb2 as pb
+
+    return pb.MatchEvent(
+        node=snapshot_to_pb(mr.node),
+        match_node=snapshot_to_pb(mr.match_node),
+        match_volume=float(mr.match_volume),
+    )
+
+
 class MatchFeed:
     def __init__(self, bus: QueueBus, log_events: bool = True):
         self.bus = bus
@@ -131,8 +160,10 @@ class MatchFeed:
                         mr.match_node.oid,
                         mr.match_volume,
                     )
-                for q in subs:
-                    q.put(mr)
+                if subs:
+                    ev = match_result_to_pb(mr)
+                    for q in subs:
+                        q.put(ev)
         self.bus.match_queue.commit(msgs[-1].offset + 1)
         return len(msgs)
 
@@ -145,6 +176,25 @@ class MatchFeed:
     def seq_state(self) -> dict:
         """Exactly-once state for /durability."""
         return {**self.seq.state(), "suppressed": self.suppressed}
+
+    def subscribe(self, context=None):
+        """Generator of pb.MatchEvent for one subscriber (gateway streaming
+        handler). Ends when the gRPC context goes inactive or the feed
+        stops."""
+        q: queue.Queue = queue.Queue()
+        with self._lock:
+            self._subs.append(q)
+        try:
+            while not self._stop.is_set():
+                if context is not None and not context.is_active():
+                    return
+                try:
+                    yield q.get(timeout=0.1)
+                except queue.Empty:
+                    continue
+        finally:
+            with self._lock:
+                self._subs.remove(q)
 
     # -- background loop -----------------------------------------------------
     def start(self) -> None:

@@ -12,6 +12,11 @@ from __future__ import annotations
 import enum
 from dataclasses import dataclass, field, replace
 
+# The reference's engine.kernel values. The config still accepts both so a
+# reference config.yaml loads; the port has one step whatever the value:
+# the CUDA match-step kernel on the card, its plain version on the CPU.
+KERNELS = ("scan", "pallas")
+
 
 class Side(enum.IntEnum):
     """api/order.proto:4-7 — TransactionType {BUY=0, SALE=1}."""

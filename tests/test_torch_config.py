@@ -1,0 +1,230 @@
+"""The port's config (gome_tpu_torch.config) against gome_tpu.config: one
+YAML file with every section loads into both packages with equal sections
+(dataclasses.asdict), the same checks reject the same bad values with the
+same messages, and EngineService refuses every section, backend and flag
+the port cannot run yet, naming the ROADMAP item that will port it."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import pytest
+import torch
+
+import gome_tpu.config as jconfig
+import gome_tpu_torch.config as tconfig
+from gome_tpu_torch.service.app import EngineService
+
+SECTIONS = [f.name for f in dataclasses.fields(tconfig.Config)]
+
+EVERY_SECTION = """
+grpc:
+  host: gome
+  port: "8089"
+redis:
+  host: redis
+  port: 6380
+  password: "123456"
+rabbitmq:
+  host: rabbitmq
+  port: 5673
+  username: root
+  password: "123456"
+mysql:
+  host: 127.0.0.1
+  port: 3306
+bus:
+  dir: {bus_dir}
+  match_wire: frame
+gomengine:
+  accuracy: 6
+engine:
+  cap: 64
+  max_fills: 8
+  n_slots: 16
+  max_t: 8
+  dtype: int32
+  auto_grow: false
+  kernel: pallas
+  pipeline_depth: 2
+  mesh_devices: 2
+persist:
+  dir: snaps
+  every_n_batches: 8
+  keep: 2
+ops:
+  port: 0
+  trace_keep: 16
+  slow_ms: 5.0
+  cost: false
+  timeline_interval_s: 0.5
+  placement_alpha: 0.5
+fleet:
+  members:
+    - a=http://127.0.0.1:1
+    - b: http://127.0.0.1:2
+  interval_s: 0.5
+sim:
+  n_lanes: 32
+  zipf_a: 1.4
+  cap: 32
+  dtype: int64
+faults:
+  seed: 7
+  points:
+    - point: consumer.commit
+      mode: raise
+      at: [3]
+admission:
+  max_depth: 128
+  retry_after_s: 0.1
+"""
+
+
+def write(tmp_path, text, name="config.yaml"):
+    p = tmp_path / name
+    p.write_text(text)
+    return str(p)
+
+
+def both(path):
+    return jconfig.load_config(path), tconfig.load_config(path)
+
+
+def assert_sections_equal(j, t):
+    for name in SECTIONS:
+        assert dataclasses.asdict(getattr(t, name)) == dataclasses.asdict(
+            getattr(j, name)), name
+
+
+def test_every_section_loads_equal(tmp_path):
+    j, t = both(write(tmp_path, EVERY_SECTION.format(bus_dir=tmp_path)))
+    assert_sections_equal(j, t)
+    assert t.store.enabled and t.bus.backend == "amqp" and t.persist.enabled
+    assert t.ops.enabled and t.fleet.enabled and t.faults.enabled
+    assert t.admission.enabled and t.grpc.port == 8089
+    assert t.fleet.member_map() == j.fleet.member_map()
+    assert t.faults.fault_plan().to_dict() == j.faults.fault_plan().to_dict()
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_book_config_differs_only_in_dtype_type(tmp_path, dtype):
+    j, t = both(write(tmp_path, f"engine:\n  cap: 64\n  dtype: {dtype}\n"))
+    jb, tb = j.engine.book_config(), t.engine.book_config()
+    assert (tb.cap, tb.max_fills) == (jb.cap, jb.max_fills) == (64, 16)
+    assert tb.dtype == getattr(torch, dtype)
+    assert jb.dtype == getattr(jnp, dtype)
+
+
+def test_defaults_without_file(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    j, t = jconfig.load_config(), tconfig.load_config()
+    assert_sections_equal(j, t)
+    assert_sections_equal(jconfig.Config(), tconfig.Config())
+    assert t.engine.accuracy == 8 and not t.store.enabled
+
+
+def test_cwd_config_yaml_is_read(tmp_path, monkeypatch):
+    write(tmp_path, "engine:\n  n_slots: 32\n")
+    monkeypatch.chdir(tmp_path)
+    j, t = jconfig.load_config(), tconfig.load_config()
+    assert_sections_equal(j, t)
+    assert t.engine.n_slots == 32
+
+
+@pytest.mark.parametrize("kernel", ["scan", "pallas"])
+def test_reference_kernel_values_load(tmp_path, kernel):
+    j, t = both(write(tmp_path, f"engine:\n  kernel: {kernel}\n"))
+    assert t.engine.kernel == j.engine.kernel == kernel
+
+
+@pytest.mark.parametrize("text, match", [
+    ("engine:\n  cap: -1\n", "cap"),
+    ("engine:\n  dtype: int16\n", "dtype"),
+    ("engine:\n  kernel: xla\n", "kernel"),
+    ("engine:\n  pipeline_depth: -1\n", "pipeline_depth"),
+    ("gomengine:\n  accuracy: 19\n", "accuracy"),
+    ("bus:\n  backend: zeromq\n", "backend"),
+    ("bus:\n  match_wire: xml\n", "match_wire"),
+    ("nosuch:\n  a: 1\n", "unknown config sections"),
+    ("grpc:\n  hostt: x\n", "unknown key"),
+    ("persist:\n  keep: 0\n", "persist"),
+    ("ops:\n  trace_keep: 0\n", "trace_keep"),
+    ("ops:\n  placement_alpha: 1.5\n", "placement_alpha"),
+    ("fleet:\n  interval_s: 1.0\n", "no members"),
+    ("fleet:\n  members: [nourl]\n", "fleet.members"),
+    ("sim:\n  excite_self: 0.9\n  excite_cross: 0.3\n", "unstable"),
+    ("faults:\n  plan: p.json\n  points: [{point: x}]\n", "not both"),
+    ("admission:\n  max_depth: 0\n", "max_depth"),
+    ("admission:\n  retry_after_max_s: 0.01\n", "retry_after_max_s"),
+])
+def test_validation_rejects_alike(tmp_path, text, match):
+    path = write(tmp_path, text)
+    with pytest.raises(ValueError, match=match) as je:
+        jconfig.load_config(path)
+    with pytest.raises(ValueError, match=match) as te:
+        tconfig.load_config(path)
+    assert str(te.value) == str(je.value)
+
+
+def test_fault_plan_file(tmp_path):
+    from gome_tpu_torch.utils.faults import FaultPlan, FaultSpec
+
+    plan = FaultPlan(seed=3, faults=(FaultSpec("gateway.emit", mode="raise",
+                                               at=(2,)),))
+    (tmp_path / "plan.json").write_text(plan.to_json())
+    j, t = both(write(tmp_path, f"faults:\n  plan: {tmp_path}/plan.json\n"))
+    assert t.faults.fault_plan().to_dict() == j.faults.fault_plan().to_dict()
+    assert t.faults.fault_plan() == plan
+
+
+# -- what the port refuses ---------------------------------------------------
+
+OBS_FLAGS = ("cost", "timeline", "profile", "hostprof", "placement")
+# trace off too: an armed tracer is process-wide and would pin later
+# tests' gateways to the scalar loop.
+QUIET_OPS = "ops:\n  port: 0\n  trace: false\n" + "".join(
+    f"  {f}: false\n" for f in OBS_FLAGS)
+
+
+@pytest.mark.parametrize("text, error, item", [
+    ("rabbitmq:\n  port: 1\n", NotImplementedError, "item 2c"),
+    ("bus:\n  backend: amqp\n", NotImplementedError, "item 2c"),
+    ("redis:\n  port: 1\n", NotImplementedError, "item 4"),
+    ("persist:\n  keep: 2\n", NotImplementedError, "item 4"),
+    ("engine:\n  mesh_devices: 2\n", NotImplementedError, "item 6"),
+    *[(QUIET_OPS.replace(f"{f}: false", f"{f}: true"), NotImplementedError,
+       "item 8") for f in OBS_FLAGS],
+    ("ops:\n  port: 0\n", NotImplementedError, "item 8"),
+    ("fleet:\n  members: [a=http://x:1]\n", NotImplementedError, "item 9"),
+])
+def test_unported_parts_are_refused(tmp_path, text, error, item):
+    cfg = tconfig.load_config(write(tmp_path, text))
+    with pytest.raises(error, match=f"ROADMAP Queue 1 {item}\\b"):
+        EngineService(cfg, device="cpu")
+
+
+def test_persister_argument_is_refused():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        EngineService(tconfig.Config(), persist=object(), device="cpu")
+
+
+def test_cfile_without_gpp_raises(tmp_path, monkeypatch):
+    import gome_tpu_torch.bus as tbus
+
+    monkeypatch.setattr(tbus, "native_available", lambda: False)
+    with pytest.raises(RuntimeError, match="g\\+\\+"):
+        tbus.make_bus(tconfig.BusConfig(backend="cfile", dir=str(tmp_path)))
+
+
+def test_quiet_ops_section_boots(tmp_path):
+    cfg = tconfig.load_config(write(tmp_path, QUIET_OPS))
+    svc = EngineService(cfg, device="cpu")
+    assert svc.ops is not None and svc.engine.batch.device.type == "cpu"
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EngineService(tconfig.Config(engine=tconfig.EngineConfig(
+            cap=16, n_slots=4, max_t=4)))

@@ -175,7 +175,7 @@ def _snap(types, oid, side):
 def test_match_feed_suppresses_dupes_and_counts_gaps():
     """JSON lines and EVENT frames with repeated, missing and absent seqs:
     both feeds deliver the same events, suppress and count alike, and fan
-    the same events out to a subscriber."""
+    the same pb.MatchEvents, byte for byte, out to a subscriber."""
     from gome_tpu.bus import colwire as jcw
     from gome_tpu.engine import frames as jframes
     from test_torch_frames import batch_pair
@@ -204,7 +204,7 @@ def test_match_feed_suppresses_dupes_and_counts_gaps():
         fanned = []
         while not sub.empty():
             ev = sub.get()
-            fanned.append((ev.node.oid, ev.match_node.oid))
+            fanned.append(ev.SerializeToString())
         out[side] = (feed.seq_state(), feed.events_seen, feed.suppressed,
                      fanned, bus.match_queue.committed())
     assert out[T] == out[J]

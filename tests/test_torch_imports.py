@@ -61,7 +61,9 @@ def test_importing_the_port_loads_neither():
         "gome_tpu_torch.oracle, gome_tpu_torch.utils.streams, chip_smoke, "
         "gome_tpu_torch.bus, gome_tpu_torch.service, "
         "gome_tpu_torch.engine.pipeline, gome_tpu_torch.native, "
-        "gome_tpu_torch.engine.nativehost\n"
+        "gome_tpu_torch.engine.nativehost, gome_tpu_torch.config, "
+        "gome_tpu_torch.api, gome_tpu_torch.clients, "
+        "gome_tpu_torch.service.app, gome_tpu_torch.service.gateway\n"
         "bad = [m for m in sys.modules if m in ('jax', 'gome_tpu') or "
         "m.startswith(('jax.', 'gome_tpu.'))]\n"
         "print(bad)\n"
@@ -70,3 +72,65 @@ def test_importing_the_port_loads_neither():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_service_app_loads_neither_jax_nor_gome_tpu():
+    code = (
+        "import sys, gome_tpu_torch.service.app\n"
+        "from gome_tpu_torch.service import EngineService, OrderGateway\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'gome_tpu') or "
+        "m.startswith(('jax.', 'gome_tpu.'))]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad or 'grpc' not in sys.modules else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+BLOCKED = ("grpc", "google.protobuf", "yaml")
+NEEDS_NONE_OF_THEM = (
+    "gome_tpu_torch.config", "gome_tpu_torch.bus",
+    "gome_tpu_torch.service.consumer", "gome_tpu_torch.service.matchfeed",
+    "gome_tpu_torch.service.admission", "gome_tpu_torch.service.health",
+    "gome_tpu_torch.service.ops",
+)
+
+
+def test_service_parts_import_without_grpc_protobuf_yaml():
+    """With grpc, protobuf and yaml blocked (None in sys.modules), the
+    config, the bus, the consumer, the feed (with no subscriber it never
+    converts an event to protobuf), admission, health and the ops
+    endpoint still import, defaults load and a feed drains; the gateway
+    does not import."""
+    code = (
+        "import sys\n"
+        f"for m in {BLOCKED!r}: sys.modules[m] = None\n"
+        "import importlib\n"
+        f"for m in {NEEDS_NONE_OF_THEM!r}: importlib.import_module(m)\n"
+        "from gome_tpu_torch.config import Config, load_config\n"
+        "from gome_tpu_torch.bus import make_bus\n"
+        "from gome_tpu_torch.bus.codec import encode_match_result\n"
+        "from gome_tpu_torch.service import MatchFeed\n"
+        "from gome_tpu_torch.types import MatchResult, OrderSnapshot, Side\n"
+        "assert load_config(None) == Config()\n"
+        "bus = make_bus(Config().bus)\n"
+        "s = OrderSnapshot('u', 'o', 's', Side.BUY, 100, 5)\n"
+        "bus.match_queue.publish(encode_match_result(MatchResult(s, s, 5)))\n"
+        "feed = MatchFeed(bus, log_events=False)\n"
+        "assert feed.drain() == 1 and feed.events_seen == 1\n"
+        "try:\n"
+        "    import gome_tpu_torch.service.gateway\n"
+        "except ImportError:\n"
+        "    print('gateway needs grpc')\n"
+        "else:\n"
+        "    sys.exit('the gateway imported without grpc')\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in "
+        "('grpc', 'yaml') or m.startswith('google.protobuf')]\n"
+        "sys.exit(f'loaded {loaded}' if any(sys.modules[m] is not None "
+        "for m in loaded) else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "gateway needs grpc" in proc.stdout
