@@ -88,7 +88,34 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      orders/s over the wire beside phase 6's in this run, the
      DoOrderBatch round trip p50/p99, K1's launches, the split between
      gateway admission, consumer (and its parts) and feed, and
-     load_client's orders/s.
+     load_client's orders/s;
+  9. durability: (a) the crash drill: the flow as ORDER frames of 8,192 in
+     a file queue, consumed by workers that are fresh interpreters
+     (`python3 chip_smoke.py --persist-worker ...`: the engine on the
+     card, int32, a Persister every 8 batches, OrderConsumer(batch_n=1,
+     match_wire="frame") at depths alternating 2 and 0, restore_latest()
+     before the cycle's FaultPlan is armed): four kills (consumer.commit
+     at offset 0, consumer.frame, a torn filelog.offset, a torn
+     snapshot.rename) each exiting with EXIT_CODE, then a clean final
+     worker; its match-queue bodies byte-equal to an uninterrupted
+     worker's, its events equal to the oracle's with seqs 0..n-1 once
+     each in the feed, its book digest (every leaf, padding included)
+     equal, and K1 equal to its plain version at the inputs its replay
+     gave it; per cycle the restore and recovery seconds, the order-log
+     messages rewound and the snapshots' bytes and seconds; (b) in the
+     final worker, one snapshot of its engine split into export_state,
+     np.savez and the fsyncs, one restore into a fresh engine split into
+     the load, import_state and the mark rebuild, the restored state
+     equal leaf by leaf; (c) phase 8 (c)'s service with a persist:
+     section (every 16 batches, one request per consumer batch, file
+     bus) and a redis: section naming a FakeRedisServer (marks through
+     RespPrePool): the flow over the wire, stopped, and a second service
+     over the same directories and store whose start() restores: books equal, /durability reports the
+     restore, the match queue's documents equal the oracle's with seqs
+     0..n-1; orders/s beside phase 8 (c)'s; (d) that engine through
+     book_redis_commands into a DictRedis and restore_from_redis into a
+     fresh int64 engine: resting orders and marks equal, and 10,000 more
+     orders give the oracle's events on both.
 
 The last two lines are the kernel table (JSON) and
 {"ok": true, "device": {...}}.
@@ -935,15 +962,20 @@ def phase5(device, sizes, zipf, want_zipf):
 
 # -- phase 6 -----------------------------------------------------------------
 
-def gateway_step(engine, queue, cols) -> None:
-    """The gateway's per-frame work (bench.py's _svc_gateway_step): encode
-    the ORDER frame, mark its ADDs in the pre-pool, publish to doOrder."""
+def encode_frame(cols) -> bytes:
+    """A decoded ORDER frame's columns back to its wire bytes."""
     from gome_tpu_torch.bus.colwire import encode_order_frame
 
-    payload = encode_order_frame(
+    return encode_order_frame(
         cols["n"], cols["action"], cols["side"], cols["kind"], cols["price"],
         cols["volume"], cols["symbols"], cols["symbol_idx"], cols["uuids"],
         cols["uuid_idx"], cols["oids"])
+
+
+def gateway_step(engine, queue, cols) -> None:
+    """The gateway's per-frame work (bench.py's _svc_gateway_step): encode
+    the ORDER frame, mark its ADDs in the pre-pool, publish to doOrder."""
+    payload = encode_frame(cols)
     engine.mark_frame(cols)
     queue.publish(payload)
 
@@ -1575,7 +1607,8 @@ def metric(text: str, sample: str) -> float:
 
 def send_flow(label, stub, pb, requests, tail) -> list[float]:
     """The flow's DoOrderBatch requests one at a time, each fully
-    accepted, then the unary tail; returns the round trips' seconds."""
+    accepted, then the unary tail (if any); returns the round trips'
+    seconds."""
     rtt = []
     for req in requests:
         t = time.perf_counter()
@@ -1587,6 +1620,8 @@ def send_flow(label, stub, pb, requests, tail) -> list[float]:
                              f"{resp.code} ({resp.message!r}), accepted "
                              f"{resp.accepted} of {len(req.orders)}, "
                              f"{len(resp.reject_index)} rejects")
+    if not tail:
+        return rtt
     sale, buy, cancel = (wire_request(pb, o) for o in tail)
     for name, resp in (
             ("DoOrder", stub.DoOrder(sale, timeout=60)),
@@ -1840,6 +1875,743 @@ def print_phase8(card: str, sizes, s_runs, p6_runs) -> None:
               f"commit")
 
 
+# -- phase 9 -----------------------------------------------------------------
+
+PERSIST_EVERY = 8  # the drill's snapshot cadence, in committed batches
+PERSIST_KEEP = 8
+SERVICE_PERSIST_EVERY = 16  # (c)'s cadence
+
+
+def kill_plan(cycle: int):
+    """scripts/chaos.py's kill rotation, with hits placed for a 25-frame
+    log at a cadence of 8 (depths alternate 2, 0, 2, 0: snapshots are
+    taken only at depth 0, where every commit is a consistent cut):
+    1. consumer.commit exit at hit 1 — inside the at-least-once window at
+       offset 0 (events published, nothing committed, no snapshot);
+    2. consumer.frame exit at hit 11 — after the first snapshot (cut 8);
+    3. filelog.offset torn at hit 5 — a torn commit sidecar in the replay
+       from that cut, frames in flight, no newer snapshot;
+    4. snapshot.rename torn at hit 2 — the second snapshot of the replay
+       from cut 8 (cut 24) published torn, then death: the next restore
+       skips it and uses cut 16."""
+    from gome_tpu_torch.utils.faults import FaultPlan, FaultSpec
+
+    spec = {
+        1: FaultSpec("consumer.commit", mode="exit", at=(1,)),
+        2: FaultSpec("consumer.frame", mode="exit", at=(PERSIST_EVERY + 3,)),
+        3: FaultSpec("filelog.offset", mode="torn", at=(5,)),
+        4: FaultSpec("snapshot.rename", mode="torn", at=(2,)),
+    }[cycle]
+    return FaultPlan(seed=9000 + cycle, faults=(spec,))
+
+
+def book_digest(engine) -> str:
+    """sha256 over the full exported engine state (every book leaf, padding
+    included, with dtype and shape; interners; geometry) and the sorted
+    pre-pool — scripts/chaos.py's digest."""
+    import hashlib
+
+    state = engine.batch.export_state()
+    h = hashlib.sha256()
+    for key in sorted(state):
+        val = state[key]
+        h.update(key.encode())
+        if key == "books":
+            for name in sorted(val):
+                arr = np.ascontiguousarray(val[name])
+                h.update(name.encode())
+                h.update(str(arr.dtype).encode())
+                h.update(repr(arr.shape).encode())
+                h.update(arr.tobytes())
+        else:
+            h.update(repr(val).encode())
+    h.update(repr(sorted(engine.pre_pool)).encode())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def timed_calls(places):
+    """Wrap each (object, attribute, part) for the block; yields a dict of
+    seconds per part, summed over the calls."""
+    spent = {part: 0.0 for _, _, part in places}
+    saved = [getattr(obj, name) for obj, name, _ in places]
+
+    def timed(fn, part):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[part] += time.perf_counter() - t0
+        return run
+
+    for (obj, name, part), fn in zip(places, saved):
+        setattr(obj, name, timed(fn, part))
+    try:
+        yield spent
+    finally:
+        for (obj, name, _), fn in zip(places, saved):
+            setattr(obj, name, fn)
+
+
+def drill_stack(args):
+    """The worker's engine (int32, cap and K from args, on args.device),
+    its file bus and a Persister at the drill's cadence, and an
+    OrderConsumer(batch_n=1, match_wire="frame") at args.depth."""
+    from gome_tpu_torch.bus import make_bus
+    from gome_tpu_torch.config import BusConfig, PersistConfig
+    from gome_tpu_torch.engine import BookConfig, MatchEngine
+    from gome_tpu_torch.persist import Persister
+    from gome_tpu_torch.service import OrderConsumer
+
+    bus = make_bus(BusConfig(backend="file", dir=args.bus_dir,
+                             match_wire="frame"))
+    engine = MatchEngine(BookConfig(cap=args.cap, max_fills=args.max_fills,
+                                    dtype=torch.int32),
+                         n_slots=args.symbols, max_t=32, device=args.device)
+    persist = Persister(PersistConfig(enabled=True, dir=args.snap_dir,
+                                      every_n_batches=PERSIST_EVERY,
+                                      keep=PERSIST_KEEP))
+    consumer = OrderConsumer(engine, bus, batch_n=1, batch_wait_s=0.0,
+                             on_batch=persist.on_batch, match_wire="frame",
+                             pipeline_depth=args.depth)
+    persist.attach(engine, bus, consumer=consumer)
+    return engine, bus, persist, consumer
+
+
+def persist_worker(argv) -> int:
+    """One consumer-process lifetime of phase 9 (a)'s crash drill, as
+    scripts/chaos.py's worker: boot, restore_latest(), THEN arm the
+    cycle's FaultPlan, consume the file queue to its end (or die with
+    EXIT_CODE where the plan says), drain a MatchFeed, digest the state.
+    The result JSON is rewritten as the run goes (after the restore, at
+    the catch-up to the pre-crash position, after each snapshot), so a
+    death keeps what was known. A run that completes also holds K1
+    against its plain version at the inputs its replay gave it, and with
+    --cost-dir times one snapshot and one restore (phase 9 (b))."""
+    import argparse
+
+    from gome_tpu_torch.ops.match_step import batch_step
+    from gome_tpu_torch.persist import snapshot as snapshot_mod
+    from gome_tpu_torch.service import MatchFeed
+    from gome_tpu_torch.utils.faults import FAULTS, FaultPlan
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--persist-worker", action="store_true")
+    for name in ("--bus-dir", "--snap-dir", "--out"):
+        ap.add_argument(name, required=True)
+    ap.add_argument("--plan")
+    ap.add_argument("--cost-dir")
+    ap.add_argument("--device", default="cuda")
+    for name, default in (("--depth", 0), ("--symbols", 10240),
+                          ("--cap", 256), ("--max-fills", 16)):
+        ap.add_argument(name, type=int, default=default)
+    args = ap.parse_args(argv)
+    entered = time.time()  # the parent takes the interpreter's start apart
+    t_boot = time.perf_counter()
+    engine, bus, persist, consumer = drill_stack(args)
+    oq = bus.order_queue
+    result = {"pre_committed": oq.committed(), "depth": args.depth,
+              "completed": False, "snapshots": [], "entered_unix": entered}
+
+    def write_result() -> None:
+        with open(args.out + ".tmp", "w") as f:
+            json.dump(result, f, sort_keys=True)
+        os.replace(args.out + ".tmp", args.out)
+
+    inner_snapshot = persist.snapshot
+
+    def snapshot():
+        t0 = time.perf_counter()
+        path = inner_snapshot()
+        result["snapshots"].append(dict(
+            name=os.path.basename(path), bytes=persist.last_snapshot_bytes,
+            seconds=time.perf_counter() - t0))
+        write_result()
+        return path
+
+    persist.snapshot = snapshot
+    t0 = time.perf_counter()
+    result["boot_s"] = t0 - t_boot
+    with timed_calls(((persist.store, "load_latest", "load"),
+                      (engine.batch, "import_state", "import_state"),
+                      (persist, "_reconstruct_marks", "mark_rebuild"))) \
+            as restore_split:
+        persist.restore_latest()
+    result["restore"] = dict(persist.probe(), split=restore_split,
+                             seconds=persist.last_recovery_seconds,
+                             cut=oq.committed())
+    if args.plan:  # armed AFTER the restore: hits count this run's replay
+        with open(args.plan) as f:
+            FAULTS.install(FaultPlan.from_json(f.read()))
+    caught_up = oq.committed() >= result["pre_committed"]
+    if caught_up:
+        result["recovery_s"] = persist.last_recovery_seconds
+    write_result()
+    batch_step.launches = 0
+    with keep_kernel_inputs() as kept:
+        while oq.committed() < oq.end_offset():
+            consumer.run_once()
+            if not caught_up and oq.committed() >= result["pre_committed"]:
+                caught_up = True
+                result["recovery_s"] = time.perf_counter() - t0
+                write_result()
+        launches = batch_step.launches
+        feed = MatchFeed(bus, log_events=False)
+        feed.drain()
+        worst, kept_line = check_kept_inputs("phase 9 (a) worker", kept)
+    engine.batch.verify_books()
+    result.update(
+        completed=True, seconds=time.perf_counter() - t0,
+        book_digest=book_digest(engine), feed=feed.seq_state(),
+        delivered=feed.events_seen, launches=launches,
+        device_calls=engine.stats.device_calls, cap=engine.config.cap,
+        kernel_worst=worst, kept_line=kept_line)
+    if args.cost_dir:
+        result["cost"] = snapshot_cost(args, engine, bus, snapshot_mod)
+    write_result()
+    return 0
+
+
+def snapshot_cost(args, engine, bus, snapshot_mod) -> dict:
+    """Phase 9 (b): one Persister.snapshot() of the drained engine into a
+    fresh directory, split into export_state (the device-to-host copy of
+    every leaf), np.savez and the fsyncs; one restore_latest() into a
+    fresh engine on the same device, split into the load, import_state
+    and the mark rebuild. The restored state must equal the source's leaf
+    by leaf and pass verify_books."""
+    from gome_tpu_torch.config import PersistConfig
+    from gome_tpu_torch.engine import BookConfig, MatchEngine
+    from gome_tpu_torch.persist import Persister
+
+    src = Persister(PersistConfig(enabled=True, dir=args.cost_dir,
+                                  every_n_batches=PERSIST_EVERY, keep=2))
+    src.attach(engine, bus)
+    with timed_calls(((engine.batch, "export_state", "export_state"),
+                      (snapshot_mod.np, "savez", "savez"),
+                      (snapshot_mod.os, "fsync", "fsync"))) as split:
+        t0 = time.perf_counter()
+        src.snapshot()
+        snap_s = time.perf_counter() - t0
+    fresh = MatchEngine(BookConfig(cap=args.cap, max_fills=args.max_fills,
+                                   dtype=torch.int32),
+                        n_slots=args.symbols, max_t=32, device=args.device)
+    dst = Persister(PersistConfig(enabled=True, dir=args.cost_dir,
+                                  every_n_batches=PERSIST_EVERY, keep=2))
+    dst.attach(fresh, bus)
+    with timed_calls(((dst.store, "load_latest", "load"),
+                      (fresh.batch, "import_state", "import_state"),
+                      (dst, "_reconstruct_marks", "mark_rebuild"))) \
+            as rsplit:
+        t0 = time.perf_counter()
+        if not dst.restore_latest():
+            raise SystemExit("phase 9 (b): restore_latest found no snapshot")
+        sync(fresh.batch.device)
+        restore_s = time.perf_counter() - t0
+    a, b = engine.batch.export_state(), fresh.batch.export_state()
+    for leaf, arr in a["books"].items():
+        if arr.dtype != b["books"][leaf].dtype or \
+                not np.array_equal(arr, b["books"][leaf]):
+            raise SystemExit(f"phase 9 (b): restored leaf {leaf} differs")
+    if {k: v for k, v in a.items() if k != "books"} != \
+            {k: v for k, v in b.items() if k != "books"}:
+        raise SystemExit("phase 9 (b): restored interners or geometry differ")
+    fresh.batch.verify_books()
+    return dict(snapshot_s=snap_s, split=split, restore_s=restore_s,
+                restore_split=rsplit, bytes=src.last_snapshot_bytes,
+                array_bytes=int(sum(v.nbytes for v in a["books"].values())),
+                cap=a["cap"], dtype=a["dtype"])
+
+
+def run_worker(work, name: str, bus_dir: str, depth: int, device: str,
+               geometry: dict, timeout_s: float, plan=None,
+               cost: bool = False) -> dict:
+    """Start one worker as a fresh interpreter (never a fork of this
+    CUDA process) and wait for it; returns its result JSON with its exit
+    code and wall seconds."""
+    out = os.path.join(work, f"{name}.json")
+    cmd = [sys.executable, os.path.abspath(__file__), "--persist-worker",
+           "--bus-dir", bus_dir, "--snap-dir", bus_dir + "-snaps",
+           "--out", out, "--depth", str(depth), "--device", device,
+           *(f"--{k.replace('_', '-')}={v}" for k, v in geometry.items())]
+    if plan is not None:
+        with open(out + ".plan", "w") as f:
+            f.write(plan.to_json())
+        cmd += ["--plan", out + ".plan"]
+    if cost:
+        cmd += ["--cost-dir", os.path.join(work, "cost-snaps")]
+    t0, launched = time.perf_counter(), time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=timeout_s,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    result = {}
+    if os.path.exists(out):
+        with open(out) as f:
+            result = json.load(f)
+        result["start_s"] = result["entered_unix"] - launched
+    result.update(rc=proc.returncode, wall_s=wall,
+                  stderr_tail=proc.stderr[-2000:])
+    return result
+
+
+def persist_drill(work: str, device: str = "cuda", n_orders: int = 200_000,
+                  n_symbols: int = 10240, frame_n: int = 8192,
+                  cycles: int = 4, timeout_s: float = 300,
+                  cap: int = 256, max_fills: int = 16,
+                  cost: bool = False) -> dict:
+    """Phase 9 (a): phase 3's Zipf flow as ORDER frames in two file
+    queues; an uninterrupted worker on one, the kill cycles (kill_plan)
+    and a final clean worker on the other, depths alternating 2 and 0.
+    Fails (SystemExit) unless every kill exits with EXIT_CODE, the final
+    run completes, its match-queue bodies equal the uninterrupted run's
+    byte for byte, its events equal the oracle's with seqs 0..n-1 once
+    each in the feed, its book digest equals the uninterrupted run's and
+    K1 equals its plain version at the final replay's inputs."""
+    from gome_tpu_torch.bus.colwire import decode_event_frame
+    from gome_tpu_torch.bus.filelog import FileQueue
+    from gome_tpu_torch.utils.faults import EXIT_CODE
+    from gome_tpu_torch.utils.streams import multi_symbol_stream
+
+    orders = multi_symbol_stream(n=n_orders, n_symbols=n_symbols,
+                                 zipf_a=1.2, cancel_prob=0.3, seed=7)
+    payloads = [encode_frame(frame_columns(orders[i:i + frame_n]))
+                for i in range(0, n_orders, frame_n)]
+    dirs = {}
+    for name in ("clean", "crash"):
+        dirs[name] = os.path.join(work, name)
+        q = FileQueue("doOrder", os.path.join(dirs[name], "doOrder"))
+        for p in payloads:
+            q.publish(p)
+        q.close()
+    geometry = dict(symbols=n_symbols, cap=cap, max_fills=max_fills)
+    clean = run_worker(work, "clean", dirs["clean"], 0, device, geometry,
+                       timeout_s)
+    runs = []
+    for c in range(1, cycles + 1):
+        runs.append(run_worker(work, f"cycle{c}", dirs["crash"],
+                               2 if c % 2 else 0, device, geometry,
+                               timeout_s, plan=kill_plan(c)))
+    final = run_worker(work, "final", dirs["crash"], 2 if cycles % 2 == 0
+                       else 0, device, geometry, timeout_s, cost=cost)
+    for label, r in (("uninterrupted", clean), ("final", final)):
+        if r["rc"] != 0 or not r.get("completed"):
+            raise SystemExit(f"phase 9 (a): the {label} worker exited "
+                             f"{r['rc']}: {r['stderr_tail']}")
+    if cycles > 1 and final["restore"]["last_restore"] != "restored":
+        raise SystemExit(f"phase 9 (a): the final worker did not restore a "
+                         f"snapshot: {final['restore']}")
+    bad = [(i + 1, r["rc"]) for i, r in enumerate(runs)
+           if r["rc"] != EXIT_CODE]
+    if bad:
+        raise SystemExit(f"phase 9 (a): kill cycles (cycle, exit code) "
+                         f"{bad}, expected {EXIT_CODE}: "
+                         f"{runs[bad[0][0] - 1]['stderr_tail']}")
+    queues = {}
+    for name, d in dirs.items():
+        q = FileQueue("matchOrder", os.path.join(d, "matchOrder"))
+        queues[name] = [m.body for m in q.read_from(0, q.end_offset())]
+        q.close()
+    events = [e for b in queues["crash"]
+              for e in decode_event_frame(b).to_results()]
+    want = oracle_events(orders)
+    seqs = [e.seq for e in events]
+    if queues["crash"] != queues["clean"]:
+        raise SystemExit(f"phase 9 (a): {len(queues['crash'])} recovered "
+                         f"match-queue bodies differ from the uninterrupted "
+                         f"run's {len(queues['clean'])}")
+    check_events("phase 9 (a) recovered stream", unstamped(events), want)
+    if seqs != list(range(len(want))) or final["feed"]["gaps"] or \
+            final["feed"]["dupes"] or final["delivered"] != len(want):
+        raise SystemExit(f"phase 9 (a): seq audit {final['feed']}, "
+                         f"{final['delivered']} delivered of {len(want)}")
+    if final["book_digest"] != clean["book_digest"]:
+        raise SystemExit(f"phase 9 (a): book digest {final['book_digest']} "
+                         f"after recovery, {clean['book_digest']} "
+                         "uninterrupted")
+    for label, r in (("uninterrupted", clean), ("final", final)):
+        if device == "cuda" and (r["launches"] <= 0
+                                 or r["launches"] != r["device_calls"]):
+            raise SystemExit(f"phase 9 (a): the {label} worker launched K1 "
+                             f"{r['launches']} times for {r['device_calls']}"
+                             " device calls")
+    return dict(cycles=runs, clean=clean, final=final, n_events=len(events),
+                n_frames=len(payloads))
+
+
+def durable_config(sizes, work: str, store_port: int):
+    """Phase 8 (c)'s service config (int64, json match wire, depth 0, ops
+    on) over a file bus, with a persist: section (every 16 batches) and a
+    redis: section naming the phase's FakeRedisServer."""
+    from gome_tpu_torch.config import BusConfig, Config, EngineConfig, \
+        GrpcConfig, OpsConfig, PersistConfig, StoreConfig
+    from gome_tpu_torch.service.app import OBS_FLAGS
+
+    return Config(
+        grpc=GrpcConfig(host="127.0.0.1", port=0),
+        bus=BusConfig(backend="file", dir=os.path.join(work, "bus")),
+        engine=EngineConfig(cap=256, max_fills=16, n_slots=sizes["symbols"],
+                            max_t=32, pipeline_depth=0),
+        persist=PersistConfig(enabled=True, dir=os.path.join(work, "snaps"),
+                              every_n_batches=SERVICE_PERSIST_EVERY, keep=2),
+        store=StoreConfig(enabled=True, host="127.0.0.1", port=store_port),
+        ops=OpsConfig(enabled=True, port=0, trace=False,
+                      **dict.fromkeys(OBS_FLAGS, False)))
+
+
+def durable_service(cfg):
+    """EngineService with a Persister from cfg.persist, as service.app's
+    main() builds it; every snapshot timed. Returns (service, the list of
+    (bytes, seconds) per snapshot)."""
+    from gome_tpu_torch.engine.prepool import RespPrePool
+    from gome_tpu_torch.persist import Persister
+    from gome_tpu_torch.service import EngineService
+
+    persist = Persister(cfg.persist)
+    svc = EngineService(cfg, persist=persist)
+    if not isinstance(svc.engine.pre_pool, RespPrePool):
+        raise SystemExit("phase 9 (c): the redis: section did not give a "
+                         f"RespPrePool ({type(svc.engine.pre_pool).__name__})")
+    if svc.engine.config.dtype != torch.int64 or \
+            svc.consumer.match_wire != "json":
+        raise SystemExit(f"phase 9 (c): service built with "
+                         f"{svc.engine.config}, {svc.consumer.match_wire}")
+    snaps, inner = [], persist.snapshot
+
+    def snapshot():
+        t0 = time.perf_counter()
+        path = inner()
+        snaps.append((persist.last_snapshot_bytes, time.perf_counter() - t0))
+        return path
+
+    persist.snapshot = snapshot
+    # The cadence counts consumer batches. The service's batch_n (32 x
+    # 10,240 / 8 messages) lets one batch take every request waiting, so
+    # the count would follow the host's timing; one request per batch
+    # makes "every 16" every 16 requests (65,536 orders), as in (a).
+    svc.consumer.batch_n = 1
+    return svc, snaps
+
+
+def durable_service_check(sizes, zipf, want, work: str):
+    """Phase 9 (c): the flow over gRPC into a durable service (a persist:
+    and a redis: section, the marks and consumes through RespPrePool),
+    stopped, then a second service over the same directories and store:
+    its start() restores and replays the tail, and its books must equal
+    the first's, /durability must report the restore, and the match
+    queue's documents must equal the oracle's events with seqs 0..n-1.
+    Returns the first service's engine (for (d)), the store, and the
+    numbers."""
+    import grpc
+
+    from gome_tpu_torch.api import order_pb2 as pb
+    from gome_tpu_torch.api.service import OrderStub
+    from gome_tpu_torch.bus import decode_match_result
+    from gome_tpu_torch.ops.match_step import batch_step
+    from gome_tpu_torch.persist.respserver import FakeRedisServer
+
+    label = "phase 9 (c)"
+    requests = wire_batches(pb, zipf)
+    store = FakeRedisServer()
+    store.start()
+    cfg = durable_config(sizes, work, store.port)
+    svc, snaps = durable_service(cfg)
+    spent = timed_parts(svc)
+    svc.start()
+    try:
+        for part in spent:
+            spent[part] = 0.0
+        batch_step.launches = 0
+        with grpc.insecure_channel(
+                f"127.0.0.1:{svc._server.bound_port}") as channel:
+            t0 = time.perf_counter()
+            rtt = send_flow(label, OrderStub(channel), pb, requests, [])
+            secs = wait_drained(label, svc, 300, len(want)) - t0
+        split = dict(spent)
+        launches = batch_step.launches
+        if launches <= 0 or launches != svc.engine.stats.device_calls:
+            raise SystemExit(f"{label}: {launches} K1 launches for "
+                             f"{svc.engine.stats.device_calls} device calls")
+    finally:
+        svc.stop()
+    if not snaps:
+        raise SystemExit(f"{label}: the first service took no snapshot")
+    first = svc.engine.batch.export_state()
+    marks = sorted(svc.engine.pre_pool)
+
+    svc2, snaps2 = durable_service(cfg)
+    with keep_kernel_inputs() as kept:
+        batch_step.launches = 0
+        t0 = time.perf_counter()
+        svc2.start()
+        try:
+            restored = svc2.persist.last_restore
+            wait_drained(label, svc2, 300, len(want))
+            replay_s = time.perf_counter() - t0
+            replay_launches = batch_step.launches
+            code, body = http_get(svc2.ops.port, "/durability")
+            durability = json.loads(body)
+        finally:
+            svc2.stop()
+        worst, kept_line = check_kept_inputs(f"{label} replay", kept)
+    persist = durability.get("persist") or {}
+    if code != 200 or restored != "restored" or \
+            persist.get("last_restore") != "restored":
+        raise SystemExit(f"{label}: /durability {code}, persist {persist}")
+    second = svc2.engine.batch.export_state()
+    for leaf, arr in first["books"].items():
+        if not np.array_equal(arr, second["books"][leaf]):
+            raise SystemExit(f"{label}: the restored service's books leaf "
+                             f"{leaf} differs from the first service's")
+    if {k: v for k, v in first.items() if k != "books"} != \
+            {k: v for k, v in second.items() if k != "books"}:
+        raise SystemExit(f"{label}: the restored service's interners or "
+                         "geometry differ from the first service's")
+    if sorted(svc2.engine.pre_pool) != marks:
+        raise SystemExit(f"{label}: marks in the store differ after restore")
+    mq = svc2.bus.match_queue
+    got = [decode_match_result(m.body)
+           for m in mq.read_from(0, mq.end_offset())]
+    check_events(label, unstamped(got), want)
+    if [e.seq for e in got] != list(range(len(want))):
+        raise SystemExit(f"{label}: seqs not 0..{len(want) - 1}")
+    svc2.engine.batch.verify_books()
+    return svc.engine, store, dict(
+        secs=secs, rtt=rtt, launches=launches, snaps=snaps, snaps2=snaps2,
+        split=split,
+        restore=persist, replay_s=replay_s, replay_launches=replay_launches,
+        events=len(want), requests=len(requests), cap=first["cap"],
+        worst=worst, kept_line=kept_line)
+
+
+def continuation(sizes, n: int):
+    """n more orders of the flow's generator (another seed), their oids
+    renamed so none meets an oid of the flow."""
+    from gome_tpu_torch.utils.streams import multi_symbol_stream
+
+    more = multi_symbol_stream(n=n, n_symbols=sizes["symbols"], zipf_a=1.2,
+                               cancel_prob=0.3, seed=17)
+    return [dataclasses.replace(o, oid="m" + o.oid) for o in more]
+
+
+def same_resting_orders(label, a, b) -> int:
+    """The resting orders of engines a and b equal per lane (matched by
+    symbol), side and slot: price, lots, and the oid and uid strings.
+    Returns the count."""
+    ba, bb = a.batch.lane_books(), b.batch.lane_books()
+    lanes_b = {s: i for i, s in enumerate(b.batch.symbols.to_list())}
+    total = 0
+    for ia, sym in enumerate(a.batch.symbols.to_list()):
+        ib = lanes_b.get(sym)
+        for side in (0, 1):
+            n = int(ba.count[ia, side])
+            if n and (ib is None or int(bb.count[ib, side]) != n):
+                raise SystemExit(f"{label}: {sym} side {side} holds {n} "
+                                 "orders before and not after")
+            for leaf, table in (("price", None), ("lots", None),
+                                ("oid", "oids"), ("uid", "uids")):
+                va = getattr(ba, leaf)[ia, side][:n]
+                vb = getattr(bb, leaf)[ib, side][:n] if n else va
+                if table is not None:
+                    ta, tb = getattr(a.batch, table), getattr(b.batch, table)
+                    va = [ta.lookup(int(x)) for x in va]
+                    vb = [tb.lookup(int(x)) for x in vb]
+                if list(map(str, va)) != list(map(str, vb)):
+                    raise SystemExit(f"{label}: {sym} side {side} {leaf} "
+                                     "differs")
+            total += n
+    if total != int(bb.count.sum()):
+        raise SystemExit(f"{label}: {int(bb.count.sum())} resting orders "
+                         f"after, {total} before")
+    return total
+
+
+def redis_migration_check(sizes, zipf, want_zipf, engine, store) -> dict:
+    """Phase 9 (d): the engine of (c) through book_redis_commands into a
+    DictRedis, then restore_from_redis into a fresh int64 engine on the
+    card: equal resting orders and marks (the next frame's, marked
+    before the export); then 10,000 more orders on both engines: events
+    equal to each other and to the oracle's continued from the flow."""
+    from gome_tpu_torch.engine import BookConfig, MatchEngine
+    from gome_tpu_torch.ops.match_step import batch_step
+    from gome_tpu_torch.persist import DictRedis, restore_from_redis
+    from gome_tpu_torch.persist.redis_schema import book_redis_commands
+
+    label = "phase 9 (d)"
+    more = continuation(sizes, 10_000)
+    frames = [frame_columns(more[i:i + sizes["batch"]])
+              for i in range(0, len(more), sizes["batch"])]
+    # The gateway has marked the first frame of the next orders: its marks
+    # are queued state that migrates with the books.
+    engine.mark_frame(frames[0])
+    t0 = time.perf_counter()
+    cmds = book_redis_commands(engine)
+    redis = DictRedis()
+    for cmd in cmds:
+        redis.execute_command(*cmd)
+    export_s = time.perf_counter() - t0
+    fresh = MatchEngine(BookConfig(cap=256, max_fills=16, dtype=torch.int64),
+                        n_slots=sizes["symbols"], max_t=32,
+                        device=engine.batch.device)
+    t0 = time.perf_counter()
+    n_resting = restore_from_redis(fresh, redis)
+    sync(fresh.batch.device)
+    import_s = time.perf_counter() - t0
+    if same_resting_orders(label, engine, fresh) != n_resting:
+        raise SystemExit(f"{label}: {n_resting} orders imported")
+    marks = sorted(fresh.pre_pool)
+    if not marks or marks != sorted(engine.pre_pool):
+        raise SystemExit(f"{label}: marks differ after the migration")
+    fresh.batch.verify_books()
+    calls = -engine.stats.device_calls - fresh.stats.device_calls
+    batch_step.launches = 0
+    got_src, _ = run_frames(engine, frames)
+    got_dst, _ = run_frames(fresh, frames)
+    launches = batch_step.launches
+    calls += engine.stats.device_calls + fresh.stats.device_calls
+    want = oracle_events(list(zipf) + more)[len(want_zipf):]
+    check_events(f"{label} source engine", got_src, want)
+    check_events(f"{label} migrated engine", got_dst, want)
+    if launches <= 0 or launches != calls:
+        raise SystemExit(f"{label}: {launches} K1 launches for {calls} "
+                         "device calls")
+    fresh.batch.verify_books()
+    store.stop()
+    return dict(commands=len(cmds), export_s=export_s, import_s=import_s,
+                resting=n_resting, marks=len(marks),
+                events=len(want), launches=launches, calls=calls)
+
+
+def phase9(card: str, device, sizes, zipf, want_zipf, p8c_secs: float):
+    """Durability on the card, each part printed as it ends: (a) the crash
+    drill with real process deaths, (b) one snapshot and one restore at
+    full width (in the drill's final worker), (c) the durable service over
+    gRPC restored by a second service, (d) the Redis migration of (c)'s
+    engine. p8c_secs: phase 8 (c)'s seconds in this run. Returns the
+    numbers."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="phase9a-") as work:
+        drill = persist_drill(work, device=device.type,
+                              n_orders=sizes["zipf_n"],
+                              n_symbols=sizes["symbols"],
+                              frame_n=sizes["batch"], cycles=4, cost=True)
+    print_drill(card, sizes, drill, time.perf_counter() - t_phase)
+    with tempfile.TemporaryDirectory(prefix="phase9c-") as work:
+        engine, store, svc = durable_service_check(sizes, zipf, want_zipf,
+                                                   work)
+    print_service(card, sizes, svc, p8c_secs)
+    migration = redis_migration_check(sizes, zipf, want_zipf, engine, store)
+    del engine
+    torch.cuda.empty_cache()
+    print(f"phase 9 (d): Redis migration of (c)'s engine: "
+          f"{migration['commands']} commands, {migration['resting']} resting "
+          f"orders and {migration['marks']} marks equal after "
+          f"restore_from_redis into a fresh int64 engine on the card; 10,000 "
+          f"more orders on both engines: {migration['events']} events each, "
+          f"equal to the oracle's continued from the flow "
+          f"({migration['launches']} K1 launches = device calls)")
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 9 [{card}]: (d) book_redis_commands + DictRedis "
+          f"{migration['export_s']:.3f} s for {migration['commands']:,} "
+          f"commands; restore_from_redis {migration['import_s']:.3f} s for "
+          f"{migration['resting']:,} resting orders; phase 9 in all "
+          f"{seconds:.1f} s")
+    return dict(drill=drill, svc=svc, migration=migration, seconds=seconds)
+
+
+def snapshots_text(snaps) -> str:
+    return ", ".join(f"{s['name']} {s['bytes']:,} B {s['seconds']:.3f} s"
+                     for s in snaps) or "none"
+
+
+def print_drill(card: str, sizes, drill, seconds: float) -> None:
+    final, clean = drill["final"], drill["clean"]
+    cost = final["cost"]
+    print(f"phase 9 (a): crash drill: {sizes['zipf_n']} orders over "
+          f"{sizes['symbols']} symbols as {drill['n_frames']} ORDER frames of "
+          f"{sizes['batch']} in a file queue; workers are fresh interpreters "
+          f"(OrderConsumer(batch_n=1, match_wire=frame), Persister every "
+          f"{PERSIST_EVERY} batches, keep {PERSIST_KEEP}, restore_latest "
+          f"before the FaultPlan is armed); {len(drill['cycles'])} kill "
+          f"cycles each exited {drill['cycles'][0]['rc']}; the final "
+          f"worker's {drill['n_events']} events: match-queue bodies "
+          f"byte-equal to the uninterrupted worker's, equal to the oracle, "
+          f"seqs 0..{drill['n_events'] - 1} once each in the feed (gaps "
+          f"{final['feed']['gaps']}, dupes {final['feed']['dupes']})"
+          f"; book digest equal ({final['book_digest'][:16]}, storage cap "
+          f"{final['cap']}); K1 launches = device calls in the uninterrupted "
+          f"({clean['launches']}) and final ({final['launches']}) workers")
+    print(final["kept_line"])
+    print(f"phase 9 (b): restored books equal the source's leaf by leaf "
+          f"({cost['dtype']}, cap {cost['cap']}), verify_books passed")
+    for i, c in enumerate([*drill["cycles"], final]):
+        tag = f"cycle {i + 1}" if i < len(drill["cycles"]) else "final"
+        rs = c["restore"]
+        print(f"phase 9 [{card}]: (a) {tag} depth {c['depth']}: exit "
+              f"{c['rc']} after {c['wall_s']:.2f} s (interpreter and torch "
+              f"import {c['start_s']:.2f} s, engine build and CUDA context "
+              f"{c['boot_s']:.2f} s); restore {rs['seconds']:.3f} s ({rs['last_restore']}, "
+              f"cut {rs['cut']}, load {rs['split']['load']:.3f} + "
+              f"import_state {rs['split']['import_state']:.3f} + mark "
+              f"rebuild {rs['split']['mark_rebuild']:.3f} s, "
+              f"wal_replay_frames {rs['wal_replay_frames']}); recovery "
+              + (f"{c['recovery_s']:.3f} s" if "recovery_s" in c else
+                 "not reached")
+              + f" (to the pre-crash offset {c['pre_committed']}); "
+              f"snapshots {snapshots_text(c['snapshots'])}")
+    print(f"phase 9 [{card}]: (a) uninterrupted worker: {clean['seconds']:.3f}"
+          f" s after its restore, snapshots {snapshots_text(clean['snapshots'])}"
+          f"; (a) in all {seconds:.1f} s")
+    sp, rsp = cost["split"], cost["restore_split"]
+    print(f"phase 9 [{card}]: (b) snapshot of {cost['array_bytes']:,} B of "
+          f"{cost['dtype']} books at cap {cost['cap']} ({cost['bytes']:,} B "
+          f"on disk): {cost['snapshot_s']:.3f} s = export_state (device to "
+          f"host) {sp['export_state']:.3f} + np.savez {sp['savez']:.3f} + "
+          f"fsync {sp['fsync']:.3f} + other "
+          f"{cost['snapshot_s'] - sum(sp.values()):.3f} s; restore "
+          f"{cost['restore_s']:.3f} s = load {rsp['load']:.3f} + "
+          f"import_state (host to device) {rsp['import_state']:.3f} + mark "
+          f"rebuild {rsp['mark_rebuild']:.3f} + other "
+          f"{cost['restore_s'] - sum(rsp.values()):.3f} s")
+
+
+def print_service(card: str, sizes, svc, p8c_secs: float) -> None:
+    print(f"phase 9 (c): EngineService with persist: (every "
+          f"{SERVICE_PERSIST_EVERY} batches) and redis: (FakeRedisServer, "
+          f"RespPrePool) over a file bus, int64, json match wire, depth 0, "
+          f"one request per consumer batch: {sizes['zipf_n']} orders as "
+          f"{svc['requests']} DoOrderBatch requests; a second EngineService "
+          f"over the same directories and store restored "
+          f"({svc['restore']['last_restore']}, "
+          f"{svc['restore']['wal_replay_frames']} order-log messages rewound)"
+          f" and replayed the tail: books equal the first's on every leaf "
+          f"(cap {svc['cap']}), marks equal, the match queue's "
+          f"{svc['events']} documents equal the oracle's, seqs 0.."
+          f"{svc['events'] - 1}; K1 launches = device calls "
+          f"({svc['launches']})")
+    print(svc["kept_line"])
+    rate = sizes["zipf_n"] / svc["secs"]
+    p8 = sizes["zipf_n"] / p8c_secs
+    rtt50, rtt99 = np.percentile(np.array(svc["rtt"]) * 1e3, [50, 99])
+    print(f"phase 9 [{card}]: (c) durable service {rate:,.0f} orders/s over "
+          f"the wire ({svc['secs']:.3f} s to the feed's last commit); phase "
+          f"8 (c) in this run {p8:,.0f} orders/s (ratio {rate / p8:.3f}); "
+          f"DoOrderBatch p50 {rtt50:.2f} ms, p99 {rtt99:.2f} ms; snapshots "
+          + ", ".join(f"{b:,} B {t:.3f} s" for b, t in svc["snaps"])
+          + f"; second service: restore {svc['restore']['recovery_s']} s, "
+          f"start to replayed {svc['replay_s']:.3f} s, "
+          f"{svc['replay_launches']} K1 launches")
+    sp = svc["split"]
+    print(f"phase 9 [{card}]: (c) split, seconds summed over threads: "
+          f"gateway admission {sp['gateway']:.4f}, consumer "
+          f"{sp['consumer'] - sp['consumer_wait']:.4f} (+ "
+          f"{sp['consumer_wait']:.4f} polling; of it event publish "
+          f"{sp['publish']:.4f}, snapshots "
+          f"{sum(t for _, t in svc['snaps']):.4f}), feed "
+          f"{sp['feed'] - sp['feed_wait']:.4f} (+ {sp['feed_wait']:.4f} "
+          f"polling)")
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 def time_ms(fn, runs: int, warmup: int = 3) -> float:
@@ -1929,6 +2701,8 @@ def load_kernel(card: str) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--persist-worker"]:
+        return persist_worker(sys.argv[1:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
               "a CUDA card", file=sys.stderr)
@@ -2033,13 +2807,21 @@ def main() -> int:
     for line in s_lines:
         print(line)
     print_phase8(card, sizes, s_runs, runs)
+    p9 = phase9(card, device, sizes, zipf, want_zipf, s_runs["c"]["secs"])
     h_launches = ab_runs[0][2]["launches"]
     row = dict(name="match_step", **KERNEL_ROWS["match_step"],
                launches=launches, frame_path_launches=f_launches,
                consumer_path_launches=c_launches,
                host_layer_path_launches=h_launches,
                service_path_launches=s_runs["a"]["launches"],
-               max_abs_err=max(worst, f_worst, c_worst, s_worst),
+               durability_path_launches=dict(
+                   crash_drill_final_worker=p9["drill"]["final"]["launches"],
+                   durable_service=p9["svc"]["launches"],
+                   restored_service_replay=p9["svc"]["replay_launches"],
+                   redis_migration=p9["migration"]["launches"]),
+               max_abs_err=max(worst, f_worst, c_worst, s_worst,
+                               p9["drill"]["final"]["kernel_worst"],
+                               p9["svc"]["worst"]),
                ms=results["a"]["ms"],
                device_ms=results["a"]["device_ms"], plain_ms=results["a"]["plain_ms"],
                bound_ms=results["a"]["bound_ms"],

@@ -24,6 +24,9 @@ Layout:
                             match-event feed, health, the ops endpoint and
                             EngineService (python -m
                             gome_tpu_torch.service.app)
+  gome_tpu_torch.persist  — snapshots and crash replay, the Redis key
+                            schema both ways, the RESP client and its
+                            stand-in server
   gome_tpu_torch.clients  — the gRPC load and cancel clients
   gome_tpu_torch.utils    — synthetic order streams, logging, metrics,
                             fault injection, tracing (torch.profiler)

@@ -51,9 +51,9 @@ class StoreConfig:
     """conf.go:11-15 (Cache = the Redis durability tier). In this build
     Redis is optional (snapshots can target the local filesystem instead);
     `enabled` gates it so environments without a Redis server still run
-    (the reference hard-requires Redis because Redis IS its book). The
-    port has no RESP store yet: EngineService refuses an enabled section
-    (ROADMAP Queue 1 item 4)."""
+    (the reference hard-requires Redis because Redis IS its book). An
+    enabled section puts the pre-pool markers in the store (RespPrePool);
+    an unusable store keeps the in-process pool, with a warning."""
 
     host: str = "127.0.0.1"
     port: int = 6379
@@ -167,8 +167,8 @@ class PersistConfig:
     """Snapshot/recovery cadence (new — the reference needs none because
     every Redis write is instantly durable, SURVEY §5.4). `enabled` defaults
     off; a `persist:` section in config.yaml switches it on (like `redis:`
-    implies store.enabled). The port has no persist/ yet: EngineService
-    refuses an enabled section (ROADMAP Queue 1 item 4)."""
+    implies store.enabled); service.app.main then builds a
+    persist.Persister from it."""
 
     enabled: bool = False
     dir: str = "snapshots"

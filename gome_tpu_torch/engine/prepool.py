@@ -1,17 +1,20 @@
 """Pre-pool marker store — the shared state between gateway and consumer.
 
-The port of ``gome_tpu/engine/prepool.py`` (its in-process pool). The
-gateway marks an ADD at accept (HSET S:comparison S:U:O 1 in the
-reference), the consumer consumes the mark when the ADD reaches the book,
-and a cancel clears it first — that is what makes the cancel-before-consume
-race drop the queued ADD.
+The port of ``gome_tpu/engine/prepool.py``. The gateway marks an ADD at
+accept (HSET S:comparison S:U:O 1 in the reference), the consumer consumes
+the mark when the ADD reaches the book, and a cancel clears it first — that
+is what makes the cancel-before-consume race drop the queued ADD.
 
-Two implementations of one contract:
+Three implementations of one contract:
 
   LocalPrePool  — a set subclass; the Python branch.
   NativePrePool — the marker set in C++ (native/csrc/hostops.cc): admission
       of a whole ORDER frame is one C call (consume_frame). The engine's
       pool wherever the native branches run (make_prepool).
+  RespPrePool   — the markers live in a Redis-compatible server via the
+      dependency-free RESP client (persist.resp), under the reference's
+      EXACT schema, so split gateway/consumer processes share marks the way
+      the reference's three processes do (a `redis:` config section).
 
 The contract the engine uses (beyond set-ish add/discard/contains/iter):
 
@@ -84,6 +87,149 @@ def consume_batch_of(pool, keys: list[Key]) -> list[bool]:
     if consume is not None:
         return consume(keys)
     return LocalPrePool.consume_batch(pool, keys)  # set-protocol fallback
+
+
+class RespPrePool:
+    """Markers in a Redis-compatible server, reference schema:
+    hash `S:comparison`, field `S:U:O`, value "1" (nodepool.go:14-28).
+
+    Implements enough of the set protocol for the engine's rollback
+    (`pool |= consumed`), the persistence layer's snapshot (iteration) and
+    restore (clear/update), plus the batched consume the admission hot
+    path uses.
+
+    With a persist.resp.SupervisedRespClient, a store restart mid-traffic
+    reconnects + retries under the hood: mark_frame/add/__ior__ (HSET) are
+    idempotent under retry; consume_batch (HDEL) inherits the lost-reply
+    ambiguity window every Redis deployment has (documented on the
+    client), which maps onto the consumer's at-least-once replay."""
+
+    def __init__(self, client):
+        self.client = client  # resp.RespClient / SupervisedRespClient / redis-py
+
+    def resilience(self) -> dict | None:
+        """The supervised client's state snapshot (breaker, reconnects,
+        time degraded) for health surfaces; None for a raw client."""
+        sup = getattr(self.client, "supervisor", None)
+        return sup().snapshot() if sup is not None else None
+
+    # -- schema ------------------------------------------------------------
+    @staticmethod
+    def _loc(key: Key) -> tuple[str, str]:
+        symbol, uuid, oid = key
+        return f"{symbol}:comparison", f"{symbol}:{uuid}:{oid}"
+
+    # -- set protocol ------------------------------------------------------
+    def add(self, key: Key) -> None:
+        k, f = self._loc(key)
+        self.client.execute_command("HSET", k, f, "1")
+
+    def discard(self, key: Key) -> None:
+        k, f = self._loc(key)
+        self.client.execute_command("HDEL", k, f)
+
+    def __contains__(self, key: Key) -> bool:
+        k, f = self._loc(key)
+        return self.client.execute_command("HEXISTS", k, f) == 1
+
+    def __ior__(self, keys):
+        cmds = []
+        for key in keys:
+            k, f = self._loc(key)
+            cmds.append(("HSET", k, f, "1"))
+        if cmds:
+            self._check(self.client.pipeline(cmds))
+        return self
+
+    def update(self, keys) -> None:
+        self.__ior__(keys)
+
+    def __iter__(self):
+        for hkey in self.client.keys("*:comparison"):
+            symbol = hkey[: -len(":comparison")]
+            for field in self.client.hgetall(hkey):
+                rest = field[len(symbol) + 1 :]  # strip "S:"
+                uuid, _, oid = rest.partition(":")
+                yield (symbol, uuid, oid)
+
+    def __len__(self) -> int:
+        return sum(
+            self.client.execute_command("HLEN", k)
+            for k in self.client.keys("*:comparison")
+        )
+
+    def clear(self) -> None:
+        keys = self.client.keys("*:comparison")
+        if keys:
+            self.client.execute_command("DEL", *keys)
+
+    # -- the admission hot path -------------------------------------------
+    def consume_batch(self, keys: list[Key]) -> list[bool]:
+        cmds = []
+        for key in keys:
+            k, f = self._loc(key)
+            cmds.append(("HDEL", k, f))
+        replies = self._check(self.client.pipeline(cmds))
+        return [r == 1 for r in replies]
+
+    def mark_frame(self, cols: dict) -> None:
+        """Gateway-side bulk marking of a decoded/built ORDER frame's ADDs
+        (main.go:42-45): one pipelined round trip, fields grouped into one
+        variadic HSET per symbol hash key (same keyspace effect as
+        per-mark HSETs; ~10x fewer commands for the server to parse)."""
+        syms, uuids = cols["symbols"], cols["uuids"]
+        sidx = cols["symbol_idx"].tolist()
+        uidx = cols["uuid_idx"].tolist()
+        oids = cols["oids"].tolist()
+        ADD = int(Action.ADD)
+        by_key: dict[str, list[str]] = {}
+        for a, k, u, o in zip(cols["action"].tolist(), sidx, uidx, oids):
+            if a != ADD:
+                continue
+            sym = syms[k]
+            fv = by_key.setdefault(f"{sym}:comparison", [])
+            fv.append(f"{sym}:{uuids[u]}:{o.decode()}")
+            fv.append("1")
+        if by_key:
+            self._check(
+                self.client.pipeline(
+                    [("HSET", k, *fv) for k, fv in by_key.items()]
+                )
+            )
+
+    def unmark_frame(self, cols: dict) -> None:
+        """Undo mark_frame for the frame's ADD rows (columnar emit failed
+        after marking): one pipelined round trip of HDELs — the bulk
+        mirror of the gateway's per-order unmark."""
+        syms, uuids = cols["symbols"], cols["uuids"]
+        sidx = cols["symbol_idx"].tolist()
+        uidx = cols["uuid_idx"].tolist()
+        oids = cols["oids"].tolist()
+        ADD = int(Action.ADD)
+        cmds = []
+        for a, k, u, o in zip(cols["action"].tolist(), sidx, uidx, oids):
+            if a != ADD:
+                continue
+            sym = syms[k]
+            cmds.append((
+                "HDEL", f"{sym}:comparison",
+                f"{sym}:{uuids[u]}:{o.decode()}",
+            ))
+        if cmds:
+            self._check(self.client.pipeline(cmds))
+
+    @staticmethod
+    def _check(replies: list) -> list:
+        """An error reply must RAISE, never read as 'mark absent': treating
+        a store error (-LOADING, -OOM, -WRONGTYPE) as a missing mark would
+        silently drop acknowledged ADDs; raising lets the at-least-once
+        consumer replay the batch once the store recovers. Likewise a
+        failed mark RESTORE (__ior__) must not pass silently — the replay
+        depends on those marks being back."""
+        for r in replies:
+            if isinstance(r, Exception):
+                raise r
+        return replies
 
 
 class NativeConsumed:
@@ -184,7 +330,7 @@ class NativePrePool:
         self._lib.gp_clear(self._h)
 
     def __eq__(self, other):
-        if isinstance(other, (set, frozenset, NativePrePool)):
+        if isinstance(other, (set, frozenset, NativePrePool, RespPrePool)):
             return set(self) == set(other)
         return NotImplemented
 
@@ -292,3 +438,15 @@ def make_prepool():
     from . import nativehost
 
     return NativePrePool() if nativehost.available() else LocalPrePool()
+
+
+def make_marker(pool):
+    """Gateway-side mark callable for a pool NOT attached to an engine —
+    the split-process gateway's equivalent of MatchEngine.mark
+    (main.go:42-45: ADDs mark, cancels never do)."""
+
+    def mark(order) -> None:
+        if order.action is Action.ADD:
+            pool.add((order.symbol, order.uuid, order.oid))
+
+    return mark

@@ -1,0 +1,282 @@
+"""Restore engine state FROM the reference's Redis schema — the inverse of
+redis_schema.py, and the live-migration path: a running gome deployment's
+entire order book (SURVEY §2.1 — Redis IS its book) imports into the
+engine, which then continues matching the same symbols with exact
+semantics.
+
+Schema read (all keys per SURVEY §2.1 / nodepool.go / nodelink.go):
+
+  S:BUY / S:SALE   zset   members = scaled price strings -> the levels
+  S:link:P         hash   "f" head node name, "l" tail, one field per
+                          resting order holding the JSON node with FIFO
+                          NextNode pointers — walked head-to-tail, which
+                          also sidesteps the reference's leaked-entry quirk
+                          (DeleteLinkNode leaves unreachable JSON behind,
+                          SURVEY §2.3.1: unreachable entries are simply
+                          never visited)
+  S:comparison     hash   pre-pool marks -> MatchEngine.pre_pool
+  S:depth          hash   aggregate level volumes — used as a consistency
+                          check (warn on mismatch, trust the FIFO lists)
+
+The store argument needs three read primitives (`keys`, `zrange`,
+`hgetall`) — satisfied by redis-py and by DictRedis, the in-memory store
+that also accepts redis_schema's command stream (export -> import
+round-trips are tested offline, no server needed).
+
+The port of ``gome_tpu/persist/redis_restore.py``; the restored books go
+to the engine's device through import_state.
+"""
+
+from __future__ import annotations
+
+import fnmatch
+import json
+from decimal import Decimal
+
+import numpy as np
+
+from ..engine.book import BUY
+
+
+class DictRedis:
+    """Minimal in-memory Redis: enough write commands for
+    redis_schema.book_redis_commands and the three read primitives the
+    restore needs. Doubles as an offline snapshot target."""
+
+    def __init__(self):
+        self.zsets: dict[str, dict[str, float]] = {}
+        self.hashes: dict[str, dict[str, str]] = {}
+
+    # -- write side (redis_schema's command stream) ------------------------
+    def execute_command(self, *args):
+        cmd = args[0].upper()
+        if cmd == "ZADD":
+            _, key, score, member = args
+            self.zsets.setdefault(key, {})[member] = float(score)
+        elif cmd == "HSET":
+            _, key, field, value = args
+            self.hashes.setdefault(key, {})[field] = value
+        elif cmd == "FLUSHDB":
+            self.zsets.clear()
+            self.hashes.clear()
+        else:
+            raise ValueError(f"DictRedis does not support {cmd}")
+
+    # -- read side (the restore's primitives) ------------------------------
+    def keys(self, pattern: str = "*") -> list[str]:
+        all_keys = list(self.zsets) + list(self.hashes)
+        return [k for k in all_keys if fnmatch.fnmatch(k, pattern)]
+
+    def zrange(self, key: str, start: int = 0, end: int = -1) -> list[str]:
+        members = sorted(
+            self.zsets.get(key, {}).items(), key=lambda kv: kv[1]
+        )
+        out = [m for m, _ in members]
+        end = len(out) if end == -1 else end + 1
+        return out[start:end]
+
+    def hgetall(self, key: str) -> dict[str, str]:
+        return dict(self.hashes.get(key, {}))
+
+
+def _as_str(v) -> str:
+    return v.decode() if isinstance(v, bytes) else str(v)
+
+
+def _ticks(v) -> int:
+    """Reference numerics round-trip through floats/strings (SURVEY §2.2);
+    Decimal parsing keeps in-range integers exact where float() wouldn't."""
+    return int(Decimal(_as_str(v)))
+
+
+def _walk_level(link: dict[str, str]) -> list[dict]:
+    """S:link:P hash -> resting nodes head-to-tail (FIFO)."""
+    link = {_as_str(k): _as_str(v) for k, v in link.items()}
+    head = link.get("f", "")
+    out = []
+    seen = set()
+    name = head
+    while name and name in link and name not in seen:
+        seen.add(name)
+        node = json.loads(link[name])
+        out.append(node)
+        name = node.get("NextNode", "") or ""
+    return out
+
+
+def discover_symbols(store) -> list[str]:
+    """Symbols present in the store (their BUY/SALE zsets or pre-pool)."""
+    syms = set()
+    for key in store.keys("*"):
+        key = _as_str(key)
+        for suffix in (":BUY", ":SALE", ":comparison"):
+            if key.endswith(suffix):
+                syms.add(key[: -len(suffix)])
+    return sorted(syms)
+
+
+def read_book(store, symbol: str):
+    """-> (per-side lists of node dicts in priority order, pre-pool keys).
+    Each node: {uuid, oid, price(int ticks), volume(int lots)}."""
+    depth_hash = {
+        _as_str(k): v for k, v in store.hgetall(f"{symbol}:depth").items()
+    }
+    sides = []
+    for side, zkey_sfx in ((0, "BUY"), (1, "SALE")):
+        members = store.zrange(f"{symbol}:{zkey_sfx}", 0, -1)
+        prices = sorted(
+            (_ticks(m) for m in members), reverse=(side == BUY)
+        )
+        slots = []
+        for p in prices:
+            link = store.hgetall(f"{symbol}:link:{p}")
+            nodes = _walk_level(link)
+            level_volume = 0
+            for node in nodes:
+                volume = _ticks(node["Volume"])
+                level_volume += volume
+                slots.append(
+                    dict(
+                        uuid=str(node["Uuid"]),
+                        oid=str(node["Oid"]),
+                        price=p,
+                        volume=volume,
+                    )
+                )
+            depth = depth_hash.get(f"{symbol}:depth:{p}")
+            if depth is not None and _ticks(depth) != level_volume:
+                import warnings
+
+                warnings.warn(
+                    f"{symbol} level {p}: depth hash says {_as_str(depth)} "
+                    f"but FIFO list sums to {level_volume}; trusting the "
+                    "list (the reference's own HIncrByFloat residue quirk, "
+                    "SURVEY §2.3)",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
+        sides.append(slots)
+    marks = []
+    for field in store.hgetall(f"{symbol}:comparison"):
+        parts = _as_str(field).split(":")
+        if len(parts) >= 3:
+            marks.append((parts[0], parts[1], ":".join(parts[2:])))
+    return sides, marks
+
+
+def restore_from_redis(engine, store, symbols: list[str] | None = None) -> int:
+    """Populate a MatchEngine from a store holding the reference schema.
+    Replaces the engine's books and pre-pool; returns the number of resting
+    orders imported. The engine keeps its configured dtype/max_fills/max_t;
+    cap and lane count grow to fit the imported book."""
+    from ..engine.batch import _next_pow2
+    from ..engine.book import numpy_dtype
+
+    if symbols is None:
+        symbols = discover_symbols(store)
+    books = {}
+    all_marks = set()
+    max_side = 0
+    for symbol in symbols:
+        sides, marks = read_book(store, symbol)
+        books[symbol] = sides
+        all_marks.update(marks)
+        max_side = max(max_side, len(sides[0]), len(sides[1]))
+
+    batch = engine.batch
+    cap = max(batch.config.cap, _next_pow2(max(max_side, 1)))
+    n_slots = max(batch.n_slots, _next_pow2(max(len(symbols), 1)))
+    # The reference also rounds n_slots up to a multiple of its mesh size
+    # here; the port has no multi-card mesh yet (ROADMAP Queue 1 item 6).
+
+    dtype = numpy_dtype(batch.config.dtype)
+    rebase = dtype.itemsize <= 4
+    symbols_list = list(symbols)
+    oid_strings: list[str] = []
+    uid_strings: list[str] = []
+    oid_ix: dict[str, int] = {}
+    uid_ix: dict[str, int] = {}
+
+    def intern(table, ix, s):
+        i = ix.get(s)
+        if i is None:
+            i = len(table) + 1  # interner ids start at 1
+            ix[s] = i
+            table.append(s)
+        return i
+
+    shape = (n_slots, 2, cap)
+    price = np.zeros(shape, np.int64)
+    lots = np.zeros(shape, np.int64)
+    seq = np.zeros(shape, np.int32)
+    oid = np.zeros(shape, np.int64)
+    uid = np.zeros(shape, np.int64)
+    count = np.zeros((n_slots, 2), np.int32)
+    next_seq = np.zeros(n_slots, np.int32)
+    price_base = np.zeros(n_slots, np.int64)
+    base_set = np.zeros(n_slots, bool)
+    env_lo = np.zeros(n_slots, np.int64)
+    env_hi = np.zeros(n_slots, np.int64)
+
+    total = 0
+    for lane, symbol in enumerate(symbols_list):
+        sides = books[symbol]
+        lane_prices = [s["price"] for side in sides for s in side]
+        if rebase and lane_prices:
+            lo, hi = min(lane_prices), max(lane_prices)
+            base = (lo + hi) // 2
+            if max(hi - base, base - lo) > (1 << 31) - 2:
+                raise ValueError(
+                    f"{symbol}: resting price range [{lo}, {hi}] cannot fit "
+                    "an int32 window; restore into an int64 engine"
+                )
+            price_base[lane] = base
+            base_set[lane] = True
+            env_lo[lane], env_hi[lane] = lo, hi
+        stamp = 0
+        for side in (0, 1):
+            for slot, node in enumerate(sides[side]):
+                stamp += 1
+                price[lane, side, slot] = node["price"] - price_base[lane]
+                lots[lane, side, slot] = node["volume"]
+                seq[lane, side, slot] = stamp
+                oid[lane, side, slot] = intern(
+                    oid_strings, oid_ix, node["oid"]
+                )
+                uid[lane, side, slot] = intern(
+                    uid_strings, uid_ix, node["uuid"]
+                )
+                total += 1
+            count[lane, side] = len(sides[side])
+        next_seq[lane] = stamp + 1
+
+    val_dtype = dtype.name
+    state = {
+        "books": {
+            "price": price.astype(dtype),
+            "lots": lots.astype(dtype),
+            "seq": seq,
+            "oid": oid.astype(dtype),
+            "uid": uid.astype(dtype),
+            "count": count,
+            "next_seq": next_seq,
+        },
+        "symbols": symbols_list,
+        "oids": oid_strings,
+        "uids": uid_strings,
+        "cap": cap,
+        "max_fills": batch.config.max_fills,
+        "dtype": val_dtype,
+        "n_slots": n_slots,
+        "max_t": batch.max_t,
+        "price_base": price_base.tolist(),
+        "base_set": base_set.astype(int).tolist(),
+        "env_lo": env_lo.tolist(),
+        "env_hi": env_hi.tolist(),
+    }
+    batch.import_state(state)
+    # In place (the pool object may be shared with a gateway); plain set
+    # assignment would also silently bypass a remote marker store.
+    engine.pre_pool.clear()
+    engine.pre_pool.update(all_marks)
+    return total

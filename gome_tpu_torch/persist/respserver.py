@@ -1,0 +1,434 @@
+"""In-process fake Redis server speaking RESP2 — the test/bench double for
+a real Redis, as the reference's bus/fakebroker.py is for RabbitMQ.
+
+Implements the command subset the reference engine sends against its book
+schema (SURVEY §2.1; gomengine/nodepool.go, nodelink.go, redis.go) plus
+what redis_schema/redis_restore and the RESP pre-pool need: hash ops
+(HSET/HDEL/HEXISTS/HGET/HGETALL/HINCRBYFLOAT), zset ops
+(ZADD/ZREM/ZRANGE/ZREVRANGE/ZRANGEBYSCORE/ZREVRANGEBYSCORE), KEYS, DEL,
+EXISTS, PING/ECHO/SELECT/AUTH/FLUSHDB. Pipelined commands are handled
+naturally (the parser drains the connection buffer command by command).
+
+Runnable standalone for multi-process topologies:
+
+    python -m gome_tpu_torch.persist.respserver --port 6379
+
+(prints "READY <port>" on stdout once listening; port 0 picks a free one.)
+
+The port of ``gome_tpu/persist/respserver.py``, speaking the same bytes.
+One repair: each accept thread is bound to its own listener and stop
+event, and stop() wakes and joins it, so restart() rebinds its port
+however late the old accept thread is scheduled (the reference's thread
+re-read the listener from the server and could end up blocked on the new
+one, holding the port through the next restart).
+"""
+
+from __future__ import annotations
+
+import fnmatch
+import socket
+import threading
+
+from .resp import _Reader
+
+
+class _Store:
+    """The keyspace: hashes + zsets (the only types the schema uses),
+    str -> str internally, one lock (Redis itself is single-threaded)."""
+
+    def __init__(self):
+        self.hashes: dict[str, dict[str, str]] = {}
+        self.zsets: dict[str, dict[str, float]] = {}
+        self.lock = threading.Lock()
+
+    def keys(self):
+        return list(self.hashes) + list(self.zsets)
+
+
+def _s(v) -> str:
+    return v.decode() if isinstance(v, (bytes, bytearray)) else str(v)
+
+
+def _score(v) -> float:
+    s = _s(v)
+    if s in ("-inf", "+inf", "inf"):
+        return float(s)
+    if s.startswith("("):  # exclusive bound: approximate (schema never uses)
+        return float(s[1:])
+    return float(s)
+
+
+def _fmt_float(x: float) -> str:
+    """Redis renders integral floats without the trailing .0"""
+    i = int(x)
+    return str(i) if x == i else repr(x)
+
+
+class FakeRedisServer:
+    """Threaded RESP2 server over an in-memory store. start() returns the
+    bound port; stop() closes the listener and every live connection."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0):
+        # single-writer (lifecycle state below): the start()/stop()/
+        # restart() caller — the test or chaos drill driving the bounce;
+        # the accept/client threads only append via method calls, which
+        # the restart drill joins behind stop().
+        self.host = host
+        self.port = port  # single-writer: start()/restart() caller
+        self.store = _Store()  # single-writer: restart() caller (kept keyspace)
+        self._listener: socket.socket | None = None  # single-writer: start()/stop() caller
+        self._threads: list[threading.Thread] = []  # single-writer: start()/restart() caller
+        self._conns: list[socket.socket] = []  # single-writer: restart() caller
+        self._stop = threading.Event()  # single-writer: restart() caller (rebound)
+        self._accept_thread: threading.Thread | None = None  # single-writer: start()/stop() caller
+
+    # -- lifecycle ---------------------------------------------------------
+    def start(self) -> int:
+        listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        listener.bind((self.host, self.port))
+        listener.listen(64)
+        self._listener = listener
+        self.port = listener.getsockname()[1]
+        # The accept thread serves THIS listener until THIS stop event is
+        # set: restart() rebinds both, and a thread that read them from
+        # self after a restart would block in accept() on the new
+        # listener, where the next stop() could not wake it — its LISTEN
+        # socket would then hold the port and the restart's bind fail.
+        t = threading.Thread(
+            target=self._accept_loop, args=(listener, self._stop),
+            name=f"fakeredis-accept-{self.port}", daemon=True,
+        )
+        t.start()
+        self._accept_thread = t
+        self._threads.append(t)
+        return self.port
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._listener is not None:
+            # shutdown() wakes the thread blocked in accept() (close()
+            # alone would leave the LISTEN socket alive until a
+            # connection arrived); join it so no accept is pending on
+            # this port when stop() returns.
+            try:
+                self._listener.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            self._listener.close()
+            self._listener = None
+        if self._accept_thread is not None:
+            self._accept_thread.join(timeout=5)
+            self._accept_thread = None
+        for c in self._conns:
+            # shutdown() first: close() alone neither wakes a thread
+            # blocked in recv() on this socket nor tells the peer — the
+            # restart drill needs clients to see the death immediately.
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                c.close()
+            except OSError:
+                pass
+
+    def restart(self) -> int:
+        """Fault injection: bounce the server — drop the listener and
+        every live connection (clients see ECONNRESET mid-command, like a
+        real Redis restart), then come back on the SAME port with the
+        SAME keyspace (a restart with an RDB/AOF-backed store; marker
+        state survives, sessions do not). Returns the port."""
+        import time
+
+        port, store = self.port, self.store
+        self.stop()
+        self._stop = threading.Event()
+        self._threads = []
+        self._conns = []
+        self.port = port
+        self.store = store
+        # The dead connections' sockets can hold the port for a beat even
+        # with SO_REUSEADDR; retry the bind briefly rather than flaking.
+        for _ in range(100):
+            try:
+                return self.start()
+            except OSError:
+                time.sleep(0.02)
+        return self.start()
+
+    def __enter__(self):
+        self.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    def _accept_loop(self, listener: socket.socket,
+                     stop: threading.Event) -> None:
+        while not stop.is_set():
+            try:
+                conn, _ = listener.accept()
+            except OSError:
+                return
+            if stop.is_set():  # accepted in the instant of stop()
+                conn.close()
+                return
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            self._conns.append(conn)
+            t = threading.Thread(
+                target=self._serve_conn, args=(conn,), daemon=True
+            )
+            t.start()
+            self._threads.append(t)
+
+    def _serve_conn(self, conn: socket.socket) -> None:
+        reader = _Reader(conn)
+        out = bytearray()
+
+        def read_command():
+            """RESP-array command, or a real-Redis-parity INLINE command
+            (a bare space-separated line — redis-cli/telnet send these;
+            the RESP client never does, so this is exactly the kind of
+            input an in-repo fake would otherwise never see)."""
+            while len(reader._buf) - reader._pos < 1:
+                reader._fill()
+            if reader._buf[reader._pos : reader._pos + 1] == b"*":
+                return reader.read_reply()
+            return reader._readline().split()
+
+        try:
+            while not self._stop.is_set():
+                args = read_command()
+                if not isinstance(args, list):
+                    break
+                if not args:  # empty inline line: ignore, like Redis
+                    continue
+                out.clear()
+                self._dispatch([_s(a) for a in args], out)
+                # Drain any further fully-buffered (pipelined) commands
+                # before writing, so a pipeline costs one send.
+                while reader._buf.find(b"*", reader._pos) == reader._pos:
+                    try:
+                        nxt = reader.read_reply()
+                    except Exception:
+                        break
+                    self._dispatch([_s(a) for a in nxt], out)
+                conn.sendall(bytes(out))
+        except (ConnectionError, OSError):
+            pass
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    # -- command dispatch --------------------------------------------------
+    def _dispatch(self, args: list[str], out: bytearray) -> None:
+        cmd = args[0].upper()
+        h = getattr(self, "_cmd_" + cmd.lower(), None)
+        if h is None:
+            out += f"-ERR unknown command '{cmd}'\r\n".encode()
+            return
+        try:
+            with self.store.lock:
+                h(args[1:], out)
+        except Exception as e:  # command-level error, connection survives
+            out += f"-ERR {type(e).__name__}: {e}\r\n".encode()
+
+    # reply helpers
+    @staticmethod
+    def _int(out, n: int):
+        out += b":%d\r\n" % n
+
+    @staticmethod
+    def _ok(out, s: str = "OK"):
+        out += b"+" + s.encode() + b"\r\n"
+
+    @staticmethod
+    def _bulk(out, v: str | None):
+        if v is None:
+            out += b"$-1\r\n"
+        else:
+            b = v.encode()
+            out += b"$%d\r\n" % len(b) + b + b"\r\n"
+
+    @classmethod
+    def _array(cls, out, items: list[str]):
+        out += b"*%d\r\n" % len(items)
+        for it in items:
+            cls._bulk(out, it)
+
+    # -- connection commands ----------------------------------------------
+    def _cmd_ping(self, a, out):
+        self._ok(out, "PONG" if not a else a[0])
+
+    def _cmd_echo(self, a, out):
+        self._bulk(out, a[0])
+
+    def _cmd_select(self, a, out):
+        self._ok(out)  # single keyspace (reference uses DB 0, redis.go:23)
+
+    def _cmd_auth(self, a, out):
+        self._ok(out)  # reference ignores the password (redis.go:20-24)
+
+    def _cmd_flushdb(self, a, out):
+        self.store.hashes.clear()
+        self.store.zsets.clear()
+        self._ok(out)
+
+    # -- generic keyspace --------------------------------------------------
+    def _cmd_keys(self, a, out):
+        pat = a[0] if a else "*"
+        self._array(
+            out, [k for k in self.store.keys() if fnmatch.fnmatch(k, pat)]
+        )
+
+    def _cmd_del(self, a, out):
+        n = 0
+        for k in a:
+            n += int(
+                self.store.hashes.pop(k, None) is not None
+                or self.store.zsets.pop(k, None) is not None
+            )
+        self._int(out, n)
+
+    def _cmd_exists(self, a, out):
+        self._int(
+            out,
+            sum(k in self.store.hashes or k in self.store.zsets for k in a),
+        )
+
+    # -- hashes ------------------------------------------------------------
+    def _cmd_hset(self, a, out):
+        key, rest = a[0], a[1:]
+        if len(rest) % 2:
+            raise ValueError("wrong number of arguments for HSET")
+        h = self.store.hashes.setdefault(key, {})
+        added = 0
+        for f, v in zip(rest[::2], rest[1::2]):
+            added += f not in h
+            h[f] = v
+        self._int(out, added)
+
+    def _cmd_hdel(self, a, out):
+        h = self.store.hashes.get(a[0])
+        n = 0
+        if h:
+            for f in a[1:]:
+                n += h.pop(f, None) is not None
+            if not h:
+                self.store.hashes.pop(a[0], None)
+        self._int(out, n)
+
+    def _cmd_hexists(self, a, out):
+        self._int(out, int(a[1] in self.store.hashes.get(a[0], {})))
+
+    def _cmd_hget(self, a, out):
+        self._bulk(out, self.store.hashes.get(a[0], {}).get(a[1]))
+
+    def _cmd_hgetall(self, a, out):
+        h = self.store.hashes.get(a[0], {})
+        flat: list[str] = []
+        for f, v in h.items():
+            flat += [f, v]
+        self._array(out, flat)
+
+    def _cmd_hlen(self, a, out):
+        self._int(out, len(self.store.hashes.get(a[0], {})))
+
+    def _cmd_hincrbyfloat(self, a, out):
+        h = self.store.hashes.setdefault(a[0], {})
+        v = float(h.get(a[1], "0")) + float(a[2])
+        h[a[1]] = _fmt_float(v)
+        self._bulk(out, h[a[1]])
+
+    # -- zsets -------------------------------------------------------------
+    def _cmd_zadd(self, a, out):
+        z = self.store.zsets.setdefault(a[0], {})
+        added = 0
+        pairs = a[1:]
+        for s, m in zip(pairs[::2], pairs[1::2]):
+            added += m not in z
+            z[m] = float(s)
+        self._int(out, added)
+
+    def _cmd_zrem(self, a, out):
+        z = self.store.zsets.get(a[0], {})
+        n = 0
+        for m in a[1:]:
+            n += z.pop(m, None) is not None
+        if not z:
+            self.store.zsets.pop(a[0], None)
+        self._int(out, n)
+
+    def _sorted(self, key, reverse=False):
+        z = self.store.zsets.get(key, {})
+        return sorted(z.items(), key=lambda kv: (kv[1], kv[0]), reverse=reverse)
+
+    def _range_reply(self, out, items, withscores):
+        flat = []
+        for m, s in items:
+            flat.append(m)
+            if withscores:
+                flat.append(_fmt_float(s))
+        self._array(out, flat)
+
+    def _cmd_zrange(self, a, out, reverse=False):
+        items = self._sorted(a[0], reverse)
+        start, stop = int(a[1]), int(a[2])
+        n = len(items)
+        if start < 0:
+            start += n
+        if stop < 0:
+            stop += n
+        withscores = any(x.upper() == "WITHSCORES" for x in a[3:])
+        self._range_reply(out, items[max(start, 0) : stop + 1], withscores)
+
+    def _cmd_zrevrange(self, a, out):
+        self._cmd_zrange(a, out, reverse=True)
+
+    def _cmd_zrangebyscore(self, a, out, reverse=False):
+        if reverse:  # ZREVRANGEBYSCORE key max min
+            hi, lo = _score(a[1]), _score(a[2])
+        else:  # ZRANGEBYSCORE key min max
+            lo, hi = _score(a[1]), _score(a[2])
+        items = [
+            (m, s) for m, s in self._sorted(a[0], reverse) if lo <= s <= hi
+        ]
+        withscores = any(x.upper() == "WITHSCORES" for x in a[3:])
+        self._range_reply(out, items, withscores)
+
+    def _cmd_zrevrangebyscore(self, a, out):
+        self._cmd_zrangebyscore(a, out, reverse=True)
+
+    def _cmd_zcard(self, a, out):
+        self._int(out, len(self.store.zsets.get(a[0], {})))
+
+    def _cmd_zscore(self, a, out):
+        s = self.store.zsets.get(a[0], {}).get(a[1])
+        self._bulk(out, None if s is None else _fmt_float(s))
+
+
+def main(argv=None):
+    import argparse
+    import sys
+    import time
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=0)
+    args = ap.parse_args(argv)
+    srv = FakeRedisServer(args.host, args.port)
+    port = srv.start()
+    print(f"READY {port}", flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        srv.stop()
+        sys.exit(0)
+
+
+if __name__ == "__main__":
+    main()

@@ -5,6 +5,12 @@ The reference runs three processes wired by external RabbitMQ/Redis
 consumer. Here the deployment is one binary hosting all three components
 around the in-process (or file) bus.
 
+A `redis:` config section puts the pre-pool markers in a Redis-compatible
+store (the built-in RESP client + engine.prepool.RespPrePool;
+persist/respserver.py is a standalone stand-in server), the reference's
+own trade (nodepool.go:14-28); a Persister (a `persist:` section) takes
+consistent-cut snapshots and restores the last one at start().
+
 The port of ``gome_tpu/service/app.py``. The engine runs on the CUDA card
 (`device=None`); only tests pass `device="cpu"`. What the port does not
 have yet is refused at construction with the ROADMAP item that will port
@@ -28,23 +34,12 @@ log = get_logger("app")
 OBS_FLAGS = ("cost", "timeline", "profile", "hostprof", "placement")
 
 
-def refuse_unported(config: Config, persist=None) -> None:
+def refuse_unported(config: Config) -> None:
     """Raise for every part of `config` the port cannot run yet, naming
-    the ROADMAP item that will port it. The reference falls back in two
-    of these cases (an unreachable broker boots the memory bus, an
-    unusable store keeps the in-process pool); the port has neither
-    backend, so a config naming one is refused rather than quietly run
-    on something else. (bus.backend amqp is refused by make_bus.)"""
-    if config.store.enabled:
-        raise NotImplementedError(
-            "a redis: store section: the port has no RESP pre-pool yet "
-            "(ROADMAP Queue 1 item 4)"
-        )
-    if config.persist.enabled or persist is not None:
-        raise NotImplementedError(
-            "a persist: section: the port has no persist/ yet "
-            "(ROADMAP Queue 1 item 4)"
-        )
+    the ROADMAP item that will port it (bus.backend amqp is refused by
+    make_bus): the port has no AMQP backend to fall back from, so a
+    config naming one is refused rather than quietly run on the memory
+    bus."""
     if config.engine.mesh_devices > 0:
         raise NotImplementedError(
             f"engine.mesh_devices={config.engine.mesh_devices}: the port has "
@@ -70,7 +65,7 @@ class EngineService:
         """device: the CUDA card by default (raises if there is none);
         "cpu" runs the engine's plain PyTorch version (tests)."""
         self.config = config or Config()
-        refuse_unported(self.config, persist)
+        refuse_unported(self.config)
         configure_logging()
         if self.config.faults.enabled:
             # Arm the deterministic fault-injection registry (utils.faults)
@@ -102,14 +97,56 @@ class EngineService:
             auto_grow=e.auto_grow,
             device=device,
         )
+        if self.config.store.enabled:
+            # A `redis:` config section puts the pre-pool markers in the
+            # (Redis-compatible) store under the reference's exact schema —
+            # split gateway/consumer processes then share marker state the
+            # way the reference's three processes do (nodepool.go:14-28).
+            # Like the reference, an unusable store does not stop the
+            # engine from booting (its config.yaml names a local Redis that
+            # may not exist): warn loudly and keep the in-process pool.
+            from ..engine.prepool import RespPrePool
+            from ..persist.resp import RespError, SupervisedRespClient
+
+            st = self.config.store
+            try:
+                # Supervised client: a store restart mid-traffic reconnects
+                # under backoff + breaker and replays the session
+                # (utils.resilience) instead of killing the marker path.
+                client = SupervisedRespClient(
+                    st.host, st.port, password=st.password or None,
+                    name="resp:store",
+                )
+                # Validate the session up front (a reachable-but-unusable
+                # store, e.g. NOAUTH, must fall back at boot — not fail
+                # on the first hot-path HSET).
+                client.ping()
+                self.engine.pre_pool = RespPrePool(client)
+            except (OSError, RespError) as exc:
+                log.warning(
+                    "redis store %s:%d unusable (%s): pre-pool markers "
+                    "stay IN-PROCESS — split gateway/consumer deployments "
+                    "need the store up",
+                    st.host, st.port, exc,
+                )
+        self.persist = persist  # persist.Persister or None
+        on_batch = persist.on_batch if persist is not None else None
         self.feed = MatchFeed(self.bus)
         self.consumer = OrderConsumer(
             self.engine,
             self.bus,
             batch_n=e.max_t * max(1, e.n_slots // 8),
+            on_batch=on_batch,
             match_wire=self.config.bus.match_wire,
             pipeline_depth=e.pipeline_depth,
         )
+        if persist is not None:
+            # The consumer rides along so snapshots carry the matchfeed
+            # seq at the cut and restore rebases it (exactly-once across
+            # restarts); the durability gauges read from the Persister at
+            # scrape time.
+            persist.attach(self.engine, self.bus, consumer=self.consumer)
+            persist.export_metrics()
         from ..engine.step import LOT_MAX32
 
         self.admission = None
@@ -170,6 +207,8 @@ class EngineService:
         endpoint when configured); returns self."""
         from .gateway import serve_gateway
 
+        if self.persist is not None:
+            self.persist.restore_latest()
         self._server = serve_gateway(self.gateway, self.config)
         self.consumer.start()
         self.feed.start()
@@ -209,7 +248,12 @@ def main(argv=None):
 
     argv = sys.argv[1:] if argv is None else argv
     config = load_config(argv[0] if argv else None)
-    svc = EngineService(config).start()
+    persist = None
+    if config.persist.enabled:
+        from ..persist import Persister
+
+        persist = Persister(config.persist)
+    svc = EngineService(config, persist=persist).start()
     log.info("engine service up (grpc %s:%d)", config.grpc.host,
              svc._server.bound_port)
     try:

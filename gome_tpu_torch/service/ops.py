@@ -12,15 +12,15 @@ stdlib ThreadingHTTPServer, no dependencies, curl-able:
     curl localhost:9109/metrics
     curl localhost:9109/healthz     # 200 healthy / 503 unhealthy
     curl localhost:9109/trace > trace.json   # open in Perfetto
-    curl localhost:9109/durability  # queue offsets, matchfeed exactly-once
+    curl localhost:9109/durability  # snapshot cadence, recovery state,
+                                    # queue offsets, matchfeed exactly-once
                                     # tracker, fault-injection report
 
 The port of ``gome_tpu/service/ops.py`` for the parts the port has. The
 reference's obs/ routes (/cost, /timeline, /profile, /hostprof, /fleet,
 /capacity, /placement) answer 404 here, as any unknown path does, until
-the port has obs/ (ROADMAP Queue 1 item 8). /durability carries no
-persister state (persist/ is ROADMAP Queue 1 item 4): its "persist" key is
-null, as the reference's is when no Persister is attached.
+the port has obs/ (ROADMAP Queue 1 item 8). /durability carries the
+Persister's probe() under "persist" (null when no Persister is attached).
 
 Enabled by an `ops:` section in config.yaml (port, host) or by
 constructing OpsServer directly around any EngineService.
@@ -62,15 +62,20 @@ class OpsServer:
             self.monitor = HealthMonitor(service)
 
     def durability_payload(self) -> dict:
-        """The /durability JSON document: queue offsets (published /
-        committed per queue), the matchfeed exactly-once tracker, and the
-        fault-injection registry's report (plan + hit counts; `enabled:
-        false` outside chaos runs). Every field is a scrape-time read."""
+        """The /durability JSON document: the crash-consistency surface in
+        one read — Persister state (snapshot cadence, last restore,
+        recovery timing), queue offsets (published / committed per
+        queue), the matchfeed exactly-once tracker, and the fault-
+        injection registry's report (plan + hit counts; `enabled: false`
+        outside chaos runs). Every field is a scrape-time read."""
         from ..utils.faults import FAULTS
 
         svc = self.service
         payload: dict = {"faults": FAULTS.report()}
-        payload["persist"] = None  # no Persister in the port yet
+        persist = getattr(svc, "persist", None)
+        payload["persist"] = (
+            persist.probe() if persist is not None else None
+        )
         feed = getattr(svc, "feed", None)
         payload["matchfeed"] = (
             feed.seq_state()

@@ -1,8 +1,10 @@
 """The port's config (gome_tpu_torch.config) against gome_tpu.config: one
 YAML file with every section loads into both packages with equal sections
 (dataclasses.asdict), the same checks reject the same bad values with the
-same messages, and EngineService refuses every section, backend and flag
-the port cannot run yet, naming the ROADMAP item that will port it."""
+same messages, EngineService refuses every section, backend and flag
+the port cannot run yet, naming the ROADMAP item that will port it, and
+the persist: and redis: sections boot (an unusable store keeps the
+in-process pool, as in gome_tpu)."""
 
 import dataclasses
 
@@ -13,6 +15,7 @@ import torch
 import gome_tpu.config as jconfig
 import gome_tpu_torch.config as tconfig
 from gome_tpu_torch.service.app import EngineService
+from test_torch_service_parts import limited
 
 SECTIONS = [f.name for f in dataclasses.fields(tconfig.Config)]
 
@@ -189,8 +192,6 @@ QUIET_OPS = "ops:\n  port: 0\n  trace: false\n" + "".join(
 @pytest.mark.parametrize("text, error, item", [
     ("rabbitmq:\n  port: 1\n", NotImplementedError, "item 2c"),
     ("bus:\n  backend: amqp\n", NotImplementedError, "item 2c"),
-    ("redis:\n  port: 1\n", NotImplementedError, "item 4"),
-    ("persist:\n  keep: 2\n", NotImplementedError, "item 4"),
     ("engine:\n  mesh_devices: 2\n", NotImplementedError, "item 6"),
     *[(QUIET_OPS.replace(f"{f}: false", f"{f}: true"), NotImplementedError,
        "item 8") for f in OBS_FLAGS],
@@ -203,9 +204,98 @@ def test_unported_parts_are_refused(tmp_path, text, error, item):
         EngineService(cfg, device="cpu")
 
 
-def test_persister_argument_is_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        EngineService(tconfig.Config(), persist=object(), device="cpu")
+@limited(60)
+def test_persist_section_boots(tmp_path, monkeypatch):
+    """A persist: section: main() builds a Persister from it, start()
+    restores (nothing to restore yet), and its probe() is the
+    /durability payload's "persist"."""
+    from gome_tpu_torch.persist import Persister
+    from gome_tpu_torch.service import app
+    from gome_tpu_torch.service.ops import OpsServer
+
+    path = write(tmp_path, f"grpc:\n  host: 127.0.0.1\n  port: 0\n"
+                 f"bus:\n  backend: file\n  dir: {tmp_path}/bus\n"
+                 f"persist:\n  dir: {tmp_path}/snaps\n  every_n_batches: 2\n")
+    built = []
+
+    class OnTheCpu(EngineService):
+        def __init__(self, config, persist=None):
+            super().__init__(config, persist=persist, device="cpu")
+            built.append(self)
+
+        def wait(self):
+            pass
+
+    monkeypatch.setattr(app, "EngineService", OnTheCpu)
+    app.main([path])
+    (svc,) = built
+    try:
+        assert isinstance(svc.persist, Persister)
+        assert svc.persist.every_n == 2 and svc.persist.engine is svc.engine
+        assert svc.consumer.on_batch == svc.persist.on_batch
+        payload = OpsServer(svc).durability_payload()
+        assert payload["persist"] == svc.persist.probe()
+        assert payload["persist"]["last_restore"] == "none"
+    finally:
+        svc.stop()
+
+
+def test_redis_section_uses_the_store(tmp_path):
+    """A redis: section naming a live FakeRedisServer: both packages put
+    the marks in the store (RespPrePool), with the same keyspace, and the
+    port's /healthz lists the supervised client as resp:store."""
+    import gome_tpu.types as jtypes
+    import gome_tpu_torch.types as ttypes
+    from gome_tpu.service.app import EngineService as JService
+    from gome_tpu_torch.engine.prepool import RespPrePool
+    from gome_tpu_torch.persist.respserver import FakeRedisServer
+    from gome_tpu_torch.service.health import HealthMonitor
+
+    keyspaces = []
+    for config, service, types in (
+            (tconfig, lambda c: EngineService(c, device="cpu"), ttypes),
+            (jconfig, JService, jtypes)):
+        with FakeRedisServer() as srv:
+            path = write(tmp_path, f"redis:\n  host: 127.0.0.1\n"
+                         f"  port: {srv.port}\n")
+            svc = service(config.load_config(path))
+            assert type(svc.engine.pre_pool).__name__ == "RespPrePool"
+            svc.engine.mark(types.Order(uuid="u", oid="o1", symbol="s",
+                                        side=types.Side.BUY, price=100,
+                                        volume=1))
+            keyspaces.append(dict(srv.store.hashes))
+            if types is ttypes:
+                assert isinstance(svc.engine.pre_pool, RespPrePool)
+                detail = HealthMonitor(svc).check().detail
+                assert detail["connections"]["resp:store"]["breaker"] \
+                    == "closed"
+            svc.engine.pre_pool.client.close()
+    assert keyspaces[0] == keyspaces[1] == {"s:comparison": {"s:u:o1": "1"}}
+
+
+@pytest.mark.parametrize("package", ["gome_tpu", "port"])
+def test_unreachable_store_keeps_the_in_process_pool(tmp_path, package,
+                                                     caplog):
+    """A redis: section naming a port nobody listens on: the service
+    boots, warns, and keeps its in-process pool — in both packages."""
+    import logging
+    import socket
+
+    from gome_tpu.service.app import EngineService as JService
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    path = write(tmp_path, f"redis:\n  host: 127.0.0.1\n  port: {port}\n")
+    with caplog.at_level(logging.WARNING):
+        if package == "port":
+            svc = EngineService(tconfig.load_config(path), device="cpu")
+        else:
+            svc = JService(jconfig.load_config(path))
+    assert type(svc.engine.pre_pool).__name__ in ("LocalPrePool",
+                                                  "NativePrePool")
+    assert any(f"redis store 127.0.0.1:{port} unusable" in r.getMessage()
+               for r in caplog.records)
 
 
 def test_cfile_without_gpp_raises(tmp_path, monkeypatch):
@@ -228,3 +318,27 @@ def test_default_device_is_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         EngineService(tconfig.Config(engine=tconfig.EngineConfig(
             cap=16, n_slots=4, max_t=4)))
+
+
+def test_durable_service_wants_the_card_or_cpu(tmp_path):
+    """With persist: and redis: sections (the store live) and a
+    Persister, EngineService still runs on the card by default: without
+    one it raises, and it builds only when told device="cpu"."""
+    from gome_tpu_torch.engine.prepool import RespPrePool
+    from gome_tpu_torch.persist import Persister
+    from gome_tpu_torch.persist.respserver import FakeRedisServer
+
+    with FakeRedisServer() as srv:
+        cfg = tconfig.load_config(write(
+            tmp_path, f"bus:\n  backend: file\n  dir: {tmp_path}/bus\n"
+            f"persist:\n  dir: {tmp_path}/snaps\n"
+            f"redis:\n  host: 127.0.0.1\n  port: {srv.port}\n"))
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA"):
+                EngineService(cfg, persist=Persister(cfg.persist))
+        svc = EngineService(cfg, persist=Persister(cfg.persist),
+                            device="cpu")
+        assert isinstance(svc.engine.pre_pool, RespPrePool)
+        assert svc.persist.engine is svc.engine
+        assert svc.engine.batch.device.type == "cpu"
+        svc.engine.pre_pool.client.close()

@@ -63,7 +63,8 @@ def test_importing_the_port_loads_neither():
         "gome_tpu_torch.engine.pipeline, gome_tpu_torch.native, "
         "gome_tpu_torch.engine.nativehost, gome_tpu_torch.config, "
         "gome_tpu_torch.api, gome_tpu_torch.clients, "
-        "gome_tpu_torch.service.app, gome_tpu_torch.service.gateway\n"
+        "gome_tpu_torch.service.app, gome_tpu_torch.service.gateway, "
+        "gome_tpu_torch.persist, gome_tpu_torch.persist.respserver\n"
         "bad = [m for m in sys.modules if m in ('jax', 'gome_tpu') or "
         "m.startswith(('jax.', 'gome_tpu.'))]\n"
         "print(bad)\n"
