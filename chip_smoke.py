@@ -115,7 +115,39 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      0..n-1; orders/s beside phase 8 (c)'s; (d) that engine through
      book_redis_commands into a DictRedis and restore_from_redis into a
      fresh int64 engine: resting orders and marks equal, and 10,000 more
-     orders give the oracle's events on both.
+     orders give the oracle's events on both;
+ 10. the market simulator (gome_tpu_torch.sim): (a) the Hawkes bin scan
+     (K5) against its plain version on draws made on the card, T = 32 and
+     1,024 from mu and from the stationary intensity, 65,536 (one long
+     chain) from the stationary one: occur, etype, oid and next_oid equal,
+     lam bit-equal; ms, device_ms, the plain version's ms and the bound,
+     whose per-bin chain is built from a one-thread clock64 probe of the
+     add, logf, expf and compare-select latencies (hawkes_scan.cu);
+     (b) the environment at 256 lanes (cap 32, K 8, int32): a 1,000-step
+     rollout under set_sync_debug_mode("error") with more than 1,000
+     events, more than 100 trades and no overflow, one K1 and one K5
+     launch a step; env_step twice on one state equal; run_from_manifest
+     twice in the process and once in a fresh `python3 chip_smoke.py
+     --sim-worker <manifest>` process, one digest; 50 steps with a
+     scripted agent on the card equal to the CPU's with the same draws
+     (books, Obs, StepInfo equal; reward, cash and mark to market within
+     2**-18 of scale); K1 and K5 equal to their plain versions at the
+     rollout's kept inputs (every 250th step and the last); steps/s there
+     and at 64 lanes x 200 steps;
+     (c) the same at 10,240 lanes, bar the second process, with the CPU
+     comparison cut to 10 steps (the CPU's K1 costs ~0.3 s a step at this
+     width), and one step split into
+     the draws, K5, the resolve and scatter, K1 and the rest; (d) the
+     simulator as the service's traffic source: bench.py's _SimFlow pump
+     (10,240 lanes x 1,024 bins, sim-side books cap 64 K 8) generates
+     50,000 orders, which go through phase 6's consumer at depth 0 in
+     ORDER frames of 8,192: events equal to the oracle's, books verified;
+     K1 and K5 equal to their plain versions at the inputs of every 128th
+     pump and the last, and K1 at the consumer's; the generator's orders/s
+     with its split (step_split around flow._gen's parts) and the
+     consumer's;
+     (e) tests/test_sim.py's statistical bounds on the card's generator,
+     and the Zipf fit at 10,240 lanes.
 
 The last two lines are the kernel table (JSON) and
 {"ok": true, "device": {...}}.
@@ -143,6 +175,11 @@ KERNEL_ROWS = dict(
         route="cuda",
         source="gome_tpu_torch/ops/csrc/match_step.cu",
         replaces="gome_tpu/ops/pallas_match.py:306 (pallas_batch_step)",
+    ),
+    hawkes_scan=dict(
+        route="cuda",
+        source="gome_tpu_torch/ops/csrc/hawkes_scan.cu",
+        replaces="gome_tpu/sim/flow.py:228 (_bin_events' lax.scan, XLA)",
     ),
 )
 
@@ -779,60 +816,99 @@ def no_host_sync():
 
 
 @contextlib.contextmanager
-def keep_kernel_inputs():
-    """Wrap the match-step kernel's wrapper for the block and keep, for
-    each launch shape (cap, K, dtype), the inputs of its deepest grid (most
-    ops per row) and of its widest (most rows): the engine never writes a
-    kernel's input books or ops in place, so they still hold what the
-    kernel saw when check_kept_inputs re-runs them. Yields
-    {(cap, K, dtype): {"deep" | "wide": (config, books, ops)}}."""
-    from gome_tpu_torch.ops import match_step
+def keep_kernel_inputs(every: int = 0):
+    """Wrap K1's and K5's wrappers (match_step.batch_step,
+    hawkes_scan.hawkes_scan) for the block and keep inputs for
+    check_kept_inputs / check_kept_scans to re-run: for each K1 launch
+    shape (cap, K, dtype) its deepest grid (most ops per row) and its
+    widest (most rows); with `every`, also each kernel's first call, every
+    `every`-th call after it and its last. The port never writes a
+    kernel's input books, ops or draws in place, so they still hold what
+    the kernel saw. Yields {wrapper name: {role: (size, args)}}."""
+    from gome_tpu_torch.ops import hawkes_scan, match_step
 
-    inner = match_step.batch_step
-    kept = {}
+    places = ((match_step, "batch_step"), (hawkes_scan, "hawkes_scan"))
+    saved = [getattr(mod, name) for mod, name in places]
+    kept = {name: {} for _, name in places}
+    calls = dict.fromkeys(kept, 0)
 
-    def launch(config, books, ops):
-        pair = kept.setdefault(
-            (config.cap, config.max_fills, str(config.dtype)[6:]), {})
-        s, t = ops.action.shape
-        for role, size in (("deep", (t, s)), ("wide", (s, t))):
-            held = pair.get(role)
-            if held is None or size > held[0]:
-                pair[role] = (size, (config, books, ops))
-        return inner(config, books, ops)
+    def hold(name, role, size, args):
+        held = kept[name].get(role)
+        if held is None or size > held[0]:
+            kept[name][role] = (size, args)
 
-    match_step.batch_step = launch
+    def keeper(fn, name):
+        def run(*args):
+            n = calls[name]
+            calls[name] += 1
+            if name == "batch_step":
+                config, _, ops = args
+                s, t = ops.action.shape
+                shape = (f"{config.cap}/K{config.max_fills}/"
+                         f"{str(config.dtype)[6:]}")
+                hold(name, f"deep {shape}", (t, s), args)
+                hold(name, f"wide {shape}", (s, t), args)
+            if every:
+                if n % every == 0:
+                    kept[name][f"call {n}"] = (n, args)
+                kept[name]["last"] = (n, args)
+            return fn(*args)
+        return run
+
+    for (mod, name), fn in zip(places, saved):
+        setattr(mod, name, keeper(fn, name))
     try:
         yield kept
     finally:
-        match_step.batch_step = inner
+        for (mod, name), fn in zip(places, saved):
+            setattr(mod, name, fn)
+
+
+def distinct_kept(kept, name) -> list:
+    """The kept argument tuples of one wrapper, each once."""
+    return list({id(args): args for _, args in kept[name].values()}.values())
 
 
 def check_kept_inputs(label, kept) -> tuple[int, str]:
-    """Re-run every kept grid through the kernel and its plain version;
+    """Re-run every kept K1 grid through the kernel and its plain version;
     every book and StepOutput leaf must be equal. These launches come after
     the main path's count is read. Returns (worst |error|, report line)."""
     from gome_tpu_torch.ops.match_step import batch_step, batch_step_reference
 
-    worst, shapes = 0, []
-    for (cap, k, dtype), pair in sorted(kept.items()):
-        grids = {id(g[1][2]): g[1] for g in (pair["deep"], pair["wide"])}
-        for config, books, ops in grids.values():
-            nb, out = batch_step(config, books, ops)
-            pb, pout = batch_step_reference(config, books, ops)
-            sync(books.price.device)
-            err = max(max_abs_err(out, pout), max_abs_err(nb, pb))
-            s, t = ops.action.shape
-            if err:
-                raise SystemExit(f"{label}: kernel differs from its plain "
-                                 f"version on the {s}x{t} grid at cap {cap},"
-                                 f" K {k}, {dtype} (max |err| {err})")
-            worst = max(worst, err)
-            shapes.append(f"{s}x{t}@{cap}/K{k}/{dtype}")
+    worst, shapes = 0, {}
+    for config, books, ops in distinct_kept(kept, "batch_step"):
+        nb, out = batch_step(config, books, ops)
+        pb, pout = batch_step_reference(config, books, ops)
+        sync(books.price.device)
+        err = max(max_abs_err(out, pout), max_abs_err(nb, pb))
+        s, t = ops.action.shape
+        if err:
+            raise SystemExit(f"{label}: kernel differs from its plain "
+                             f"version on the {s}x{t} grid at cap "
+                             f"{config.cap}, K {config.max_fills}, "
+                             f"{config.dtype} (max |err| {err})")
+        worst = max(worst, err)
+        shape = (f"{s}x{t}@{config.cap}/K{config.max_fills}/"
+                 f"{str(config.dtype)[6:]}")
+        shapes[shape] = shapes.get(shape, 0) + 1
+    which = "the deepest and the widest grid of each launch shape"
+    if "last" in kept["batch_step"]:
+        which += ", every kept call"
     return worst, (f"{label}: kernel equal to its plain version on every "
-                   f"leaf at the inputs the frame path gave it, the deepest "
-                   f"and the widest grid of each launch shape: "
-                   f"{', '.join(shapes)}")
+                   f"leaf at the inputs its path gave it ({which}): "
+                   + ", ".join(f"{k} x{v}" for k, v in shapes.items()))
+
+
+def check_kept_scans(label, kept) -> tuple[float, str]:
+    """Re-run every kept K5 input through the kernel and its plain version
+    (check_scan). Returns (worst |error|, report line)."""
+    worst, lengths = 0.0, []
+    for config, *args in distinct_kept(kept, "hawkes_scan"):
+        worst = max(worst, check_scan(label, config, args)[2])
+        lengths.append(args[2].shape[0])
+    return worst, (f"{label}: K5 equal to its plain version at "
+                   f"{len(lengths)} kept scans of T "
+                   f"{'/'.join(str(t) for t in sorted(set(lengths)))}")
 
 
 def run_frames(engine, frames, fast: bool = True):
@@ -2612,6 +2688,660 @@ def print_service(card: str, sizes, svc, p8c_secs: float) -> None:
           f"polling)")
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+SM_CLOCK_HZ = 1.98e9  # H100 SXM boost clock
+SIM_SEED = 3
+
+
+def sim_env_config(lanes: int, cap: int = 32, k: int = 8, **flow):
+    """The environment at `lanes` lanes, int32 books at cap / K, the
+    default flow but for `flow`'s fields."""
+    from gome_tpu_torch.engine.book import BookConfig
+    from gome_tpu_torch.sim import EnvConfig, FlowConfig
+
+    return EnvConfig(flow=FlowConfig(n_lanes=lanes, **flow),
+                     book=BookConfig(cap=cap, max_fills=k, dtype=torch.int32))
+
+
+def chain_latencies(device) -> dict:
+    """Cycles of one dependent step of each operation on a bin's path,
+    from hawkes_scan.cu's one-thread clock64 probe (the best of three runs
+    of 2**14 steps each): `add` a float add, `log` logf(x + c), `exp`
+    expf(x * c), `cs` a compare and select (the probe's step less one
+    add)."""
+    import ctypes
+
+    from gome_tpu_torch.ops import build
+
+    probe = build.load("hawkes_scan").gome_hawkes_latency_probe
+    probe.argtypes = [ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_void_p]
+    probe.restype = ctypes.c_int
+    n = 1 << 14
+    cycles = torch.zeros(4, dtype=torch.int64, device=device)
+    sink = torch.zeros(4, dtype=torch.float32, device=device)
+    best = None
+    for _ in range(3):
+        err = probe(n, 1.0, cycles.data_ptr(), sink.data_ptr(),
+                    torch.cuda.current_stream(device).cuda_stream)
+        if err:
+            raise SystemExit(f"phase 10 (a): the latency probe did not "
+                             f"launch (error {err})")
+        got = (cycles.cpu().double() / n).tolist()
+        best = got if best is None else [min(a, b) for a, b in zip(best, got)]
+    add, log, exp, cs_add = best
+    return dict(add=add, log=log, exp=exp, cs=cs_add - add)
+
+
+def hawkes_chain_cycles(lat) -> float:
+    """Cycles of one bin's least dependent path from lam to the next lam,
+    from the probe's latencies: the larger of (A) log(lam + eps), + g,
+    and a three-level tree argmax whose compare-selects carry alpha's
+    column from registers as their payload, and (B) the six-term sum left
+    to right (the function's rounding order: five adds), * -dt, exp and
+    1 - p; then the compare u < p selecting that column or 0, and the
+    update's add. The decay's FMA runs beside both."""
+    a = lat["log"] + lat["add"] + 3 * lat["cs"]
+    b = 5 * lat["add"] + lat["exp"] + lat["add"]
+    return max(a, b) + lat["cs"] + lat["add"]
+
+
+def hawkes_bound_ms(t_bins: int, chain_cycles: float) -> tuple[float, str]:
+    """Least time for one scan of T bins: its bytes (draws in, three [T]
+    outputs, lam and the counter) over HBM bandwidth, or T times one bin's
+    dependent chain (hawkes_chain_cycles) at the boost clock."""
+    nbytes = t_bins * (4 + 6 * 4 + 3 * 4) + 2 * 6 * 4 + 2 * 4
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_chain = t_bins * chain_cycles / SM_CLOCK_HZ * 1e3
+    return (by_bytes, "bytes") if by_bytes > by_chain else (by_chain,
+                                                            "operations")
+
+
+def stationary_lam(config) -> np.ndarray:
+    """The flow's stationary intensity (I - alpha / decay)^-1 mu."""
+    g = config.alpha() / config.decay
+    return np.linalg.solve(np.eye(len(g)) - g, config.mu())
+
+
+def scan_inputs(config, t_bins: int, lam0, seed: int, device):
+    """(lam, oid0, u_ev, g_ty) drawn on `device` from a seeded generator
+    by the flow's own draw_bins."""
+    from gome_tpu_torch.sim.flow import draw_bins
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    draws, _ = draw_bins(config, gen.get_state(), t_bins, device)
+    lam = torch.tensor(lam0, dtype=torch.float32, device=device)
+    oid0 = torch.ones((), dtype=torch.int32, device=device)
+    return lam, oid0, draws.u_ev, draws.g_ty
+
+
+def check_scan(label, config, args) -> tuple[int, float, float]:
+    """K5 against its plain version on the same inputs: occur, etype, oid
+    and next_oid equal, lam bit-equal (the stated tolerance: none). Returns
+    the events, the plain version's seconds (one run) and the largest
+    |kernel - plain| over every output."""
+    from gome_tpu_torch.ops.hawkes_scan import (
+        ScanOut,
+        hawkes_scan,
+        hawkes_scan_reference,
+    )
+
+    out = hawkes_scan(config, *args)
+    sync(args[0].device)
+    t0 = time.perf_counter()
+    plain = hawkes_scan_reference(config, *args)
+    sync(args[0].device)
+    secs = time.perf_counter() - t0
+    worst = 0.0
+    for name in ScanOut._fields:
+        a, b = getattr(out, name), getattr(plain, name)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise SystemExit(f"{label}: K5's {name} is {a.dtype}"
+                             f"{tuple(a.shape)}, its plain version's "
+                             f"{b.dtype}{tuple(b.shape)}")
+        diff = (a.double() - b.double()).abs().reshape(-1)
+        err = float(diff.max())
+        if err:
+            bad = int(diff.argmax())
+            raise SystemExit(
+                f"{label}: K5 differs from its plain version in {name} at "
+                f"{bad}: kernel {a.reshape(-1)[bad].item()} plain "
+                f"{b.reshape(-1)[bad].item()}")
+        worst = max(worst, err)
+    return int(out.occur.sum()), secs, worst
+
+
+def env_to(state, device):
+    """An EnvState's tensors on `device` (the generator state stays)."""
+    from gome_tpu_torch.engine.book import BookState
+    from gome_tpu_torch.sim.env import EnvState
+    from gome_tpu_torch.sim.flow import FlowState
+
+    f = state.flow
+    return EnvState(
+        books=BookState(*(a.to(device) for a in state.books)),
+        flow=FlowState(f.lam.to(device), f.rng, f.next_oid.to(device),
+                       f.t_model.to(device)),
+        t=state.t.to(device), cash=state.cash.to(device),
+        inv=state.inv.to(device), mtm=state.mtm.to(device))
+
+
+def scripted_action(config, step: int, device):
+    """Slot 0 rests a bid 3 ticks under the reference price on lane
+    step % S; slot 1 market-sells 2 lots on the lane slot 0 used the step
+    before (the agent's own bid, when it still rests)."""
+    from gome_tpu_torch.sim import AgentAction
+
+    s = config.flow.n_lanes
+    ref = config.flow.ref_price
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=device)
+    return AgentAction(
+        lane=i32([step % s, (step - 1) % s]), action=i32([1, int(step > 0)]),
+        side=i32([0, 1]), is_market=i32([0, 1]), price=i32([ref - 3, 0]),
+        volume=i32([4, 2]), oid=i32([(1 << 24) + 2 * step,
+                                     (1 << 24) + 2 * step + 1]))
+
+
+def f32_close(label, port, ref, scale) -> None:
+    """float32 sums taken in another order (CUDA reductions against the
+    CPU's): 32 ulps (2**-18) of the step's largest magnitude among cash,
+    mark to market and inventory value."""
+    tol = 2.0 ** -18 * max(float(scale), 1.0)
+    if abs(float(port) - float(ref)) > tol:
+        raise SystemExit(f"{label}: {float(port)} vs {float(ref)} "
+                         f"(tolerance {tol})")
+
+
+def same_step(label, got, want) -> None:
+    """Two env_step results: books, Obs, StepInfo and inventory equal;
+    reward, cash and mark to market within f32_close."""
+    (g_state, g_obs, g_reward, g_info) = got
+    (w_state, w_obs, w_reward, w_info) = want
+    for group, a, b in (("books", g_state.books, w_state.books),
+                        ("obs", g_obs, w_obs), ("info", g_info, w_info)):
+        for name, x, y in zip(a._fields, a, b):
+            if not torch.equal(x.cpu(), y.cpu()):
+                raise SystemExit(f"{label}: {group}.{name} differs")
+    if not torch.equal(g_state.inv.cpu(), w_state.inv.cpu()):
+        raise SystemExit(f"{label}: inventory differs")
+    scale = max(abs(float(w_state.cash)), abs(float(w_state.mtm)),
+                float((w_state.inv.double().cpu()
+                       * w_obs.mid.double().cpu()).abs().sum()))
+    f32_close(f"{label} cash", g_state.cash, w_state.cash, scale)
+    f32_close(f"{label} mark to market", g_state.mtm, w_state.mtm, scale)
+    f32_close(f"{label} reward", g_reward, w_reward, scale)
+
+
+def card_against_cpu(label, config, steps: int, device) -> int:
+    """`steps` env_steps with the scripted agent from one seeded state,
+    on the CPU and on the card, with draws made on the CPU and copied to
+    the card: every step equal (same_step). Returns the events seen."""
+    from gome_tpu_torch.sim import env_reset, env_step
+    from gome_tpu_torch.sim.flow import Draws, draw_bins
+
+    cpu_state, _ = env_reset(config, SIM_SEED, "cpu")
+    card_state = env_to(cpu_state, device)
+    rng = cpu_state.flow.rng
+    events = 0
+    for step in range(steps):
+        draws, rng = draw_bins(config.flow, rng, config.flow.t_bins, "cpu")
+        want = env_step(config, cpu_state, scripted_action(config, step,
+                                                           "cpu"), draws)
+        got = env_step(config, card_state,
+                       scripted_action(config, step, device),
+                       Draws(*(d.to(device) for d in draws)))
+        same_step(f"{label} step {step}", got, want)
+        cpu_state, card_state = want[0], got[0]
+        events += int(want[3].events)
+    return events
+
+
+def pure_step_check(label, config, state, device) -> None:
+    """env_step twice on one state with an agent action: equal."""
+    from gome_tpu_torch.sim import env_step
+
+    act = scripted_action(config, 7, device)
+    same_step(label, env_step(config, state, act), env_step(config, state,
+                                                            act))
+
+
+def sim_worker(argv) -> int:
+    """`--sim-worker <manifest.json>`: replay the manifest on the card in
+    this (fresh) process and print run_from_manifest's result as JSON."""
+    from gome_tpu_torch.sim import run_from_manifest
+
+    with open(argv[1]) as f:
+        manifest = json.load(f)
+    print(json.dumps(run_from_manifest(manifest, "cuda")))
+    return 0
+
+
+def launch_counts():
+    from gome_tpu_torch.ops import hawkes_scan, match_step
+
+    return match_step._counted, hawkes_scan._counted
+
+
+def sim_rollout(label, config, steps: int, device, keep_every: int):
+    """env_reset(SIM_SEED) and a `steps`-step rollout under
+    torch.cuda.set_sync_debug_mode("error"), with K1's and K5's launches
+    counted from 0; fails unless the flow ran (> steps events, > steps /
+    10 trades) with both overflow counters at zero. Then K1 and K5 against
+    their plain versions at the inputs of every `keep_every`-th call and
+    the last. Returns the numbers and the final state."""
+    from gome_tpu_torch.sim import env_reset, rollout
+
+    state, _ = env_reset(config, SIM_SEED, device)
+    warm, _ = rollout(config, state, 3)  # allocator and caches, off the clock
+    sync(device)
+    k1, k5 = launch_counts()
+    k1.launches = k5.launches = 0
+    with keep_kernel_inputs(keep_every) as kept:
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            final, (rewards, info) = rollout(config, state, steps)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        sync(device)
+        secs = time.perf_counter() - t0
+    launches = (k1.launches, k5.launches)
+    events, trades = int(info.events.sum()), int(info.trades.sum())
+    b_over = int(info.book_overflow.sum())
+    f_over = int(info.fill_overflow.sum())
+    if events <= steps or trades <= steps // 10 or b_over or f_over:
+        raise SystemExit(f"{label}: {events} events, {trades} trades, "
+                         f"overflow {b_over} book / {f_over} fills over "
+                         f"{steps} steps")
+    if launches != (steps, steps):
+        raise SystemExit(f"{label}: K1 / K5 launches {launches} for {steps} "
+                         f"steps")
+    del warm
+    worst, k1_line = check_kept_inputs(label, kept)
+    scan_worst, k5_line = check_kept_scans(label, kept)
+    return dict(secs=secs, events=events, trades=trades, launches=launches,
+                steps=steps, final=final, worst=worst, scan_worst=scan_worst,
+                kept_lines=[k1_line, k5_line],
+                finite=bool(torch.isfinite(rewards).all()))
+
+
+@contextlib.contextmanager
+def step_split():
+    """Host seconds and CUDA-event milliseconds inside an env step's
+    parts, by wrapping them for the block: the draws (flow.draw_bins), K5
+    (hawkes_scan), the resolve and scatter (flow._resolve, flow._scatter)
+    and K1 (match_step.batch_step). Yields {part: [host s, [events]]}."""
+    from gome_tpu_torch.ops import hawkes_scan, match_step
+    from gome_tpu_torch.sim import flow
+
+    places = ((flow, "draw_bins", "draws"), (hawkes_scan, "hawkes_scan", "K5"),
+              (flow, "_resolve", "resolve+scatter"),
+              (flow, "_scatter", "resolve+scatter"),
+              (match_step, "batch_step", "K1"))
+    parts = {p: [0.0, []] for _, _, p in places}
+    saved = [getattr(m, n) for m, n, _ in places]
+
+    def timed(fn, part):
+        def run(*args):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            out = fn(*args)
+            b.record()
+            parts[part][0] += time.perf_counter() - t0
+            parts[part][1].append((a, b))
+            return out
+        return run
+
+    for (m, n, p), fn in zip(places, saved):
+        setattr(m, n, timed(fn, p))
+    try:
+        yield parts
+    finally:
+        for (m, n, _), fn in zip(places, saved):
+            setattr(m, n, fn)
+
+
+def split_text(parts, total_s: float, steps: int) -> str:
+    torch.cuda.synchronize()
+    host = {p: v[0] for p, v in parts.items()}
+    dev = {p: span_seconds(v[1]) for p, v in parts.items()}
+    rest = total_s - sum(host.values())
+    return (", ".join(f"{p} {1e3 * host[p] / steps:.3f} ms host / "
+                      f"{1e3 * dev[p] / steps:.3f} ms device"
+                      for p in host)
+            + f", PnL+Obs+info and the rest {1e3 * rest / steps:.3f} ms host"
+            " (per step)")
+
+
+def sim_traffic(device, n_orders: int, lanes: int, t_bins: int,
+                keep_every: int):
+    """bench.py's _SimFlow pump on the card, geometry (iii): per pump
+    flow._gen (the draws, K5, the resolve and scatter of a [10,240, 1,024]
+    grid), K1 on the sim-side books (cap 64, K 8, int32) and the fetch of
+    the occurring bins' columns (bin_columns, drop_misses=True), until
+    n_orders; on the first pump the columns must equal grid_to_columns of
+    the whole grid. The parts are timed by step_split; then K1 and K5
+    against their plain versions at the inputs of every `keep_every`-th
+    pump and the last. Returns the orders and the numbers."""
+    from gome_tpu_torch.engine.book import BookConfig, init_books
+    from gome_tpu_torch.ops import match_step
+    from gome_tpu_torch.sim import FlowConfig, flow_init
+    from gome_tpu_torch.sim import flow as flow_mod
+    from gome_tpu_torch.sim.replay import (
+        bin_columns,
+        grid_host,
+        grid_to_columns,
+        orders_from_columns,
+    )
+
+    config = FlowConfig(n_lanes=lanes, t_bins=t_bins, ref_price=100_000_000,
+                        ref_spread=50)
+    book_cfg = BookConfig(cap=64, max_fills=8, dtype=torch.int32)
+    books = init_books(book_cfg, config.n_lanes, device)
+    state = flow_init(config, SIM_SEED, device)
+    sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    k1, k5 = launch_counts()
+    k1.launches = k5.launches = 0
+    fetch_s, cols, n, pumps = 0.0, [], 0, 0
+    with step_split() as parts, keep_kernel_inputs(keep_every) as kept:
+        t0 = time.perf_counter()
+        while n < n_orders:
+            state, ops, bins = flow_mod._gen(config, state, books)
+            books, _ = match_step.batch_step(book_cfg, books, ops)
+            t1 = time.perf_counter()
+            got = bin_columns(bins, drop_misses=True)
+            fetch_s += time.perf_counter() - t1
+            if pumps == 0:
+                whole = grid_to_columns(grid_host(ops), drop_misses=True)
+                for k in whole:
+                    if not np.array_equal(whole[k], got[k]):
+                        raise SystemExit(f"phase 10 (d): bin_columns' {k} "
+                                         f"differs from grid_to_columns'")
+            pumps += 1
+            if got["n"]:
+                cols.append(got)
+                n += got["n"]
+        secs = time.perf_counter() - t0
+    launches = (k1.launches, k5.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del ops, bins
+    worst, k1_line = check_kept_inputs("phase 10 (d) pumps", kept)
+    scan_worst, k5_line = check_kept_scans("phase 10 (d) pumps", kept)
+    orders = [o for c in cols for o in orders_from_columns(c)][:n_orders]
+    return orders, dict(
+        secs=secs, pumps=pumps, fetch_s=fetch_s,
+        device_s={p: span_seconds(v[1]) for p, v in parts.items()},
+        launches=launches, peak_gb=peak_gb, worst=worst,
+        scan_worst=scan_worst, kept_lines=[k1_line, k5_line])
+
+
+def sim_consumer(device, orders, frame_n: int, lanes: int):
+    """The simulated orders as ORDER frames of `frame_n` through phase 6's
+    consumer stack at depth 0 on the card: events equal to the oracle's,
+    seqs 0..n-1, books verified, K1 equal to its plain version at the
+    inputs the consumer gave it. Returns (seconds, K1 launches, events,
+    worst |error|, report line)."""
+    k1, _ = launch_counts()
+    frame_list = [frame_columns(orders[i:i + frame_n])
+                  for i in range(0, len(orders), frame_n)]
+    want = oracle_events(orders)
+    eng, bus, consumer = consumer_stack(device, lanes, 0)
+    k1.launches = 0
+    with keep_kernel_inputs() as kept:
+        secs, _, _ = closed_loop(eng, bus, consumer, frame_list,
+                                 {"gateway": 0.0})
+    launches = k1.launches
+    check_consumer_run("phase 10 (d)", eng, bus, want)
+    worst, line = check_kept_inputs("phase 10 (d) consumer", kept)
+    return secs, launches, len(want), worst, line
+
+
+def sim_stats_check(device, lanes: int, t_bins: int) -> list[str]:
+    """(e): the reference's statistical bounds on the card's own generator
+    (tests/test_sim.py's TestFlowStats), and the Zipf fit at 10,240 lanes
+    over 300 grids of 1,024 bins."""
+    from gome_tpu_torch.engine.book import BookConfig, init_books
+    from gome_tpu_torch.sim import FlowConfig, flow_init
+    from gome_tpu_torch.sim import stats as sim_stats
+    from gome_tpu_torch.sim.flow import _gen
+
+    lines = []
+    config = FlowConfig(n_lanes=32, t_bins=64)
+    s = sim_stats.sample_grids(config, 0, 300, device=device)
+    fit = sim_stats.zipf_exponent(sim_stats.symbol_counts(s))
+    per_grid = sim_stats.events_per_grid(s)
+    n_hat = sim_stats.empirical_branching_ratio(config, int(per_grid.sum()),
+                                                len(per_grid))
+    disp = sim_stats.dispersion_index(per_grid)
+    if not (abs(fit - config.zipf_a) < 0.3
+            and 0.25 < n_hat < config.branching_ratio() + 0.05 and disp > 1.2):
+        raise SystemExit(f"phase 10 (e): Zipf fit {fit}, branching {n_hat}, "
+                         f"dispersion {disp} outside the bounds")
+    poisson = FlowConfig(n_lanes=32, t_bins=64, excite_self=1e-6,
+                         excite_cross=1e-6, excite_kind=1e-6)
+    p = sim_stats.events_per_grid(
+        sim_stats.sample_grids(poisson, 1, 300, device=device))
+    p_disp = sim_stats.dispersion_index(p)
+    p_hat = sim_stats.empirical_branching_ratio(poisson, int(p.sum()), len(p))
+    if not (abs(p_disp - 1.0) < 0.25 and abs(p_hat) < 0.12):
+        raise SystemExit(f"phase 10 (e): Poisson limit dispersion {p_disp}, "
+                         f"branching {p_hat} outside the bounds")
+    lines.append(
+        f"phase 10 (e): 300 grids at 32 lanes x 64 bins on the card: Zipf fit "
+        f"{fit:.4f} (a = {config.zipf_a}, bound 0.3), branching {n_hat:.4f} "
+        f"in (0.25, {config.branching_ratio() + 0.05:.2f}), dispersion "
+        f"{disp:.4f} > 1.2; Poisson limit: dispersion {p_disp:.4f}, branching"
+        f" {p_hat:.4f}; all within tests/test_sim.py's bounds")
+    wide = FlowConfig(n_lanes=lanes, t_bins=t_bins)
+    books = init_books(BookConfig(cap=4, max_fills=1, dtype=torch.int32),
+                       wide.n_lanes, device)
+    state = flow_init(wide, 0, device)
+    counts = torch.zeros(wide.n_lanes, dtype=torch.int64, device=device)
+    for _ in range(300):
+        state, _ops, bins = _gen(wide, state, books)
+        counts.index_add_(0, bins.lane.long(), (bins.action != 0).long())
+    counts = counts.cpu().numpy()
+    lines.append(
+        f"phase 10 (e): 300 grids at {lanes:,} lanes x {t_bins:,} bins: "
+        f"{int(counts.sum())} events on {int((counts > 0).sum())} lanes, "
+        f"Zipf fit {sim_stats.zipf_exponent(counts):.4f} (a = {wide.zipf_a}; "
+        f"printed, not bounded: most lanes see 0-2 events)")
+    return lines
+
+
+def phase10(card: str, device, sizes) -> dict:
+    """The market simulator on the card, each part printed as it ends."""
+    from gome_tpu_torch.ops.hawkes_scan import hawkes_scan, hawkes_scan_reference
+    from gome_tpu_torch.sim import FlowConfig, make_manifest, run_from_manifest
+
+    t_phase = time.perf_counter()
+    flow = FlowConfig()
+    scans, scan_worst = {}, 0.0
+    scan_t = sizes["sim_scan_t"]
+    for t_bins in scan_t:
+        starts = (("mu", flow.mu()), ("stationary", stationary_lam(flow)))
+        for name, lam0 in starts[1:] if t_bins == scan_t[-1] else starts:
+            args = scan_inputs(flow, t_bins, lam0, 100 + t_bins, device)
+            events, plain_s, err = check_scan(
+                f"phase 10 (a) T={t_bins} from {name}", flow, args)
+            scans[(t_bins, name)] = (args, events, plain_s)
+            scan_worst = max(scan_worst, err)
+    lat = chain_latencies(device)
+    chain = hawkes_chain_cycles(lat)
+    k5 = {}
+    for t_bins in scan_t:
+        args = scans[(t_bins, "stationary")][0]
+        runs = 200 if t_bins < 4096 else 20
+        bound, bound_by = hawkes_bound_ms(t_bins, chain)
+        plain_ms = (time_ms(lambda: hawkes_scan_reference(flow, *args), 5, 1)
+                    if t_bins == 32 else
+                    1e3 * scans[(t_bins, "stationary")][2])
+        k5[t_bins] = dict(
+            ms=time_ms(lambda: hawkes_scan(flow, *args), runs),
+            device_ms=device_ms(lambda: hawkes_scan(flow, *args), runs),
+            plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+            events=scans[(t_bins, "stationary")][1])
+    for t_bins, r in k5.items():
+        print(f"phase 10 (a) [{card}]: hawkes_scan (K5) T={t_bins}: equal to "
+              f"its plain version on the card (occur, etype, oid, next_oid; "
+              f"lam bit-equal), {r['events']} events from the stationary "
+              f"lam; ms {r['ms']:.4f} (median), device_ms "
+              f"{r['device_ms']:.4f}; plain {r['plain_ms']:.3f} ms "
+              f"({'median of 5' if t_bins == 32 else 'one run'}); bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}, "
+              f"{chain:.1f} cycles a bin at {SM_CLOCK_HZ / 1e9:.2f} GHz); "
+              f"the kernel {r['device_ms'] * 1e-3 * SM_CLOCK_HZ / t_bins:.1f}"
+              f" cycles a bin")
+    print(f"phase 10 (a) [{card}]: latency probe (one thread, clock64, best "
+          f"of 3 x 2**14 dependent steps), cycles a step: add "
+          f"{lat['add']:.2f}, logf(x + c) {lat['log']:.2f}, expf(x * c) "
+          f"{lat['exp']:.2f}, compare-select {lat['cs']:.2f}; a bin's least "
+          f"dependent path max(log + add + 3 cs, 6 add + exp + add) + cs + "
+          f"add = {chain:.2f} cycles")
+
+    # (b) geometry (i): 256 lanes, the reference's acceptance rollout.
+    config_i = sim_env_config(sizes["sim_i_lanes"])
+    run_i = sim_rollout("phase 10 (b)", config_i, sizes["sim_i_steps"],
+                        device, keep_every=sizes["sim_i_steps"] // 4)
+    pure_step_check("phase 10 (b) env_step twice", config_i,
+                    run_i["final"], device)
+    manifest = make_manifest(config_i, SIM_SEED, 200)
+    digest = run_from_manifest(manifest, device)
+    again = run_from_manifest(manifest, device)
+    with tempfile.TemporaryDirectory(prefix="phase10-") as work:
+        path = os.path.join(work, "manifest.json")
+        with open(path, "w") as f:
+            json.dump(manifest, f)
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--sim-worker", path],
+            capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise SystemExit(f"phase 10 (b): sim worker exited {proc.returncode}:"
+                         f"\n{proc.stderr[-3000:]}")
+    there = json.loads(proc.stdout.strip().splitlines()[-1])
+    if not (digest == again == there):
+        raise SystemExit(f"phase 10 (b): digests differ: {digest}, {again}, "
+                         f"{there}")
+    cpu_events = card_against_cpu("phase 10 (b) card against CPU", config_i,
+                                  50, device)
+    small = sim_rollout("phase 10 (b) 64 lanes", sim_env_config(64),
+                        sizes["sim_small_steps"], device,
+                        keep_every=sizes["sim_small_steps"] // 2)
+    print(f"phase 10 (b): env_reset(seed {SIM_SEED}) + rollout of "
+          f"{run_i['steps']:,} steps at {sizes['sim_i_lanes']} lanes (cap 32, "
+          f"K 8, int32, T 2+32) under "
+          f"set_sync_debug_mode('error'): {run_i['events']} events, "
+          f"{run_i['trades']} trades, overflow 0 / 0, rewards finite "
+          f"{run_i['finite']}; env_step twice on one state equal; "
+          f"run_from_manifest (200 steps) digest {digest['digest'][:16]}… "
+          f"twice in process and in a fresh `--sim-worker` process; 50 steps"
+          f" with the scripted agent on the card equal to the CPU's with the "
+          f"same draws ({cpu_events} events; reward, cash and mark to market "
+          f"within 2**-18 of scale)")
+    for line in run_i["kept_lines"] + small["kept_lines"]:
+        print(line)
+
+    # (c) geometry (ii): the engine's production width.
+    config_ii = sim_env_config(sizes["sim_lanes"])
+    run_ii = sim_rollout("phase 10 (c)", config_ii, sizes["sim_ii_steps"],
+                         device, keep_every=sizes["sim_ii_steps"] // 4)
+    pure_step_check("phase 10 (c) env_step twice", config_ii,
+                    run_ii["final"], device)
+    m_ii = make_manifest(config_ii, SIM_SEED, 20)
+    if run_from_manifest(m_ii, device) != run_from_manifest(m_ii, device):
+        raise SystemExit("phase 10 (c): in-process digests differ")
+    ii_events = card_against_cpu("phase 10 (c) card against CPU", config_ii,
+                                 sizes["sim_ii_cpu_steps"], device)
+    from gome_tpu_torch.sim import env_reset, rollout
+
+    state, _ = env_reset(config_ii, SIM_SEED, device)
+    rollout(config_ii, state, 3)
+    sync(device)
+    with step_split() as parts:
+        t0 = time.perf_counter()
+        rollout(config_ii, state, 100)
+        sync(device)
+        split_s = time.perf_counter() - t0
+    split = split_text(parts, split_s, 100)
+    print(f"phase 10 (c): rollout of {run_ii['steps']:,} steps at "
+          f"{sizes['sim_lanes']:,} lanes under set_sync_debug_mode('error'): "
+          f"{run_ii['events']} "
+          f"events, {run_ii['trades']} trades, overflow 0 / 0; env_step twice "
+          f"equal; run_from_manifest (20 steps) twice equal; "
+          f"{sizes['sim_ii_cpu_steps']} steps on the card equal to the CPU's "
+          f"({ii_events} events)")
+    for line in run_ii["kept_lines"]:
+        print(line)
+
+    # (d) geometry (iii): the simulator as the service's traffic source.
+    orders, gen = sim_traffic(device, sizes["sim_orders"], sizes["sim_lanes"],
+                              sizes["sim_t"], sizes["sim_pump_keep"])
+    c_secs, c_launches, n_events, c_worst, c_line = sim_consumer(
+        device, orders, sizes["batch"], sizes["sim_lanes"])
+    print(f"phase 10 (d): {len(orders):,} simulated orders ({gen['pumps']} "
+          f"pumps of a {sizes['sim_lanes']:,} x {sizes['sim_t']:,} grid, "
+          f"sim-side books cap 64 K 8) "
+          f"through the consumer at depth 0 in frames of {sizes['batch']}: "
+          f"{n_events} events equal to the oracle, seqs 0..n-1, books "
+          f"verified; bin_columns equal to grid_to_columns on pump 0")
+    for line in gen["kept_lines"] + [c_line]:
+        print(line)
+    stats_lines = sim_stats_check(device, sizes["sim_lanes"], sizes["sim_t"])
+    for line in stats_lines:
+        print(line)
+    seconds = time.perf_counter() - t_phase
+
+    for tag, lanes, r in (("b", sizes["sim_i_lanes"], run_i), ("b", 64, small),
+                          ("c", sizes["sim_lanes"], run_ii)):
+        print(f"phase 10 ({tag}) [{card}]: rollout at {lanes} lanes: "
+              f"{r['steps'] / r['secs']:,.1f} steps/s, "
+              f"{r['events'] / r['secs']:,.0f} events/s "
+              f"({r['steps']} steps in {r['secs']:.3f} s; "
+              f"{r['events'] / r['steps']:.3f} events and "
+              f"{r['trades'] / r['steps']:.3f} trades per step); K1 "
+              f"{r['launches'][0]}, K5 {r['launches'][1]} launches")
+    print(f"phase 10 (c) [{card}]: one step at {sizes['sim_lanes']:,} lanes "
+          f"(mean of 100): "
+          f"{1e3 * split_s / 100:.3f} ms: {split}")
+    dev = gen["device_s"]
+    print(f"phase 10 (d) [{card}]: generator {len(orders) / gen['secs']:,.0f} "
+          f"orders/s ({gen['pumps']} pumps in {gen['secs']:.3f} s, "
+          f"{len(orders) / gen['pumps']:.1f} orders a pump); device: "
+          + ", ".join(f"{p} {v:.4f} s" for p, v in dev.items())
+          + f"; fetch (bin_columns, waits for the pump) {gen['fetch_s']:.4f} "
+          f"s; K1 {gen['launches'][0]}, K5 {gen['launches'][1]} launches; "
+          f"peak device memory {gen['peak_gb']:.2f} GB (with the kept "
+          f"inputs of every {sizes['sim_pump_keep']}th pump); consumer "
+          f"{len(orders) / c_secs:,.0f} orders/s ({c_secs:.3f} s, "
+          f"{c_launches} K1 launches)")
+    print(f"phase 10 [{card}]: in all {seconds:.1f} s")
+    head = k5[scan_t[0]]
+    runs = (run_i, small, run_ii, gen)
+    return dict(
+        k5=k5, seconds=seconds,
+        worst=max([r["worst"] for r in runs] + [c_worst]),
+        hawkes_row=dict(
+            max_abs_err=max([scan_worst] + [r["scan_worst"] for r in runs]),
+            ms=head["ms"], device_ms=head["device_ms"],
+            plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], launches=run_i["launches"][1],
+            per_t={str(t): r for t, r in k5.items()},
+            sim_path_launches=dict(
+                rollout_256=run_i["launches"][1],
+                rollout_64=small["launches"][1],
+                rollout_10240=run_ii["launches"][1],
+                traffic=gen["launches"][1])),
+        k1_launches=dict(
+            rollout_256=run_i["launches"][0], rollout_64=small["launches"][0],
+            rollout_10240=run_ii["launches"][0],
+            traffic_pumps=gen["launches"][0], traffic_consumer=c_launches))
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 def time_ms(fn, runs: int, warmup: int = 3) -> float:
@@ -2681,28 +3411,33 @@ def load_kernel(card: str) -> None:
     from gome_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        kernel = pool.submit(build.load, "match_step")
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        kernels = [pool.submit(build.load, name) for name in KERNEL_ROWS]
         host = pool.submit(host_build.load)
-        kernel.result()
+        for kernel in kernels:
+            kernel.result()
         if host.result() is None:
             raise SystemExit("phase 1: no g++ on PATH: the port's native "
                              "host layer cannot be built")
-    info = build.build_info.get("match_step")
-    print(f"phase 1 [{card}]: match_step kernel ready in "
+    built = [name for name in KERNEL_ROWS if name in build.build_info]
+    print(f"phase 1 [{card}]: kernels {', '.join(KERNEL_ROWS)} ready in "
           f"{time.perf_counter() - t0:.1f} s"
-          + (" (built by nvcc)" if info else " (cached build)")
+          + (f" (built by nvcc: {', '.join(built)})" if built
+             else " (cached builds)")
           + f"; native host library: {host_line()}")
-    if info:
-        for line in info[1].splitlines():
+    for name in built:
+        for line in build.build_info[name][1].splitlines():
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
-                print(f"  ptxas: {line.strip()}", file=sys.stderr)
+                print(f"  ptxas {name}: {line.strip()}", file=sys.stderr)
 
 
 def main() -> int:
     if sys.argv[1:2] == ["--persist-worker"]:
         return persist_worker(sys.argv[1:])
+    if sys.argv[1:2] == ["--sim-worker"]:
+        return sim_worker(sys.argv[1:])
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
               "a CUDA card", file=sys.stderr)
@@ -2715,7 +3450,11 @@ def main() -> int:
     load_kernel(card)
 
     sizes = dict(a=10240, b=1024, c=64, d=512, e_rows=2048, e_t=512,
-                 zipf_n=200_000, symbols=10240, hot_n=20_000, batch=8192)
+                 zipf_n=200_000, symbols=10240, hot_n=20_000, batch=8192,
+                 sim_scan_t=(32, 1024, 65536), sim_i_lanes=256,
+                 sim_i_steps=1000, sim_small_steps=200, sim_lanes=10240,
+                 sim_t=1024, sim_orders=50_000, sim_pump_keep=128,
+                 sim_ii_steps=1000, sim_ii_cpu_steps=10)
     worst, timing = phase2(device, sizes)
     launches, orders_per_s, split, engine_s, zipf, want_zipf = phase3(
         device, sizes)
@@ -2808,6 +3547,7 @@ def main() -> int:
         print(line)
     print_phase8(card, sizes, s_runs, runs)
     p9 = phase9(card, device, sizes, zipf, want_zipf, s_runs["c"]["secs"])
+    p10 = phase10(card, device, sizes)
     h_launches = ab_runs[0][2]["launches"]
     row = dict(name="match_step", **KERNEL_ROWS["match_step"],
                launches=launches, frame_path_launches=f_launches,
@@ -2819,16 +3559,23 @@ def main() -> int:
                    durable_service=p9["svc"]["launches"],
                    restored_service_replay=p9["svc"]["replay_launches"],
                    redis_migration=p9["migration"]["launches"]),
+               sim_path_launches=p10["k1_launches"],
                max_abs_err=max(worst, f_worst, c_worst, s_worst,
                                p9["drill"]["final"]["kernel_worst"],
-                               p9["svc"]["worst"]),
+                               p9["svc"]["worst"], p10["worst"]),
                ms=results["a"]["ms"],
                device_ms=results["a"]["device_ms"], plain_ms=results["a"]["plain_ms"],
                bound_ms=results["a"]["bound_ms"],
                bound_by=results["a"]["bound_by"], library_ms=None,
                checked=True, grid="a", main_path_grid=dict(
                    grid="e", library_ms=None, **results["e"]))
-    print(json.dumps({"kernels": [row]}))
+    scan_row = dict(name="hawkes_scan", **KERNEL_ROWS["hawkes_scan"],
+                    library_ms=None, checked=True,
+                    T=sizes["sim_scan_t"][0],
+                    **p10["hawkes_row"])
+    print(f"chip_smoke [{card}]: phases 1-10 in "
+          f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [row, scan_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

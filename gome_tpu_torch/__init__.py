@@ -10,8 +10,9 @@ Layout:
   gome_tpu_torch.oracle   — pure-Python executable model of the semantics
   gome_tpu_torch.engine   — torch book state, the step, BatchEngine, the
                             frame path and the MatchEngine facade
-  gome_tpu_torch.ops      — the hand-written CUDA match-step kernel and its
-                            plain PyTorch version
+  gome_tpu_torch.ops      — the hand-written CUDA kernels (the match step,
+                            the simulator's Hawkes bin scan), each beside
+                            its plain PyTorch version
   gome_tpu_torch.config   — the typed YAML configuration (the same file
                             loads into gome_tpu's)
   gome_tpu_torch.bus      — memory and file queues, the JSON codecs and the
@@ -28,6 +29,9 @@ Layout:
                             schema both ways, the RESP client and its
                             stand-in server
   gome_tpu_torch.clients  — the gRPC load and cancel clients
+  gome_tpu_torch.sim      — the market simulator: Hawkes/Zipf order flow,
+                            the RL environment, seeded replay and record
+                            mode, flow statistics
   gome_tpu_torch.utils    — synthetic order streams, logging, metrics,
                             fault injection, tracing (torch.profiler)
 

@@ -33,6 +33,7 @@ from typing import TYPE_CHECKING, Any, TypeVar
 
 if TYPE_CHECKING:
     from .engine.book import BookConfig
+    from .sim.env import EnvConfig
     from .utils.faults import FaultPlan
 
 from .fixed import DEFAULT_ACCURACY
@@ -383,8 +384,29 @@ class SimConfig:
                 f"{br:.3f} >= 1 (lower excite_* or raise decay)"
             )
 
-    # env_config() (the sim.env.EnvConfig builder) comes with the port of
-    # sim/ (ROADMAP Queue 1 item 7); the section's fields load already.
+    def env_config(self) -> "EnvConfig":
+        """Build the sim.env.EnvConfig."""
+        from .engine.book import BookConfig
+        from .sim.env import EnvConfig
+        from .sim.flow import FlowConfig
+
+        flow = FlowConfig(
+            n_lanes=self.n_lanes, t_bins=self.t_bins, dt=self.dt,
+            submit_rate=self.submit_rate, cancel_rate=self.cancel_rate,
+            market_rate=self.market_rate, excite_self=self.excite_self,
+            excite_cross=self.excite_cross, excite_kind=self.excite_kind,
+            decay=self.decay, zipf_a=self.zipf_a, offset_p=self.offset_p,
+            max_offset=self.max_offset, ref_price=self.ref_price,
+            ref_spread=self.ref_spread, vol_max=self.vol_max,
+            n_uids=self.n_uids,
+        )
+        book = BookConfig(
+            cap=self.cap, max_fills=self.max_fills, dtype=self.dtype,
+        )
+        return EnvConfig(
+            flow=flow, book=book, n_agent_ops=self.n_agent_ops,
+            obs_levels=self.obs_levels,
+        )
 
 
 @dataclasses.dataclass(frozen=True)

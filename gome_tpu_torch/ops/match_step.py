@@ -36,10 +36,21 @@ def batch_step_reference(
     config: BookConfig, books: BookState, ops: DeviceOp
 ) -> tuple[BookState, StepOutput]:
     """Plain PyTorch version of the kernel: for t in 0..T-1 apply op[:, t]
-    to every row at once."""
+    to every row at once. A column of NOPs leaves every book as it was and
+    yields zeros, so it is not stepped."""
     rows = book_to_rows(books)
+    s, k = ops.action.shape[0], config.max_fills
+    nop = StepOutput(*(
+        torch.zeros((s, k) if f in RECORD_FIELDS else (s,),
+                    dtype=torch.int32 if f in OUT_I32_FIELDS else config.dtype,
+                    device=books.price.device)
+        for f in StepOutput._fields
+    ))
     outs = []
-    for t in range(ops.action.shape[1]):
+    for t, live in enumerate((ops.action != 0).any(dim=0).tolist()):
+        if not live:
+            outs.append(nop)
+            continue
         *rows, out = step_rows(config, *rows, DeviceOp(*(f[:, t] for f in ops)))
         outs.append(out)
     stacked = StepOutput(

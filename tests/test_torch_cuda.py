@@ -1,5 +1,6 @@
-"""Tests that need the CUDA card: the match-step kernel against its plain
-PyTorch version, and the engine on the card against the oracle. They skip
+"""Tests that need the CUDA card: the match-step kernel and the Hawkes
+bin scan against their plain PyTorch versions, the engine on the card
+against the oracle, and the simulator on the card against the CPU. They skip
 where torch.cuda.is_available() is False. This file imports no JAX, so on
 a machine with the card and no JAX it runs as
 
@@ -230,3 +231,41 @@ def test_need_exact_with_a_frame_in_flight_on_the_card(cuda):
     resubmitted, events equal to the oracle."""
     line = chip_smoke.consumer_fill_buffer_check(cuda, 64)
     assert "1 frame fallback" in line
+
+
+@pytest.mark.parametrize("t_bins, start", [(1, "mu"), (32, "mu"),
+                                           (1024, "stationary"),
+                                           (3000, "stationary")])
+def test_hawkes_scan_kernel_matches_plain_version(cuda, t_bins, start):
+    """K5 against its plain version on draws made on the card: occur,
+    etype, oid and next_oid equal, lam bit-equal; T = 3,000 crosses the
+    kernel's 1,024-bin staging chunks."""
+    from gome_tpu_torch.ops import hawkes_scan
+    from gome_tpu_torch.sim import FlowConfig
+
+    config = FlowConfig()
+    lam0 = config.mu() if start == "mu" else chip_smoke.stationary_lam(config)
+    args = chip_smoke.scan_inputs(config, t_bins, lam0, t_bins, cuda)
+    before = [a.clone() for a in args]
+    hawkes_scan.hawkes_scan.launches = 0
+    chip_smoke.check_scan(f"T={t_bins}", config, args)
+    assert hawkes_scan.hawkes_scan.launches == 1
+    for a, b in zip(args, before):
+        assert torch.equal(a, b)  # the kernel never writes its inputs
+
+
+def test_sim_env_on_the_card_equals_the_cpu(cuda):
+    """Eight env_steps with a scripted agent at 64 lanes, on the card and
+    on the CPU with the same draws: books, Obs and StepInfo equal; then a
+    rollout on the card with one K1 and one K5 launch a step."""
+    from gome_tpu_torch.ops import hawkes_scan
+    from gome_tpu_torch.sim import env_reset, rollout
+
+    config = chip_smoke.sim_env_config(64)
+    assert chip_smoke.card_against_cpu("card", config, 8, cuda) > 0
+    state, _ = env_reset(config, 1, cuda)
+    match_step.batch_step.launches = hawkes_scan.hawkes_scan.launches = 0
+    final, (rewards, info) = rollout(config, state, 20)
+    assert match_step.batch_step.launches == 20
+    assert hawkes_scan.hawkes_scan.launches == 20
+    assert int(final.t) == 20 and bool(torch.isfinite(rewards).all())

@@ -40,6 +40,9 @@ def is_forbidden(module: str) -> bool:
 def test_port_files_were_found():
     assert "chip_smoke.py" in PORT_FILES
     assert "gome_tpu_torch/ops/match_step.py" in PORT_FILES
+    assert "gome_tpu_torch/ops/hawkes_scan.py" in PORT_FILES
+    for name in ("__init__", "flow", "env", "replay", "stats"):
+        assert f"gome_tpu_torch/sim/{name}.py" in PORT_FILES
     assert len(PORT_FILES) > 10
 
 
@@ -64,7 +67,9 @@ def test_importing_the_port_loads_neither():
         "gome_tpu_torch.engine.nativehost, gome_tpu_torch.config, "
         "gome_tpu_torch.api, gome_tpu_torch.clients, "
         "gome_tpu_torch.service.app, gome_tpu_torch.service.gateway, "
-        "gome_tpu_torch.persist, gome_tpu_torch.persist.respserver\n"
+        "gome_tpu_torch.persist, gome_tpu_torch.persist.respserver, "
+        "gome_tpu_torch.sim, gome_tpu_torch.sim.stats, "
+        "gome_tpu_torch.ops.hawkes_scan\n"
         "bad = [m for m in sys.modules if m in ('jax', 'gome_tpu') or "
         "m.startswith(('jax.', 'gome_tpu.'))]\n"
         "print(bad)\n"
