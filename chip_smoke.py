@@ -147,7 +147,30 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      with its split (step_split around flow._gen's parts) and the
      consumer's;
      (e) tests/test_sim.py's statistical bounds on the card's generator,
-     and the Zipf fit at 10,240 lanes.
+     and the Zipf fit at 10,240 lanes;
+ 11. the mesh (gome_tpu_torch.parallel): (a) sharded_batch_step on grid
+     (a) and sharded_dense_step on a dense grid of the Zipf flow (a
+     quarter frame packed on the books of the first five), at D = 1, 2, 4 on
+     cuda:0 blocks: books and every StepOutput leaf equal to the unsharded
+     K1 call and to the plain version per shard, one K1 launch per shard;
+     (b) phase 3's flow through process_frame(fast) on a D=4 mesh of
+     cuda:0 blocks, and on min(4, cards) distinct cards where there are
+     two or more: events equal to the oracle, books verified, export_state
+     equal to an unsharded engine's, no host sync in any submit_frame, K1
+     equal to its plain version at the run's inputs, K1 launches one per
+     shard per grid; orders/s beside the unsharded engine's and phase 5's,
+     the CUDA-event span of the output gathers onto the home device, and
+     shard_execution_report's per-shard ms and skew on the run's widest
+     dense grid; (c) ShardedEngine (4 shards) on the flow's first 20,000
+     orders: events equal to the oracle; (d) EngineService with
+     engine.mesh_devices = the card count serving phase 8 (c)'s flow with
+     no subscriber: match-queue bodies byte-equal to phase 8 (c)'s,
+     orders/s beside it, then load_client; (e) a snapshot of (b)'s D=4
+     engine restored into D = 4, 2, 1 and a non-mesh engine: books equal
+     leaf by leaf, 10,000 more orders equal to the oracle on each;
+     restore_from_redis into meshes of 4 and 3 shards rounds n_slots to
+     the mesh size. (b) to (e) each hold K1 against its plain version at
+     the inputs their run gave it, on every card the run used.
 
 The last two lines are the kernel table (JSON) and
 {"ok": true, "device": {...}}.
@@ -820,7 +843,7 @@ def keep_kernel_inputs(every: int = 0):
     """Wrap K1's and K5's wrappers (match_step.batch_step,
     hawkes_scan.hawkes_scan) for the block and keep inputs for
     check_kept_inputs / check_kept_scans to re-run: for each K1 launch
-    shape (cap, K, dtype) its deepest grid (most ops per row) and its
+    shape (cap, K, dtype, card) its deepest grid (most ops per row) and its
     widest (most rows); with `every`, also each kernel's first call, every
     `every`-th call after it and its last. The port never writes a
     kernel's input books, ops or draws in place, so they still hold what
@@ -845,7 +868,7 @@ def keep_kernel_inputs(every: int = 0):
                 config, _, ops = args
                 s, t = ops.action.shape
                 shape = (f"{config.cap}/K{config.max_fills}/"
-                         f"{str(config.dtype)[6:]}")
+                         f"{str(config.dtype)[6:]}{card_tag(ops.action)}")
                 hold(name, f"deep {shape}", (t, s), args)
                 hold(name, f"wide {shape}", (s, t), args)
             if every:
@@ -862,6 +885,11 @@ def keep_kernel_inputs(every: int = 0):
     finally:
         for (mod, name), fn in zip(places, saved):
             setattr(mod, name, fn)
+
+
+def card_tag(t: torch.Tensor) -> str:
+    """Empty on the first card, "@cuda:<i>" on any other."""
+    return "" if t.device.index in (None, 0) else f"@{t.device}"
 
 
 def distinct_kept(kept, name) -> list:
@@ -889,7 +917,7 @@ def check_kept_inputs(label, kept) -> tuple[int, str]:
                              f"{config.dtype} (max |err| {err})")
         worst = max(worst, err)
         shape = (f"{s}x{t}@{config.cap}/K{config.max_fills}/"
-                 f"{str(config.dtype)[6:]}")
+                 f"{str(config.dtype)[6:]}{card_tag(ops.action)}")
         shapes[shape] = shapes.get(shape, 0) + 1
     which = "the deepest and the widest grid of each launch shape"
     if "last" in kept["batch_step"]:
@@ -1724,8 +1752,17 @@ def wait_drained(label, svc, limit_s: float, n_events: int = 0) -> float:
     return time.perf_counter()
 
 
+def expected_launches(engine) -> int:
+    """K1 launches an engine's device calls make: one per shard for each
+    grid step (one shard without a mesh), one for each per-row
+    fill-record re-run."""
+    st, mesh = engine.stats, engine.batch.mesh
+    per_row = st.fill_record_escalations
+    return (mesh.size if mesh else 1) * (st.device_calls - per_row) + per_row
+
+
 def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
-                kernel, subscribe: bool = True):
+                kernel, subscribe: bool = True, mesh_devices: int = 0):
     """Phase 8, one run: EngineService from a Config written in code (gRPC
     on port 0, ops on), started on the card; with `subscribe`, a
     SubscribeMatches stream opened through the port's OrderStub first; the
@@ -1736,7 +1773,9 @@ def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
     and load_client over the same server. `kernel` is the match-step
     wrapper whose launch count is read (imported before
     keep_kernel_inputs wraps it). The consumer's own parts are timed as
-    in phase 6 (host_split)."""
+    in phase 6 (host_split). `mesh_devices` goes into the engine's config
+    (the lane axis over that many cards). Without a subscriber the
+    match-queue bodies of the flow are returned under "bodies"."""
     import grpc
 
     from gome_tpu_torch.api import order_pb2 as pb
@@ -1749,11 +1788,14 @@ def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
     from gome_tpu_torch.service.app import OBS_FLAGS
     from gome_tpu_torch.service.matchfeed import match_result_to_pb
 
-    label = f"phase 8 depth {depth}" + ("" if subscribe else ", no subscriber")
+    label = (f"phase 8 depth {depth}" if not mesh_devices else
+             f"phase 11 (d) mesh_devices {mesh_devices}, depth {depth}") + (
+        "" if subscribe else ", no subscriber")
     cfg = Config(
         grpc=GrpcConfig(host="127.0.0.1", port=0),
         engine=EngineConfig(cap=256, max_fills=16, n_slots=sizes["symbols"],
-                            max_t=32, pipeline_depth=depth),
+                            max_t=32, pipeline_depth=depth,
+                            mesh_devices=mesh_devices),
         ops=OpsConfig(enabled=True, port=0, trace=False,
                       **dict.fromkeys(OBS_FLAGS, False)))
     svc = EngineService(cfg)
@@ -1799,10 +1841,10 @@ def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
                 launches = kernel.launches
                 split = dict(spent)
                 consumer_split = dict(consumer_split)
-            calls = svc.engine.stats.device_calls
+            calls = expected_launches(svc.engine)
             if launches <= 0 or launches != calls:
                 raise SystemExit(f"{label}: {launches} kernel launches for "
-                                 f"{calls} device calls")
+                                 f"{calls} expected from the device calls")
             if subscribe:
                 sub.call.cancel()
                 sub.join(30)
@@ -1816,8 +1858,8 @@ def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
                                      f"{bad} ({sub.error})")
             else:
                 mq = svc.bus.match_queue
-                got = [decode_match_result(m.body)
-                       for m in mq.read_from(0, mq.end_offset())]
+                bodies = [m.body for m in mq.read_from(0, mq.end_offset())]
+                got = [decode_match_result(b) for b in bodies]
                 check_events(label, unstamped(got), want)
                 if [e.seq for e in got] != list(range(len(want))):
                     raise SystemExit(f"{label}: seqs not 0..{len(want) - 1}")
@@ -1866,7 +1908,8 @@ def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
                 split=split, consumer_split=consumer_split,
                 subscribe=subscribe, counters=counters, load=load,
                 load_secs=load_secs, events=len(want),
-                requests=len(requests))
+                requests=len(requests),
+                bodies=None if subscribe else bodies)
 
 
 def phase8(sizes, zipf):
@@ -1915,7 +1958,7 @@ def phase8(sizes, zipf):
         f"{r['load']['sent']} ok; books verified"
         for tag, r in runs.items()]
     lines.append(kept_line)
-    return runs, worst, lines
+    return runs, worst, lines, (requests, tail, want)
 
 
 def print_phase8(card: str, sizes, s_runs, p6_runs) -> None:
@@ -3342,6 +3385,514 @@ def phase10(card: str, device, sizes) -> dict:
             traffic_pumps=gen["launches"][0], traffic_consumer=c_launches))
 
 
+# -- phase 11 ----------------------------------------------------------------
+
+MESH_SIZES = (1, 2, 4)
+
+
+@contextlib.contextmanager
+def plain_k1():
+    """K1's wrapper replaced by its plain version for the block: the
+    sharded steps look match_step.batch_step up at every call, so inside
+    it they run the plain version on the same blocks."""
+    from gome_tpu_torch.ops import match_step
+
+    inner = match_step.batch_step
+    match_step.batch_step = match_step.batch_step_reference
+    try:
+        yield
+    finally:
+        match_step.batch_step = inner
+
+
+def one_card_mesh(device, d: int):
+    """d shards, every block on `device` (one card)."""
+    from gome_tpu_torch.parallel import make_mesh
+
+    return make_mesh(d, devices=[device] * d)
+
+
+def launches_of(fn):
+    """fn() and the K1 launches it made (the count set to 0 just
+    before)."""
+    from gome_tpu_torch.ops import match_step
+
+    match_step._counted.launches = 0
+    out = fn()
+    return out, match_step._counted.launches
+
+
+def sharded_steps_check(device, sizes, timing, zipf):
+    """Phase 11 (a): sharded_batch_step on phase 2's grid (a) and
+    sharded_dense_step on a dense grid of the Zipf flow (the first quarter
+    of the 6th frame packed on books the first five frames built), each
+    at D = 1, 2, 4 on
+    cuda:0 blocks: new books and every StepOutput leaf equal to the
+    unsharded K1 call and to the same sharded step with K1's plain
+    version. Returns (worst |error|, report lines, the K1 launches of
+    each call as {step: {"D=<d>": n}})."""
+    from gome_tpu_torch.engine import BookConfig, DeviceOp
+    from gome_tpu_torch.engine.batch import BatchEngine
+    from gome_tpu_torch.ops.match_step import batch_step
+    from gome_tpu_torch.parallel import (shard_batch, sharded_batch_step,
+                                         sharded_dense_step)
+    from gome_tpu_torch.parallel.mesh import localize_ids
+
+    worst, lines = 0, []
+    counts = {"sharded_batch_step": {}, "sharded_dense_step": {}}
+    home = one_card_mesh(device, 1).home
+    config, books, ops = timing["a"]
+    ref_books, ref_outs = batch_step(config, books, ops)
+    per_d = []
+    for d in MESH_SIZES:
+        mesh = one_card_mesh(device, d)
+        sb, so = shard_batch(mesh, books), shard_batch(mesh, ops)
+        step = sharded_batch_step(config, mesh)
+        (kb, ko), n = launches_of(lambda: step(sb, so))
+        with plain_k1():
+            pb, po = step(sb, so)
+        sync(device)
+        kb, ko = kb.gather(), ko.gather()
+        err = max(max_abs_err(kb, ref_books), max_abs_err(ko, ref_outs),
+                  max_abs_err(kb, pb.gather()), max_abs_err(ko, po.gather()))
+        if err or n != d:
+            raise SystemExit(f"phase 11 (a) full grid D={d}: max |err| "
+                             f"{err}, {n} K1 launches")
+        worst = max(worst, err)
+        counts["sharded_batch_step"][f"D={d}"] = n
+        per_d.append(f"D={d} {n} launch{'es' if n > 1 else ''} of "
+                     f"{sb.block_rows}x{ops.action.shape[1]}")
+    s, t = ops.action.shape
+    lines.append(f"phase 11 (a): sharded_batch_step on grid (a) ({s}x{t}, "
+                 f"cap {config.cap}, K {config.max_fills}, int32) on {home} "
+                 f"blocks: books and every StepOutput leaf equal to the "
+                 f"unsharded K1 call and to the plain version per shard; "
+                 f"per-shard K1 launches: " + ", ".join(per_d))
+
+    cfg = BookConfig(cap=256, max_fills=16, dtype=torch.int32)
+    batch = sizes["batch"]
+    base = BatchEngine(cfg, n_slots=sizes["symbols"], max_t=32,
+                       device=device)
+    base.process_columnar(list(zipf[:5 * batch]))
+    state = base.export_state()
+    pending = list(enumerate(zipf[5 * batch:5 * batch + batch // 4]))
+    per_d = []
+    for d in MESH_SIZES:
+        eng = BatchEngine(cfg, n_slots=sizes["symbols"], max_t=32,
+                          mesh=one_card_mesh(device, d))
+        eng.import_state(state)
+        grid, meta, _, lane_ids = eng._pack_grid_vectorized(pending)
+        if lane_ids is None:
+            raise SystemExit(f"phase 11 (a) D={d}: the frame packed a full "
+                             "grid")
+        mesh, n_slots = eng.mesh, eng.n_slots
+        step_cfg = dataclasses.replace(
+            eng.config, max_fills=min(eng.config.max_fills, eng.config.cap))
+        ids = localize_ids(lane_ids, n_slots, mesh)
+        so = shard_batch(mesh, grid)
+        step = sharded_dense_step(step_cfg, mesh)
+        (kb, ko), n = launches_of(lambda: step(eng.books, ids, so))
+        with plain_k1():
+            pb, po = step(eng.books, ids, so)
+        # The unsharded K1 call on the same rows, live rows first.
+        perm = np.argsort(lane_ids >= n_slots, kind="stable")
+        u = BatchEngine(cfg, n_slots=n_slots, max_t=32, device=device)
+        u.import_state(state)
+        ub, uo = u._step(u.books, u._upload_tree(DeviceOp(
+            *(a[perm] for a in grid))), lane_ids[perm])
+        sync(device)
+        kb, ko = kb.gather(), ko.gather()
+        at = torch.from_numpy(perm).to(device)
+        ko_perm = type(ko)(*(a[at] for a in ko))
+        err = max(max_abs_err(kb, ub), max_abs_err(ko_perm, uo),
+                  max_abs_err(kb, pb.gather()), max_abs_err(ko, po.gather()))
+        if err or n != d:
+            raise SystemExit(f"phase 11 (a) dense grid D={d}: max |err| "
+                             f"{err}, {n} K1 launches")
+        worst = max(worst, err)
+        counts["sharded_dense_step"][f"D={d}"] = n
+        live = np.bincount(lane_ids[lane_ids < n_slots] // (n_slots // d),
+                           minlength=d)
+        per_d.append(f"D={d} {n} launch{'es' if n > 1 else ''} of "
+                     f"{so.block_rows}x{grid.action.shape[1]} (live rows "
+                     f"{'/'.join(map(str, live))})")
+        del eng, u
+    lines.append(f"phase 11 (a): sharded_dense_step on the Zipf flow "
+                 f"({len(pending)} orders after {5 * batch}, "
+                 f"{len(meta['arrival'])} "
+                 f"packed, cap {state['cap']}) on {home} blocks: books and "
+                 f"every StepOutput leaf equal to the unsharded K1 call on "
+                 f"the same rows and to the plain version per shard; "
+                 f"per-shard K1 launches: " + ", ".join(per_d))
+    return worst, lines, counts
+
+
+@contextlib.contextmanager
+def gather_timer(engine):
+    """CUDA events around every Sharded.gather the engine's mesh makes in
+    the block (the per-grid StepOutput join onto the home device and the
+    count join of the fetch), recorded on the home device's stream.
+    Yields the list of (start, end) pairs."""
+    from gome_tpu_torch.parallel import Sharded
+
+    home = engine.batch.mesh.home
+    inner = Sharded.gather
+    spans = []
+
+    def gather(self, device=None):
+        stream = torch.cuda.current_stream(home)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record(stream)
+        out = inner(self, device)
+        b.record(stream)
+        spans.append((a, b))
+        return out
+
+    Sharded.gather = gather
+    try:
+        yield spans
+    finally:
+        Sharded.gather = inner
+
+
+def mesh_frame_run(label, device, sizes, frame_list, want, mesh) -> dict:
+    """Phase 11 (b), one run: the flow through MatchEngine.process_frame
+    (fast) on `mesh`, every submit_frame checked for host syncs, K1 held
+    against its plain version at the inputs the run gave it, then
+    shard_execution_report on the run's largest dense grid."""
+    from gome_tpu_torch.engine import BookConfig, MatchEngine
+    from gome_tpu_torch.ops.match_step import batch_step
+    from gome_tpu_torch.parallel import shard_execution_report
+
+    eng = MatchEngine(BookConfig(cap=256, max_fills=16, dtype=torch.int32),
+                      n_slots=sizes["symbols"], max_t=32, mesh=mesh)
+    host = require_host(eng, label)
+    batch = eng.batch
+    inner = batch._step
+    widest = {}
+
+    def step(books, ops, lane_ids=None, cap_g=None):
+        if lane_ids is not None and len(lane_ids) > widest.get("rows", 0):
+            cap = batch.config.cap if cap_g is None else cap_g
+            widest.update(rows=len(lane_ids), args=(dataclasses.replace(
+                batch.config, cap=cap,
+                max_fills=min(batch.config.max_fills, cap)),
+                books, lane_ids, ops))
+        return inner(books, ops, lane_ids, cap_g)
+
+    batch._step = step
+    batch_step.launches = 0
+    try:
+        with keep_kernel_inputs() as kept, gather_timer(eng) as spans, \
+                no_host_sync() as checked:
+            got, secs = run_frames(eng, frame_list)
+        launches = batch_step.launches
+    finally:
+        del batch._step
+    gather_s = span_seconds(spans)
+    worst, kept_line = check_kept_inputs(label, kept)
+    check_events(label, got, want)
+    batch.verify_books()
+    if launches <= 0 or launches != expected_launches(eng):
+        raise SystemExit(f"{label}: {launches} K1 launches, "
+                         f"{expected_launches(eng)} expected from "
+                         f"{eng.stats.device_calls} device calls")
+    if checked[0] != len(frame_list):
+        raise SystemExit(f"{label}: {checked[0]} submit_frame calls checked "
+                         f"for {len(frame_list)} frames")
+    if "args" not in widest:
+        raise SystemExit(f"{label}: no dense grid ran")
+    cfg, books, lane_ids, ops = widest["args"]
+    report = shard_execution_report(cfg, mesh, books, lane_ids, ops,
+                                    repeats=5)
+    return dict(engine=eng, host=host, secs=secs, launches=launches,
+                worst=worst, kept_line=kept_line, report=report,
+                gather_s=gather_s, gathers=len(spans), checked=checked[0],
+                grid_cap=cfg.cap)
+
+
+def report_text(rep) -> str:
+    shards = "; ".join(
+        f"shard {s['shard']} ({s['device']}) {s['live_lanes']} live lanes "
+        f"{s['exec_ms']:.4f} ms" for s in rep["shards"])
+    return (f"{rep['n_shards']} shards x {rep['rows_per_shard']} rows "
+            f"({rep['live_lanes']} live lanes): {shards}; exec_ms max "
+            f"{rep['exec_ms_max']:.4f}, mean {rep['exec_ms_mean']:.4f}; "
+            f"live skew {rep['live_skew']:.4f}, rows per live lane "
+            f"{rep['rows_per_live_lane']:.4f}")
+
+
+def same_states(label, a: dict, b: dict, widths: bool = True) -> str:
+    """Two export_state dicts equal: every book leaf and every other key.
+    With widths=False the storage caps may differ (an engine whose grids
+    differ can escalate its storage to another power of two): the
+    narrower stack's slot axis is then zero-padded to the wider one's —
+    active slots are a prefix and the tail is zero, so equal books are
+    equal leaf by leaf either way. Returns a note of the caps."""
+    if set(a) != set(b):
+        raise SystemExit(f"{label}: state keys differ")
+    cap = max(a["cap"], b["cap"])
+    for name, x in a["books"].items():
+        y = b["books"][name]
+        if not widths and x.ndim == 3:
+            pad = lambda v: np.pad(v, [(0, 0), (0, 0),
+                                       (0, cap - v.shape[-1])])
+            x, y = pad(x), pad(y)
+        if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(
+                x, y):
+            raise SystemExit(f"{label}: book leaf {name} differs")
+    for k in a:
+        if k != "books" and a[k] != b[k] and (widths or k != "cap"):
+            raise SystemExit(f"{label}: {k} differs")
+    return (f"storage cap {a['cap']}" if a["cap"] == b["cap"] else
+            f"storage caps {a['cap']} and {b['cap']}, compared at {cap}")
+
+
+def sharded_engine_check(device, sizes, zipf) -> dict:
+    """Phase 11 (c): ShardedEngine, 4 shards (shard i on card
+    i % device_count), the flow's first 20,000 orders through process in
+    batches of 2,000: events equal to the oracle, K1 held against its plain
+    version at the inputs the run gave it on each card."""
+    from gome_tpu_torch.engine import BookConfig
+    from gome_tpu_torch.ops.match_step import batch_step
+    from gome_tpu_torch.parallel import ShardedEngine
+
+    orders = list(zipf[:20_000])
+    se = ShardedEngine(4, config=BookConfig(cap=256, max_fills=16,
+                                            dtype=torch.int32),
+                       n_slots=sizes["symbols"] // 4, max_t=32)
+    for o in orders:
+        se.mark(o)
+    batch_step.launches = 0
+    got = []
+    with keep_kernel_inputs() as kept:
+        t0 = time.perf_counter()
+        for i in range(0, len(orders), 2000):
+            got += se.process(orders[i:i + 2000])
+        secs = time.perf_counter() - t0
+        launches = batch_step.launches
+    worst, kept_line = check_kept_inputs("phase 11 (c)", kept)
+    check_events("phase 11 (c)", got, oracle_events(orders))
+    want = sum(expected_launches(s) for s in se.shards)
+    if launches <= 0 or launches != want:
+        raise SystemExit(f"phase 11 (c): {launches} K1 launches for {want}")
+    for s in se.shards:
+        s.batch.verify_books()
+    devices = sorted({str(s.batch.device) for s in se.shards})
+    return dict(launches=launches, worst=worst, lines=[
+        f"phase 11 (c): ShardedEngine(4) on {', '.join(devices)}: "
+        f"{len(orders)} orders -> {len(got)} events equal to the oracle "
+        f"({len(orders) / secs:,.0f} orders/s, batches of 2,000, object "
+        f"path); {launches} K1 launches; books verified", kept_line])
+
+
+def restores_check(device, sizes, zipf, want_zipf, engine) -> dict:
+    """Phase 11 (e): a snapshot (SnapshotStore, snap-<n>/) of (b)'s D=4
+    engine restored into D=4, D=2, D=1 meshes of cuda:0 blocks and a
+    non-mesh engine: books equal leaf by leaf, and 10,000 more orders give
+    the oracle's events on each. Then restore_from_redis of a small int64
+    engine into meshes of 4 and 3 shards: n_slots rounded to the mesh
+    size, resting orders equal, 1,000 more orders equal to the oracle. On
+    every engine K1 is held against its plain version at the inputs the
+    run gave it."""
+    from gome_tpu_torch.engine import BookConfig, MatchEngine
+    from gome_tpu_torch.ops.match_step import batch_step
+    from gome_tpu_torch.persist import DictRedis, restore_from_redis
+    from gome_tpu_torch.persist.redis_schema import book_redis_commands
+    from gome_tpu_torch.persist.snapshot import SnapshotStore
+    from gome_tpu_torch.utils.streams import multi_symbol_stream
+
+    label = "phase 11 (e)"
+    state = engine.batch.export_state()
+    with tempfile.TemporaryDirectory(prefix="phase11e-") as work:
+        store = SnapshotStore(work)
+        t0 = time.perf_counter()
+        store.save({k: v for k, v in state.items() if k != "books"},
+                   state["books"])
+        save_s = time.perf_counter() - t0
+        manifest, books = store.load_latest()
+    more = continuation(sizes, 10_000)
+    frames = [frame_columns(more[i:i + sizes["batch"]])
+              for i in range(0, len(more), sizes["batch"])]
+    want = oracle_events(list(zipf) + more)[len(want_zipf):]
+    cfg = BookConfig(cap=256, max_fills=16, dtype=torch.int32)
+    rows, launches, worst, kept_lines = [], 0, 0, []
+    for d in (4, 2, 1, None):
+        e = MatchEngine(cfg, n_slots=sizes["symbols"], max_t=32,
+                        device=None if d else device,
+                        mesh=one_card_mesh(device, d) if d else None)
+        t0 = time.perf_counter()
+        e.batch.import_state({**manifest, "books": books})
+        sync(device)
+        restore_s = time.perf_counter() - t0
+        same_states(f"{label} D={d}", e.batch.export_state(), state)
+        batch_step.launches = 0
+        with keep_kernel_inputs() as kept:
+            got, _ = run_frames(e, frames)
+        if batch_step.launches != expected_launches(e):
+            raise SystemExit(f"{label} D={d}: {batch_step.launches} K1 "
+                             f"launches, {expected_launches(e)} expected")
+        launches += batch_step.launches
+        err, line = check_kept_inputs(
+            f"{label} {'D=%d' % d if d else 'no mesh'}", kept)
+        worst, kept_lines = max(worst, err), kept_lines + [line]
+        del kept
+        check_events(f"{label} D={d}", got, want)
+        e.batch.verify_books()
+        rows.append((d, restore_s, len(got)))
+        del e
+    torch.cuda.empty_cache()
+
+    small = multi_symbol_stream(n=2000, n_symbols=5, zipf_a=1.2,
+                                cancel_prob=0.3, seed=23)
+    extra = [dataclasses.replace(o, oid="e" + o.oid) for o in
+             multi_symbol_stream(n=1000, n_symbols=5, zipf_a=1.2,
+                                 cancel_prob=0.3, seed=29)]
+    big = BookConfig(cap=256, max_fills=16, dtype=torch.int64)
+    src = MatchEngine(big, n_slots=8, max_t=32, device=device)
+    run_engine(src, small, 500, columnar=True)
+    redis = DictRedis()
+    for cmd in book_redis_commands(src):
+        redis.execute_command(*cmd)
+    want_extra = oracle_events(small + extra)[len(oracle_events(small)):]
+    redis_rows = []
+    for d, n_slots in ((4, 4), (3, 3)):
+        dst = MatchEngine(big, n_slots=n_slots, max_t=32, max_slots=d * 4096,
+                          mesh=one_card_mesh(device, d))
+        n = restore_from_redis(dst, redis)
+        if dst.batch.n_slots % d or dst.batch.n_slots < 5:
+            raise SystemExit(f"{label}: restore_from_redis into {d} shards "
+                             f"left n_slots {dst.batch.n_slots}")
+        if same_resting_orders(f"{label} redis D={d}", src, dst) != n:
+            raise SystemExit(f"{label}: {n} orders imported")
+        with keep_kernel_inputs() as kept:
+            got, _ = run_engine(dst, extra, 500, columnar=True)
+        err, line = check_kept_inputs(f"{label} redis D={d}", kept)
+        worst, kept_lines = max(worst, err), kept_lines + [line]
+        check_events(f"{label} redis D={d}", got, want_extra)
+        dst.batch.verify_books()
+        redis_rows.append((d, n_slots, dst.batch.n_slots, n))
+    return dict(save_s=save_s, rows=rows, launches=launches,
+                redis=redis_rows, events=len(want), worst=worst,
+                kept_lines=kept_lines)
+
+
+def phase11(card: str, device, sizes, zipf, want_zipf, timing, p5_rate,
+            flow8, p8c) -> dict:
+    """Phase 11, the mesh (gome_tpu_torch.parallel): (a) the sharded steps,
+    (b) the frame path on a D=4 mesh of cuda:0 blocks (and on distinct
+    cards where there are two or more), (c) ShardedEngine, (d) the service
+    with engine.mesh_devices = the card count, (e) restores. Returns the
+    numbers; each part prints as it ends."""
+    from gome_tpu_torch.engine import BookConfig, MatchEngine
+    from gome_tpu_torch.ops.match_step import batch_step
+    from gome_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    worst, lines, step_counts = sharded_steps_check(device, sizes, timing,
+                                                    zipf)
+    for line in lines:
+        print(line)
+    torch.cuda.empty_cache()
+
+    frame_list = [frame_columns(zipf[i:i + sizes["batch"]])
+                  for i in range(0, len(zipf), sizes["batch"])]
+    single = MatchEngine(BookConfig(cap=256, max_fills=16, dtype=torch.int32),
+                         n_slots=sizes["symbols"], max_t=32, device=device)
+    got, single_s = run_frames(single, frame_list)
+    check_events("phase 11 (b) unsharded", got, want_zipf)
+    single_state = single.batch.export_state()
+    del single
+    runs = {}
+    mesh4 = one_card_mesh(device, 4)
+    meshes = [(f"D=4 on {mesh4.home}", mesh4)]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        meshes.append((f"D={min(4, n_cards)} on {min(4, n_cards)} cards",
+                       make_mesh(min(4, n_cards))))
+    for name, mesh in meshes:
+        label = f"phase 11 (b) {name}"
+        r = mesh_frame_run(label, device, sizes, frame_list, want_zipf, mesh)
+        caps = same_states(label, r["engine"].batch.export_state(),
+                           single_state, widths=False)
+        worst = max(worst, r["worst"])
+        runs[name] = r
+        st = r["engine"].stats
+        print(f"{label}: {r['host']}: process_frame(fast) {len(zipf)} orders "
+              f"in {len(frame_list)} frames -> {len(want_zipf)} events equal "
+              f"to the oracle (and to phase 5's); books verified, "
+              f"export_state equal to the unsharded engine's leaf by leaf "
+              f"({caps}); "
+              f"{st.device_calls} device calls, {r['launches']} K1 launches "
+              f"(one per shard per grid); {st.frame_fallbacks} frame "
+              f"fallbacks; no host sync in {r['checked']} submit_frame calls")
+        print(r["kept_line"])
+        print(f"phase 11 (b) [{card}] {name}: {len(zipf) / r['secs']:,.0f} "
+              f"orders/s ({r['secs']:.3f} s); the unsharded engine in this "
+              f"phase {len(zipf) / single_s:,.0f} orders/s, phase 5 "
+              f"{p5_rate:,.0f}; output gathers onto {mesh.home} "
+              f"{r['gather_s']:.4f} s of CUDA-event span over {r['gathers']} "
+              f"gathers ("
+              + ("a device-local torch.cat, no peer copy"
+                 if len(set(mesh.devices)) == 1 else
+                 "peer copies from the other cards, then torch.cat")
+              + f"); shard_execution_report on the widest dense grid (cap "
+              f"{r['grid_cap']}, best of 5): {report_text(r['report'])}")
+    d4 = runs[meshes[0][0]]["engine"]
+    for name in list(runs)[1:]:
+        del runs[name]["engine"]
+    torch.cuda.empty_cache()
+
+    c = sharded_engine_check(device, sizes, zipf)
+    for line in c["lines"]:
+        print(line)
+    worst = max(worst, c["worst"])
+
+    requests, tail, want = flow8
+    with keep_kernel_inputs() as kept:
+        svc = service_run(sizes, 0, requests, tail, want, len(zipf),
+                          batch_step, subscribe=False, mesh_devices=n_cards)
+    d_worst, d_line = check_kept_inputs("phase 11 (d)", kept)
+    worst = max(worst, d_worst)
+    del kept
+    if svc["bodies"] != p8c["bodies"]:
+        raise SystemExit("phase 11 (d): match-queue bodies differ from "
+                         "phase 8 (c)'s")
+    rate, rate8 = len(zipf) / svc["secs"], len(zipf) / p8c["secs"]
+    print(f"phase 11 (d): {svc['host']}: EngineService with "
+          f"engine.mesh_devices={n_cards} (int64, depth 0, json match wire, "
+          f"no subscriber): {len(svc['bodies'])} match-queue bodies "
+          f"byte-equal to phase 8 (c)'s; {svc['launches']} K1 launches; "
+          f"load_client (concurrency 8, batch_n 1024) {svc['load']['ok']} "
+          f"of {svc['load']['sent']} ok")
+    print(d_line)
+    print(f"phase 11 (d) [{card}]: {rate:,.0f} orders/s over the wire "
+          f"({svc['secs']:.3f} s), phase 8 (c) {rate8:,.0f} in this run "
+          f"(ratio {rate / rate8:.3f})")
+    svc_launches = svc["launches"]
+    del svc
+    e = restores_check(device, sizes, zipf, want_zipf, d4)
+    print(f"phase 11 (e): snapshot of (b)'s D=4 engine "
+          f"({e['save_s']:.3f} s to save) restored into "
+          + ", ".join(f"{'D=%d' % d if d else 'no mesh'} "
+                      f"({s:.3f} s)" for d, s, _ in e["rows"])
+          + f": books equal leaf by leaf; 10,000 more orders -> "
+          f"{e['events']} events equal to the oracle on each "
+          f"({e['launches']} K1 launches); restore_from_redis into "
+          + ", ".join(f"{d} shards of n_slots {n0} -> {n1} ({n} resting "
+                      f"orders)" for d, n0, n1, n in e["redis"])
+          + "; 1,000 more orders equal to the oracle on each")
+    for line in e["kept_lines"]:
+        print(line)
+    worst = max(worst, e["worst"])
+    secs = time.perf_counter() - t_phase
+    print(f"phase 11 [{card}]: the mesh in {secs:.1f} s")
+    return dict(worst=worst, runs=runs, step_counts=step_counts,
+                c_launches=c["launches"], svc_launches=svc_launches, e=e,
+                seconds=secs)
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 def time_ms(fn, runs: int, warmup: int = 3) -> float:
@@ -3542,12 +4093,14 @@ def main() -> int:
           + " / ".join(f"{t:.4f}" for t in json_s)
           + f" s for {sizes['zipf_n']} bodies (json / native "
           f"{min(json_s) / min(native_s):.2f}x, best of each)")
-    s_runs, s_worst, s_lines = phase8(sizes, zipf)
+    s_runs, s_worst, s_lines, flow8 = phase8(sizes, zipf)
     for line in s_lines:
         print(line)
     print_phase8(card, sizes, s_runs, runs)
     p9 = phase9(card, device, sizes, zipf, want_zipf, s_runs["c"]["secs"])
     p10 = phase10(card, device, sizes)
+    p11 = phase11(card, device, sizes, zipf, want_zipf, timing,
+                  f_orders_per_s, flow8, s_runs["c"])
     h_launches = ab_runs[0][2]["launches"]
     row = dict(name="match_step", **KERNEL_ROWS["match_step"],
                launches=launches, frame_path_launches=f_launches,
@@ -3560,9 +4113,17 @@ def main() -> int:
                    restored_service_replay=p9["svc"]["replay_launches"],
                    redis_migration=p9["migration"]["launches"]),
                sim_path_launches=p10["k1_launches"],
+               mesh_path_launches=dict(
+                   **p11["step_counts"],
+                   **{f"frame_path {name}": r["launches"]
+                      for name, r in p11["runs"].items()},
+                   sharded_engine=p11["c_launches"],
+                   service_mesh=p11["svc_launches"],
+                   restores=p11["e"]["launches"]),
                max_abs_err=max(worst, f_worst, c_worst, s_worst,
                                p9["drill"]["final"]["kernel_worst"],
-                               p9["svc"]["worst"], p10["worst"]),
+                               p9["svc"]["worst"], p10["worst"],
+                               p11["worst"]),
                ms=results["a"]["ms"],
                device_ms=results["a"]["device_ms"], plain_ms=results["a"]["plain_ms"],
                bound_ms=results["a"]["bound_ms"],
@@ -3573,7 +4134,7 @@ def main() -> int:
                     library_ms=None, checked=True,
                     T=sizes["sim_scan_t"][0],
                     **p10["hawkes_row"])
-    print(f"chip_smoke [{card}]: phases 1-10 in "
+    print(f"chip_smoke [{card}]: phases 1-11 in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [row, scan_row]}))
     print(json.dumps({"ok": True, "device": {

@@ -125,10 +125,10 @@ class EngineConfig:
     # N > 0 keeps up to N frames in flight on the device while the host
     # packs the next — engine.pipeline.FramePipeline).
     pipeline_depth: int = 0
-    # Shard the lane axis over the first N local devices (the reference's
-    # parallel.make_mesh). 0 = no mesh (single card). The port
-    # has no mesh yet: EngineService refuses N > 0 (ROADMAP Queue 1
-    # item 6).
+    # Shard the lane axis over the first N local CUDA cards
+    # (gome_tpu_torch.parallel.make_mesh; raises when fewer exist), K1
+    # launched once per shard on its own card. 0 = no mesh (single card).
+    # n_slots must be a multiple of mesh_devices.
     mesh_devices: int = 0
 
     def __post_init__(self) -> None:

@@ -50,6 +50,7 @@ from .book import (
     init_books,
     numpy_dtype,
     resolve_device,
+    to_device,
     torch_dtype,
 )
 from .host import Interner, OpContext, decode_events, encode_op
@@ -192,6 +193,29 @@ def _scatter_books_cap(books: BookState, lane_ids: torch.Tensor, n_live: int,
     return BookState(*(put(a, s) for a, s in zip(books, sub)))
 
 
+def full_grid_step(cfg: BookConfig, books: BookState, ops: DeviceOp):
+    """One full grid (row == lane) at cap class cfg.cap: K1 on the leading
+    cfg.cap slots of every lane, the capped-lane guard, and the write-back
+    into a copy of the stack. Queues device work only."""
+    cap = cfg.cap
+    sub, outs = match_step.batch_step(cfg, _slice_books_cap(books, cap), ops)
+    outs = _guard_capped(outs, books.count, cap, ops)
+    return _writeback_full_cap(books, sub, cap), outs
+
+
+def dense_grid_step(cfg: BookConfig, books: BookState, ids: torch.Tensor,
+                    n_live: int, ops: DeviceOp):
+    """One dense grid at cap class cfg.cap: gather the rows' lanes (ids on
+    the books' device; the first n_live rows are live, the rest sentinel
+    padding), K1, the guard, and the scatter into a copy of the stack.
+    Queues device work only."""
+    cap = cfg.cap
+    sub = _gather_rows(books, ids, n_live, cap)
+    new_sub, outs = match_step.batch_step(cfg, sub, ops)
+    outs = _guard_capped(outs, sub.count, cap, ops)
+    return _scatter_books_cap(books, ids, n_live, new_sub, cap), outs
+
+
 def splice_outs(outs: StepOutput, overrides: dict):
     """The ``outs_at(field, rows, ts)`` accessor decode_grid_columnar needs:
     reads StepOutput columns at packed (row, t) coordinates (gathered on the
@@ -271,6 +295,7 @@ class BatchEngine:
         dense: bool = True,
         dense_t_max: int = 1024,
         device=None,
+        mesh=None,
     ):
         """max_slots / max_cap bound auto-grow (symbol lanes / per-side book
         capacity); growth past a ceiling raises CapacityError.
@@ -281,11 +306,37 @@ class BatchEngine:
         dense_t_max deep per launch. Semantics identical.
 
         device: where the books live (default: the CUDA card; "cpu" runs
-        the plain PyTorch version)."""
+        the plain PyTorch version).
+
+        mesh: an optional 1-D mesh (gome_tpu_torch.parallel.make_mesh)
+        splitting the symbol-lane axis into per-shard blocks, each on its
+        own device; every grid runs K1 once per shard on that shard's
+        rows. Lane counts stay multiples of the mesh size (growth rounds
+        up). The engine's device is then the mesh's home device, where
+        the frame path compacts events and whole-stack reads gather."""
         if config.cap > max_cap:
             raise ValueError(f"cap {config.cap} exceeds max_cap {max_cap}")
         if n_slots > max_slots:
             raise ValueError(f"n_slots {n_slots} exceeds max_slots {max_slots}")
+        if mesh is not None:
+            # Every place n_slots can be set (init, growth, restore) must
+            # produce a mesh multiple; enforcing the two static bounds here
+            # and rounding growth up lets the blocks assume divisibility.
+            for name, v in (("n_slots", n_slots), ("max_slots", max_slots)):
+                if v % mesh.size != 0:
+                    raise ValueError(
+                        f"{name} {v} must be a multiple of the mesh size "
+                        f"{mesh.size}"
+                    )
+            dev = None if device is None else resolve_device(device)
+            if dev is not None and (dev.type != mesh.home.type or (
+                    dev.index is not None and dev.index != mesh.home.index)):
+                raise ValueError(
+                    f"device {device} is not the mesh's home device "
+                    f"{mesh.home}"
+                )
+            device = mesh.home
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.config = config
         self.n_slots = n_slots
@@ -312,7 +363,12 @@ class BatchEngine:
         # fetch-buffer sizes keyed by the frame's pow2 op-count class.
         self._fills_buf_floor: dict[int, int] = {}
         self._cancels_buf_floor: dict[int, int] = {}
-        self.books = init_books(config, n_slots, self.device)
+        if mesh is None:
+            self.books = init_books(config, n_slots, self.device)
+        else:
+            from ..parallel.mesh import sharded_books
+
+            self.books = sharded_books(config, n_slots, mesh)
         self.symbols = Interner()  # lane = interner id - 1
         # symbol-dictionary object -> (lane-id array, max lane); hits are
         # revalidated against n_slots (frames._lane_map).
@@ -436,24 +492,49 @@ class BatchEngine:
         `cls` keys the floors by the grid's cap class (None = the storage
         cap).
 
+        Under a mesh the row axis is laid out PER SHARD: shard d's live
+        lanes occupy a prefix of the row block [d*R_s, (d+1)*R_s), so each
+        shard's block of the [D*R_s, T] grid names only its own lanes and
+        the dense gather stays shard-local. R_s buckets to the max
+        per-shard live count (every shard pays the hottest shard's rows).
+
         Returns (use_dense, n_rows, lane_ids, row_of): lane_ids [n_rows]
-        lane ids with sentinel n_slots on padding rows (the live rows are a
-        prefix); row_of [n_slots] maps live lane -> row. Both None for full
-        grids."""
+        global lane ids with sentinel n_slots on padding rows (the live
+        rows are a prefix, of each shard's block under a mesh); row_of
+        [n_slots] maps live lane -> row. Both None for full grids."""
         if not (self.dense and len(live) > 0):
             return False, self.n_slots, None, None
         cls = self.config.cap if cls is None else cls
         floor = self._dense_rows_floor.get(cls, 8) if first else 8
         bucket = _next_pow2 if first else _next_pow4
-        n_rows = max(8, bucket(len(live)), floor)
-        if n_rows >= self.n_slots:
-            return False, self.n_slots, None, None
-        if first:
-            self._dense_rows_floor[cls] = n_rows
-        lane_ids = np.full(n_rows, self.n_slots, np.int64)
-        lane_ids[: len(live)] = live
+        if self.mesh is None:
+            n_rows = max(8, bucket(len(live)), floor)
+            if n_rows >= self.n_slots:
+                return False, self.n_slots, None, None
+            if first:
+                self._dense_rows_floor[cls] = n_rows
+            lane_ids = np.full(n_rows, self.n_slots, np.int64)
+            lane_ids[: len(live)] = live
+            rows_for_live = np.arange(len(live), dtype=np.int64)
+        else:
+            d = self.mesh.size
+            local = self.n_slots // d
+            shard = live // local  # live is sorted (np.unique upstream)
+            counts = np.bincount(shard, minlength=d)
+            r_s = max(8, bucket(int(counts.max())), floor)
+            if r_s * d >= self.n_slots:
+                return False, self.n_slots, None, None
+            if first:
+                self._dense_rows_floor[cls] = r_s
+            n_rows = r_s * d
+            lane_ids = np.full(n_rows, self.n_slots, np.int64)
+            starts = np.zeros(d, np.int64)
+            np.cumsum(counts[:-1], out=starts[1:])
+            rank = np.arange(len(live), dtype=np.int64) - starts[shard]
+            rows_for_live = shard * r_s + rank
+            lane_ids[rows_for_live] = live
         row_of = np.empty(self.n_slots, np.int64)
-        row_of[live] = np.arange(len(live), dtype=np.int64)
+        row_of[live] = rows_for_live
         return True, n_rows, lane_ids, row_of
 
     def _admit_lane_range(self, lane: int, l: int, h: int) -> None:
@@ -494,10 +575,15 @@ class BatchEngine:
     def _shift_lane_prices(self, lane: int, delta: int) -> None:
         """Recenter: stored rebased price -> stored + (old_base - new_base).
         Inactive slots shift too, harmlessly. Builds a new price tensor: the
-        checkpoint may still hold the old one."""
-        price = self.books.price.clone()
-        price[lane] += delta
-        self.books = self.books._replace(price=price)
+        checkpoint may still hold the old one. Under a mesh only the lane's
+        own block changes."""
+
+        def shift(books: BookState, row: int) -> BookState:
+            price = books.price.clone()
+            price[row] += delta
+            return books._replace(price=price)
+
+        self.books = self._with_row(self.books, lane, shift)
 
     def _lane(self, symbol: str) -> int:
         lane = self.symbols.intern(symbol) - 1  # Interner ids start at 1
@@ -508,13 +594,21 @@ class BatchEngine:
                     f"n_slots={self.n_slots} (auto_grow disabled)"
                 )
             new_slots = min(max(self.n_slots * 2, lane + 1), self.max_slots)
+            if self.mesh is not None:
+                m = self.mesh.size
+                new_slots = min(((new_slots + m - 1) // m) * m, self.max_slots)
             if lane >= new_slots:
                 raise CapacityError(
                     f"symbol {symbol!r} needs lane {lane} but max_slots="
                     f"{self.max_slots}; raise max_slots or shard symbols "
                     "across more engines"
                 )
-            self.books = grow_lanes(self.books, new_slots)
+            if self.mesh is None:
+                self.books = grow_lanes(self.books, new_slots)
+            else:
+                from ..parallel.mesh import grow_sharded_lanes
+
+                self.books = grow_sharded_lanes(self.books, new_slots)
             self._grow_base_arrays(new_slots)
             self.n_slots = new_slots
             self.stats.lane_growths += 1
@@ -799,7 +893,7 @@ class BatchEngine:
             (int(r), int(tt)): None for r, tt in zip(meta["row"], meta["t"])
         }
         outs, lane_overrides = self._run_exact(
-            self._upload_ops(ops), contexts, lane_ids
+            self._upload_tree(ops), contexts, lane_ids
         )
         batches.append(
             decode_grid_columnar(meta, splice_outs(outs, lane_overrides))
@@ -811,7 +905,7 @@ class BatchEngine:
         if not contexts:
             # Everything dropped (unrepresentable DELs): nothing to run.
             return leftover
-        outs, lane_overrides = self._run_exact(self._upload_ops(ops), contexts)
+        outs, lane_overrides = self._run_exact(self._upload_tree(ops), contexts)
         keys = list(contexts)
         rows = np.array([lane for lane, _ in keys], np.int64)
         ts = np.array([t for _, t in keys], np.int64)
@@ -831,19 +925,52 @@ class BatchEngine:
         return leftover
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the engine's device, queued with no host sync:
-        on the card it goes up from a pinned copy by a non-blocking copy.
-        The pinned block comes from CUDA's caching host allocator, which
-        records the copy's event on it and reuses it only once the copy is
-        done, so nothing here keeps it alive."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type != "cuda":
-            return t.to(self.device, copy=True)
-        return t.pin_memory().to(self.device, non_blocking=True)
+        """A host array on the engine's device, queued with no host sync
+        (book.to_device)."""
+        return to_device(a, self.device)
 
-    def _upload_ops(self, ops: DeviceOp) -> DeviceOp:
-        """A packer's numpy grid on the engine's device (_upload)."""
-        return DeviceOp(*(self._upload(a) for a in ops))
+    def _upload_tree(self, tree):
+        """A host tree (a packer's numpy grid, a snapshot's books) on the
+        engine's device (_upload); under a mesh, each shard's row block up
+        to that shard's device."""
+        if self.mesh is not None:
+            from ..parallel.mesh import shard_batch
+
+            return shard_batch(self.mesh, tree)
+        return type(tree)(*(self._upload(a) for a in tree))
+
+    def _host_leaf(self, tree, name: str | None = None) -> np.ndarray:
+        """Host copy of one leaf of the whole stack or grid, or of a bare
+        tensor with name None (under a mesh, the blocks copied one by one
+        and joined on the host)."""
+        if self.mesh is None:
+            return _host(tree if name is None else getattr(tree, name))
+        return tree.host_leaf(name)
+
+    def _host_tree(self, tree):
+        """Host copy of a whole stack or grid, leaf by leaf (under a mesh,
+        each leaf's blocks joined on the host)."""
+        if self.mesh is None:
+            return type(tree)(*(_host(a) for a in tree))
+        return tree.host()
+
+    def _per_block(self, fn, books):
+        """fn over the book stack, or over each shard's block."""
+        return fn(books) if self.mesh is None else books.map(fn)
+
+    def _row(self, tree, i: int):
+        """Rows [i, i + 1) of a stack or grid, on the device that holds
+        row i (no copy)."""
+        if self.mesh is None:
+            return type(tree)(*(a[i : i + 1] for a in tree))
+        return tree.row(i)
+
+    def _with_row(self, books, i: int, fn):
+        """The stack with fn(block, j) in place of the block that holds
+        lane i (the whole stack, j = i, without a mesh)."""
+        if self.mesh is None:
+            return fn(books, i)
+        return books.with_row(i, fn)
 
     def _run_exact(self, ops: DeviceOp, contexts, lane_ids=None,
                    cap_g: int | None = None):
@@ -880,10 +1007,13 @@ class BatchEngine:
             self.stats.device_calls += 1
             if not bool(outs.book_overflow.any()):
                 break
-            counts = _host(books_before.count)  # [S, 2]
+            counts = self._host_leaf(books_before, "count")  # [S, 2]
             # Fetched only now an overflow tripped: frame grids are built
             # on the device.
-            adds_per_row = _host((ops.action == ACTION_ADD).sum(dim=1))  # [R]
+            adds = self._per_block(
+                lambda o: (o.action == ACTION_ADD).sum(dim=1), ops
+            )
+            adds_per_row = self._host_leaf(adds)
             if lane_ids is None:
                 row_counts = counts.max(axis=1)
             else:
@@ -916,7 +1046,9 @@ class BatchEngine:
                     f"{self.max_cap} (a side is holding >{self.config.cap} "
                     "resting orders); raise max_cap or shed load"
                 )
-            books_before = grow_books(books_before, new_cap)
+            books_before = self._per_block(
+                lambda b: grow_books(b, new_cap), books_before
+            )
             self.config = dataclasses.replace(self.config, cap=new_cap)
             cap_g = new_cap
         self.books = new_books
@@ -938,9 +1070,10 @@ class BatchEngine:
             self.stats.fill_record_escalations += 1
             k = min(_next_pow2(int(n_fills[row].max())), self.config.cap)
             big = dataclasses.replace(self.config, max_fills=k)
-            lane = lane_of(row)
-            lane_book = BookState(*(a[lane : lane + 1] for a in books_before))
-            lane_ops = DeviceOp(*(a[row : row + 1] for a in ops))
+            # Under a mesh the row's shard owns its lane: both slices are
+            # on the shard's device.
+            lane_book = self._row(books_before, lane_of(row))
+            lane_ops = self._row(ops, row)
             _, lane_out = match_step.batch_step(big, lane_book, lane_ops)
             self.stats.device_calls += 1
             lane_overrides[row] = StepOutput(*(_host(a[0]) for a in lane_out))
@@ -956,34 +1089,50 @@ class BatchEngine:
 
         Every launch runs with K = min(max_fills, cap_g): a cap below
         max_fills clamps the record axis to the cap, as the reference
-        step's record slice does (K <= cap is the kernel's contract)."""
+        step's record slice does (K <= cap is the kernel's contract).
+
+        Under a mesh, books and ops are Sharded and K1 runs once per shard
+        on its own block and device (parallel.mesh.sharded_batch_step /
+        sharded_dense_step, dense ids localized as lane % local with the
+        sentinel mapped to local); the per-shard outputs come together in
+        row order on the home device (Sharded.gather), so the returned
+        outs are the whole [R, T] StepOutput either way."""
         cap = self.config.cap if cap_g is None else cap_g
         cfg = dataclasses.replace(
             self.config, cap=cap, max_fills=min(self.config.max_fills, cap)
         )
+        if self.mesh is not None:
+            from ..parallel import mesh as pm
+
+            ops = pm.shard_batch(self.mesh, ops)
+            if lane_ids is None:
+                books, outs = pm.sharded_batch_step(cfg, self.mesh)(
+                    books, ops
+                )
+            else:
+                ids_local = pm.localize_ids(
+                    _host(lane_ids), self.n_slots, self.mesh
+                )
+                books, outs = pm.sharded_dense_step(cfg, self.mesh)(
+                    books, ids_local, ops
+                )
+            return books, outs.gather()
         if lane_ids is None:
-            sub, outs = match_step.batch_step(
-                cfg, _slice_books_cap(books, cap), ops
-            )
-            outs = _guard_capped(outs, books.count, cap, ops)
-            return _writeback_full_cap(books, sub, cap), outs
+            return full_grid_step(cfg, books, ops)
         lane_ids = _host(lane_ids)
         # The live rows are a prefix, so their count comes from the host
         # copy and the gather and scatter index without a device read.
         n_live = int(np.count_nonzero(lane_ids < books.count.shape[0]))
-        ids = self._upload(lane_ids)
-        sub = _gather_rows(books, ids, n_live, cap)
-        new_sub, outs = match_step.batch_step(cfg, sub, ops)
-        outs = _guard_capped(outs, sub.count, cap, ops)
-        return _scatter_books_cap(books, ids, n_live, new_sub, cap), outs
+        return dense_grid_step(cfg, books, self._upload(lane_ids), n_live, ops)
 
     # -- snapshot support ----------------------------------------------------
     def export_state(self) -> dict:
         """Host-side copy of all mutable engine state (books + interners +
         rebasing) — the same keys, dtypes and shapes as
-        gome_tpu's BatchEngine.export_state()."""
+        gome_tpu's BatchEngine.export_state(); under a mesh the blocks come
+        to the host one by one and join there."""
         return {
-            "books": {k: _host(v) for k, v in self.books._asdict().items()},
+            "books": self._host_tree(self.books)._asdict(),
             "symbols": self.symbols.to_list(),
             "oids": self.oids.to_list(),
             "uids": self.uids.to_list(),
@@ -1002,21 +1151,28 @@ class BatchEngine:
         """Restore a state exported by export_state (this engine's or
         gome_tpu's, including one written before price rebasing, without
         price_base / base_set / env_lo / env_hi). Replaces books,
-        interners and rebasing state; stats are not restored."""
+        interners and rebasing state; stats are not restored. Under a mesh
+        each shard's block goes from the host arrays straight to its own
+        device; a snapshot whose n_slots the mesh does not divide is
+        refused before anything changes."""
+        n_slots = int(state["n_slots"])
+        if self.mesh is not None and n_slots % self.mesh.size != 0:
+            raise ValueError(
+                f"snapshot n_slots {n_slots} is not a multiple of the "
+                f"mesh size {self.mesh.size}; restore into a non-mesh "
+                "engine or re-snapshot from a mesh-aligned one"
+            )
         self.config = dataclasses.replace(
             self.config,
             cap=int(state["cap"]),
             max_fills=int(state["max_fills"]),
             dtype=torch_dtype(state["dtype"]),
         )
-        self.n_slots = int(state["n_slots"])
+        self.n_slots = n_slots
         self.max_t = int(state["max_t"])
         b = state["books"]
-        self.books = BookState(
-            *(
-                torch.from_numpy(np.array(b[f])).to(self.device)
-                for f in BookState._fields
-            )
+        self.books = self._upload_tree(
+            BookState(*(np.asarray(b[f]) for f in BookState._fields))
         )
         self.symbols = Interner.from_list(list(state["symbols"]))
         self._lane_map_cache.clear()  # lane ids come from the new interner
@@ -1065,10 +1221,10 @@ class BatchEngine:
             if not cond:
                 raise BookInvariantError(f"lane {lane} side {side}: {what}")
 
-        price = _host(self.books.price)
-        lots = _host(self.books.lots)
-        seq = _host(self.books.seq)
-        counts = _host(self.books.count)
+        price, lots, seq, counts = (
+            self._host_leaf(self.books, f)
+            for f in ("price", "lots", "seq", "count")
+        )
         cap = price.shape[-1]
         for lane in range(counts.shape[0]):
             for side in (0, 1):
@@ -1092,7 +1248,7 @@ class BatchEngine:
         """Host (numpy) copy of the books with ABSOLUTE prices (per-lane
         rebasing offsets added back; the price leaf widens to int64 when
         bases are in play)."""
-        books = BookState(*(_host(a) for a in self.books))
+        books = self._host_tree(self.books)
         if self._rebase and self._base_set.any():
             price = books.price.astype(np.int64) + self.price_base[:, None, None]
             books = books._replace(price=price)

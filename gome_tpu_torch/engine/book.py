@@ -225,6 +225,20 @@ def book_depth(book: BookState, side: int, max_levels: int):
     return prices, volumes, np.int32(n)
 
 
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``, queued with no host sync: on the card it
+    goes up from a pinned copy by a non-blocking copy. The pinned block
+    comes from CUDA's caching host allocator, which records the copy's
+    event on it and reuses it only once the copy is done, so nothing here
+    keeps it alive. Never a view of the array's memory. A read-only array
+    (a snapshot's, loaded from disk) is copied first: torch takes no
+    read-only memory."""
+    t = torch.from_numpy(np.require(a, requirements=("C", "W")))
+    if torch.device(device).type != "cuda":
+        return t.to(device, copy=True)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def _host(a) -> np.ndarray:
     """A host numpy copy of a tensor (never a view of a CPU tensor's
     memory), or the array itself."""

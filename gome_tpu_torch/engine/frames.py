@@ -44,7 +44,7 @@ import torch
 from ..types import Action, Order, OrderType, Side
 from . import nativehost
 from .batch import BatchEngine, _cap_ladder, _next_pow2, _next_pow4, splice_outs
-from .book import GRID_I32_FIELDS, DeviceOp, _host, numpy_dtype
+from .book import GRID_I32_FIELDS, DeviceOp, _host, numpy_dtype, to_device
 from .events import EventBatch, _COLUMNS, decode_grid_columnar, empty_batch
 from .step import ACTION_ADD, LOT_MAX32
 
@@ -322,15 +322,40 @@ def _pack_class_train(eng: BatchEngine, a: dict, active_idx, t_sub,
                 a, active_idx[in_window], row_of, t_off, t_grid, n_rows,
                 m_pad, dt,
             )
-        ops = _scatter_grid_fn(
-            eng._upload(cols), eng._upload(flat), n_rows, t_grid
-        )
+        ops = _grid_ops(eng, cols, flat, n_rows, t_grid)
         grids.append((ops, meta, lane_ids, cap_g))
 
         t_off += t_grid
         alive = t_sub >= t_off
         active_idx = active_idx[alive]
         t_sub = t_sub[alive]
+
+
+def _grid_ops(eng: BatchEngine, cols: np.ndarray, flat: np.ndarray,
+              n_rows: int, t_grid: int):
+    """A grid's packed columns up to the card and scattered into the
+    padded [R, T] grid there (_scatter_grid_fn). Under a mesh the host
+    splits the ops by shard (flat // (R/D * T): each shard's rows are a
+    contiguous block; padding columns fall past the last shard), and each
+    shard's ops go up to its own device and build its [R/D, T] block there
+    (a Sharded DeviceOp)."""
+    if eng.mesh is None:
+        return _scatter_grid_fn(
+            eng._upload(cols), eng._upload(flat), n_rows, t_grid
+        )
+    from ..parallel.mesh import Sharded
+
+    r_s = n_rows // eng.mesh.size
+    block = r_s * t_grid
+    shard = flat // block
+    blocks = []
+    for d, dev in enumerate(eng.mesh.devices):
+        sel = shard == d
+        blocks.append(_scatter_grid_fn(
+            to_device(cols[:, sel], dev), to_device(flat[sel] - d * block, dev),
+            r_s, t_grid,
+        ))
+    return Sharded(eng.mesh, blocks)
 
 
 def _pack_grid_numpy(a: dict, sel, row_of, t_off: int, t_grid: int,
@@ -419,7 +444,9 @@ def apply_frame(eng: BatchEngine, cols: dict):
     # increments cannot drift classes upward forever. Only when cap
     # classes are live.
     if len(_cap_ladder(eng.config.cap)) > 1 and eng._ub_extra.any():
-        eng._note_exact_counts(_host(eng.books.count).max(axis=1))
+        eng._note_exact_counts(
+            eng._host_leaf(eng.books, "count").max(axis=1)
+        )
     return _assemble(eng, a, batches)
 
 
@@ -643,7 +670,7 @@ def submit_frame(eng: BatchEngine, cols: dict) -> PendingFrame:
         for g_i, (ops, meta, lane_ids, cap_g) in enumerate(grids):
             books, outs = eng._step(books, ops, lane_ids, cap_g)
             eng.stats.device_calls += 1
-            n_rows, t_grid = ops.action.shape
+            n_rows, t_grid = outs.n_fills.shape
             compact_accum(outs, fills_acc, cancels_acc, totals_acc, g_i)
             meta["_n_rows"] = n_rows
             # The record axis K comes from the ARRAY, never from
@@ -659,19 +686,30 @@ def submit_frame(eng: BatchEngine, cols: dict) -> PendingFrame:
             # resolve needs them first. Only multi-class engines read
             # counts_max.
             counts_max = (
-                _fetch_async(books.count.max(dim=-1).values)
+                _fetch_async(_counts_max(eng, books))
                 if len(_cap_ladder(eng.config.cap)) > 1 else None
             )
             totals = _fetch_async(totals_acc)
             event = None
             if eng.device.type == "cuda":
+                # On the engine's own stream: the copies above were queued
+                # there, whichever card is current.
                 event = torch.cuda.Event()
-                event.record()
+                event.record(torch.cuda.current_stream(eng.device))
             fetched = (event, totals, counts_max)
         return PendingFrame(cols, a, cp, items, compact, n_kept, fetched)
     except Exception:
         eng._restore(cp)
         raise
+
+
+def _counts_max(eng: BatchEngine, books) -> torch.Tensor:
+    """Per-lane max-side resting count [S] on the engine's device (under a
+    mesh each shard's [S/D] reduced on its device, joined on the home
+    device)."""
+    if eng.mesh is None:
+        return books.count.max(dim=-1).values
+    return books.map(lambda b: b.count.max(dim=-1).values).gather()
 
 
 def _prefix_slice_fn(mat: torch.Tensor, length: int) -> np.ndarray:

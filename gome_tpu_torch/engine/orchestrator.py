@@ -43,7 +43,9 @@ class MatchEngine:
     ):
         """device: the CUDA card by default (raises if there is none);
         "cpu" runs the plain PyTorch version. batch_kw passes through to
-        BatchEngine (dense, dense_t_max, max_slots, max_cap)."""
+        BatchEngine (mesh, dense, dense_t_max, max_slots, max_cap); with
+        mesh= (gome_tpu_torch.parallel.make_mesh) the books split into
+        per-shard blocks and the engine's device is the mesh's home."""
         self.batch = BatchEngine(
             config or BookConfig(),
             n_slots,
@@ -234,6 +236,9 @@ class MatchEngine:
 
     @property
     def books(self):
+        """The device book stack: a BookState, or under a mesh a Sharded
+        of per-shard BookState blocks (.gather() puts the whole stack on
+        the home device, .host() on the host)."""
         return self.batch.books
 
     @staticmethod

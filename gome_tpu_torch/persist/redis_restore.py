@@ -186,8 +186,9 @@ def restore_from_redis(engine, store, symbols: list[str] | None = None) -> int:
     batch = engine.batch
     cap = max(batch.config.cap, _next_pow2(max(max_side, 1)))
     n_slots = max(batch.n_slots, _next_pow2(max(len(symbols), 1)))
-    # The reference also rounds n_slots up to a multiple of its mesh size
-    # here; the port has no multi-card mesh yet (ROADMAP Queue 1 item 6).
+    if batch.mesh is not None and n_slots % batch.mesh.size:
+        m = batch.mesh.size
+        n_slots = ((n_slots + m - 1) // m) * m
 
     dtype = numpy_dtype(batch.config.dtype)
     rebase = dtype.itemsize <= 4

@@ -40,11 +40,6 @@ def refuse_unported(config: Config) -> None:
     make_bus): the port has no AMQP backend to fall back from, so a
     config naming one is refused rather than quietly run on the memory
     bus."""
-    if config.engine.mesh_devices > 0:
-        raise NotImplementedError(
-            f"engine.mesh_devices={config.engine.mesh_devices}: the port has "
-            "no multi-card mesh yet (ROADMAP Queue 1 item 6)"
-        )
     if config.ops.enabled:
         armed = [f for f in OBS_FLAGS if getattr(config.ops, f)]
         if armed:
@@ -90,12 +85,26 @@ class EngineService:
         export_queue_metrics(self.bus.order_queue)
         export_queue_metrics(self.bus.match_queue)
         e = self.config.engine
+        mesh = None
+        if e.mesh_devices:
+            # engine.mesh_devices: the lane axis over that many CUDA cards
+            # (make_mesh raises when fewer exist); with device="cpu", that
+            # many shards on the CPU.
+            from ..parallel import make_mesh
+
+            mesh = (
+                make_mesh(e.mesh_devices) if device is None
+                else make_mesh(e.mesh_devices,
+                               devices=[device] * e.mesh_devices)
+            )
+            log.info("engine lane axis sharded over %s", mesh)
         self.engine = MatchEngine(
             config=e.book_config(),
             n_slots=e.n_slots,
             max_t=e.max_t,
             auto_grow=e.auto_grow,
             device=device,
+            mesh=mesh,
         )
         if self.config.store.enabled:
             # A `redis:` config section puts the pre-pool markers in the

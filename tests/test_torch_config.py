@@ -192,7 +192,6 @@ QUIET_OPS = "ops:\n  port: 0\n  trace: false\n" + "".join(
 @pytest.mark.parametrize("text, error, item", [
     ("rabbitmq:\n  port: 1\n", NotImplementedError, "item 2c"),
     ("bus:\n  backend: amqp\n", NotImplementedError, "item 2c"),
-    ("engine:\n  mesh_devices: 2\n", NotImplementedError, "item 6"),
     *[(QUIET_OPS.replace(f"{f}: false", f"{f}: true"), NotImplementedError,
        "item 8") for f in OBS_FLAGS],
     ("ops:\n  port: 0\n", NotImplementedError, "item 8"),
@@ -202,6 +201,33 @@ def test_unported_parts_are_refused(tmp_path, text, error, item):
     cfg = tconfig.load_config(write(tmp_path, text))
     with pytest.raises(error, match=f"ROADMAP Queue 1 {item}\\b"):
         EngineService(cfg, device="cpu")
+
+
+def test_mesh_devices_boot_a_cpu_mesh(tmp_path):
+    """engine.mesh_devices: 2 with device="cpu" shards the engine's lanes
+    over two CPU shards (the mesh replaced the refusal)."""
+    cfg = tconfig.load_config(write(
+        tmp_path, "grpc:\n  port: 0\nengine:\n  n_slots: 8\n"
+        "  mesh_devices: 2\n"))
+    svc = EngineService(cfg, device="cpu")
+    mesh = svc.engine.batch.mesh
+    assert mesh.size == 2 and mesh.devices == (torch.device("cpu"),) * 2
+    assert [b.count.shape[0] for b in svc.engine.books.blocks] == [4, 4]
+
+
+def test_mesh_devices_beyond_the_cards_raise(tmp_path):
+    """On the card (no device=), a mesh wider than the visible CUDA cards
+    raises rather than building a smaller mesh or falling back to the
+    CPU."""
+    from gome_tpu_torch.parallel import make_mesh
+
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(ValueError, match=f"only {n} are available"):
+        make_mesh(n + 1)
+    cfg = tconfig.load_config(write(
+        tmp_path, f"engine:\n  n_slots: 8\n  mesh_devices: {n + 1}\n"))
+    with pytest.raises(ValueError, match="devices"):
+        EngineService(cfg)
 
 
 @limited(60)

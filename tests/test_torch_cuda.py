@@ -190,6 +190,64 @@ def test_fast_frames_equal_exact_frames_on_the_card(cuda):
     fast.batch.verify_books()
 
 
+def test_sharded_steps_on_the_card_equal_the_cpu(cuda):
+    """sharded_batch_step and sharded_dense_step over two shards on
+    cuda:0 equal the same steps over two CPU shards (K1's plain version):
+    every book leaf and every output."""
+    from gome_tpu_torch.parallel import (make_mesh, shard_batch,
+                                         sharded_batch_step,
+                                         sharded_dense_step)
+
+    rng = np.random.default_rng(11)
+    config = BookConfig(cap=256, max_fills=16, dtype=torch.int32)
+    books, seeded = chip_smoke.deep_books(rng, config, 64, 0.6, cuda)
+    grid = chip_smoke.flow_grids(rng, config, 64, 16, 1, seeded, cuda)[0]
+    ids = np.array([3, 0, 9] + [32] * 5 + [40, 33] + [32] * 6)
+    rows = DeviceOp(*(a[:16].clone() for a in grid))
+    rows = rows._replace(action=torch.where(
+        torch.from_numpy(ids < 32)[:, None].to(cuda), rows.action, 0))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        mesh = make_mesh(2, devices=[dev] * 2)
+        b = shard_batch(mesh, type(books)(*(a.to(dev) for a in books)))
+        full = sharded_batch_step(config, mesh)(
+            b, shard_batch(mesh, DeviceOp(*(a.to(dev) for a in grid))))
+        dense = sharded_dense_step(config, mesh)(
+            b, ids, shard_batch(mesh, DeviceOp(*(a.to(dev) for a in rows))))
+        out.append([a.cpu() for r in (*full, *dense) for a in r.gather()])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fast", [True, False])
+def test_two_shards_on_one_card_equal_the_unsharded_engine(cuda, fast):
+    """A Zipf flow through process_frame on a D=2 mesh of cuda:0 blocks
+    equals the unsharded engine on the card: events (and the oracle's),
+    every book leaf; K1 launches once per shard per grid."""
+    from gome_tpu_torch.parallel import make_mesh
+
+    zipf = multi_symbol_stream(n=6000, n_symbols=300, zipf_a=1.2,
+                               cancel_prob=0.3, seed=6)
+    frames = [chip_smoke.frame_columns(zipf[i:i + 1500])
+              for i in range(0, len(zipf), 1500)]
+    config = BookConfig(cap=256, max_fills=16, dtype=torch.int32)
+    single = MatchEngine(config, n_slots=512, max_t=16)
+    sharded = MatchEngine(config, n_slots=512, max_t=16,
+                          mesh=make_mesh(2, devices=[cuda] * 2))
+    got_u, _ = chip_smoke.run_frames(single, frames, fast=fast)
+    match_step.batch_step.launches = 0
+    got_s, _ = chip_smoke.run_frames(sharded, frames, fast=fast)
+    assert got_s == got_u == chip_smoke.oracle_events(zipf)
+    # Every leaf equal (at the wider storage cap, should the two engines'
+    # different grids have escalated the storage to different widths).
+    chip_smoke.same_states("D=2", sharded.batch.export_state(),
+                           single.batch.export_state(), widths=False)
+    per_row = sharded.stats.fill_record_escalations
+    assert match_step.batch_step.launches == (
+        2 * (sharded.stats.device_calls - per_row) + per_row)
+    sharded.batch.verify_books()
+
+
 def _consume(cuda, frames, depth, symbols=64):
     """Publish every frame through the gateway step, drain a frame-wire
     OrderConsumer at the given depth; returns the engine, the match-queue
@@ -223,6 +281,38 @@ def test_pipelined_consumer_equals_synchronous_on_the_card(cuda):
         np.testing.assert_array_equal(getattr(b2, name), getattr(b0, name),
                                       err_msg=name)
     e2.batch.verify_books()
+
+
+def test_pipelined_consumer_on_the_second_card_while_the_first_is_current(
+        cuda):
+    """An engine on cuda:1 behind a depth-2 consumer while cuda:0 stays
+    the current card: submit_frame records its fetch event on the
+    engine's card, so resolve_frame waits for that card's copies. A spin
+    queued on cuda:1 first holds its copies back; an event recorded on
+    cuda:0's stream would let resolve read the totals before they land.
+    Match-queue bodies byte-equal to depth 0 on cuda:0, events equal to
+    the oracle."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    zipf = multi_symbol_stream(n=3000, n_symbols=64, zipf_a=1.2,
+                               cancel_prob=0.3, seed=12)
+    frames = [chip_smoke.frame_columns(zipf[i:i + 500])
+              for i in range(0, len(zipf), 500)]
+    second = torch.device("cuda", 1)
+    eng, bus, consumer = chip_smoke.consumer_stack(second, 64, 2)
+    for cols in frames:
+        chip_smoke.gateway_step(eng, bus.order_queue, cols)
+    with torch.cuda.device(second):
+        torch.cuda._sleep(200_000_000)
+    assert torch.cuda.current_device() == 0
+    consumer.drain()
+    assert eng.batch.device == second
+    bodies1 = [m.body for m in bus.match_queue.read_from(0, 1 << 20)]
+    events, _ = chip_smoke.match_queue_events(bus)
+    _, bodies0, _ = _consume(cuda, frames, 0)
+    assert bodies1 == bodies0
+    assert chip_smoke.unstamped(events) == chip_smoke.oracle_events(zipf)
+    eng.batch.verify_books()
 
 
 def test_need_exact_with_a_frame_in_flight_on_the_card(cuda):
