@@ -170,7 +170,30 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      leaf by leaf, 10,000 more orders equal to the oracle on each;
      restore_from_redis into meshes of 4 and 3 shards rounds n_slots to
      the mesh size. (b) to (e) each hold K1 against its plain version at
-     the inputs their run gave it, on every card the run used.
+     the inputs their run gave it, on every card the run used;
+ 12. the RabbitMQ transport (gome_tpu_torch.bus.amqp, the port's
+     FakeBroker in this process): (a) phase 8 (c)'s service (depth 0,
+     json wire, no subscriber) booted from a config whose rabbitmq:
+     section names the broker: matchOrder bodies, read back through the
+     service's AMQP match queue, byte-equal to phase 8 (c)'s, /healthz
+     listing both supervised queues with closed breakers, K1 at the
+     service's inputs; orders/s beside phase 8 (c)'s and the consumer's
+     thread split; (b) the reference's split topology across processes:
+     the port's marker server (`python -m
+     gome_tpu_torch.persist.respserver`), a consumer process on the card
+     (`python3 chip_smoke.py --amqp-consumer ...`: RespPrePool, never
+     marks, OrderConsumer at depth 2 on AmqpQueues, no host sync, K1 held
+     against its plain version at its own inputs, books verified), then a
+     gateway process (`--amqp-gateway`: the race's DEL and marked ADD as
+     JSON, then phase 3's flow in ORDER frames of 8,192 through
+     gateway_step into the marker server and doOrder); this process reads
+     matchOrder: events equal to the oracle's under the race, one dropped
+     ADD in the consumer and the oracle; each process's orders/s and the
+     end-to-end rate; (c) the flow's first 20,000 orders through a depth-0
+     consumer over SupervisedAmqpQueues of a broker that kills every
+     connection at its 9th publish, plus one kill of the consuming
+     connection mid-drain: bodies byte-equal to the memory bus's, the
+     reconnects counted.
 
 The last two lines are the kernel table (JSON) and
 {"ok": true, "device": {...}}.
@@ -1762,7 +1785,8 @@ def expected_launches(engine) -> int:
 
 
 def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
-                kernel, subscribe: bool = True, mesh_devices: int = 0):
+                kernel, subscribe: bool = True, mesh_devices: int = 0,
+                bus=None, load_run: bool = True):
     """Phase 8, one run: EngineService from a Config written in code (gRPC
     on port 0, ops on), started on the card; with `subscribe`, a
     SubscribeMatches stream opened through the port's OrderStub first; the
@@ -1774,8 +1798,12 @@ def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
     wrapper whose launch count is read (imported before
     keep_kernel_inputs wraps it). The consumer's own parts are timed as
     in phase 6 (host_split). `mesh_devices` goes into the engine's config
-    (the lane axis over that many cards). Without a subscriber the
-    match-queue bodies of the flow are returned under "bodies"."""
+    (the lane axis over that many cards); `bus`, a BusConfig, replaces
+    the memory bus and names the run by its backend; `load_run` False
+    leaves load_client out (phase 12 (a): its 200,001 orders would add
+    about 46 s over AMQP, see PERF.md section 4). Without a
+    subscriber the match-queue bodies of the flow are returned under
+    "bodies"; /healthz's payload under "health"."""
     import grpc
 
     from gome_tpu_torch.api import order_pb2 as pb
@@ -1788,10 +1816,14 @@ def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
     from gome_tpu_torch.service.app import OBS_FLAGS
     from gome_tpu_torch.service.matchfeed import match_result_to_pb
 
-    label = (f"phase 8 depth {depth}" if not mesh_devices else
-             f"phase 11 (d) mesh_devices {mesh_devices}, depth {depth}") + (
+    label = (
+        f"phase 8 depth {depth}" if bus is None and not mesh_devices else
+        f"phase 11 (d) mesh_devices {mesh_devices}, depth {depth}"
+        if bus is None else
+        f"phase 12 (a) {bus.backend}, depth {depth}") + (
         "" if subscribe else ", no subscriber")
     cfg = Config(
+        **({} if bus is None else {"bus": bus}),
         grpc=GrpcConfig(host="127.0.0.1", port=0),
         engine=EngineConfig(cap=256, max_fills=16, n_slots=sizes["symbols"],
                             max_t=32, pipeline_depth=depth,
@@ -1890,17 +1922,19 @@ def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
                     or svc.feed.events_seen != len(want):
                 raise SystemExit(f"{label}: feed seqs {state}, "
                                  f"{svc.feed.events_seen} events seen")
-            n_load = sizes["zipf_n"]
-            t_load = time.perf_counter()
-            load = load_client(
-                f"127.0.0.1:{port}", n=n_load + 1, concurrency=8,
-                batch_n=1024, seed=8,
-                symbols=[f"sym{i}" for i in range(sizes["symbols"])],
-                price_lo=0.9, price_hi=1.1, decimals=2)
-            if (load["ok"], load["rejected"], load["aborted"]) != (
-                    n_load, 0, 0):
-                raise SystemExit(f"{label}: load_client {load}")
-            load_secs = wait_drained(label, svc, 300) - t_load
+            load, load_secs = None, None
+            if load_run:
+                n_load = sizes["zipf_n"]
+                t_load = time.perf_counter()
+                load = load_client(
+                    f"127.0.0.1:{port}", n=n_load + 1, concurrency=8,
+                    batch_n=1024, seed=8,
+                    symbols=[f"sym{i}" for i in range(sizes["symbols"])],
+                    price_lo=0.9, price_hi=1.1, decimals=2)
+                if (load["ok"], load["rejected"], load["aborted"]) != (
+                        n_load, 0, 0):
+                    raise SystemExit(f"{label}: load_client {load}")
+                load_secs = wait_drained(label, svc, 300) - t_load
     finally:
         svc.stop()
     svc.engine.batch.verify_books()
@@ -1908,7 +1942,7 @@ def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
                 split=split, consumer_split=consumer_split,
                 subscribe=subscribe, counters=counters, load=load,
                 load_secs=load_secs, events=len(want),
-                requests=len(requests),
+                requests=len(requests), health=health,
                 bodies=None if subscribe else bodies)
 
 
@@ -3893,6 +3927,467 @@ def phase11(card: str, device, sizes, zipf, want_zipf, timing, p5_rate,
                 seconds=secs)
 
 
+# -- phase 12 ----------------------------------------------------------------
+
+FAULT_ORDERS = 20_000  # (c): the flow's first orders, under broker faults
+FAULT_FRAME_N = 512  # (c)'s ORDER frames: ~40 publishes a queue
+FAULT_EVERY = 9  # (c): every connection dies at its 9th publish
+AMQP_WAIT_S = 300  # (b): the whole three-process run
+
+
+def fast_policy():
+    """(c)'s reconnect schedule: real reconnects, no visible latency."""
+    from gome_tpu_torch.utils.resilience import BackoffPolicy
+
+    return BackoffPolicy(base_s=0.005, max_s=0.05, max_retries=60,
+                         budget_s=30)
+
+
+def race_orders():
+    """tests/test_multiprocess.py's scripted race, on the flow's first
+    symbol (a new one would grow the lanes): the gateway accepted
+    (marked) this ADD, but a DeleteOrder of it reached doOrder first.
+    Returns (add, delete)."""
+    from gome_tpu_torch.types import Action, Order, Side
+
+    add = Order(uuid="u9", oid="race", symbol="sym0", side=Side.BUY,
+                price=3_000_000, volume=7)
+    return add, dataclasses.replace(add, volume=0, action=Action.DEL)
+
+
+def raced_oracle(orders):
+    """The oracle under the race's interleaving: the ADD marked, the DEL
+    and then the ADD queued ahead of the flow. Returns (events, stats)."""
+    from gome_tpu_torch.oracle import OracleEngine
+
+    add, delete = race_orders()
+    oracle = OracleEngine()
+    oracle.pre_pool.add((add.symbol, add.uuid, add.oid))
+    oracle.queue.append(delete)
+    oracle.queue.append(add)
+    for o in orders:
+        oracle.submit(o)
+    return oracle.drain(), oracle.stats
+
+
+def amqp_gateway(args) -> dict:
+    """Phase 12 (b)'s gateway process: phase 3's flow as ORDER frames,
+    each through gateway_step (encode, mark_frame into a RespPrePool on
+    the marker server, publish to doOrder over AMQP), with the race's DEL
+    and marked ADD published first as JSON documents."""
+    from gome_tpu_torch.bus import encode_order
+    from gome_tpu_torch.bus.amqp import AmqpQueue
+    from gome_tpu_torch.engine.prepool import RespPrePool
+    from gome_tpu_torch.persist.resp import RespClient
+    from gome_tpu_torch.utils.streams import multi_symbol_stream
+
+    orders = multi_symbol_stream(n=args.orders, n_symbols=args.symbols,
+                                 zipf_a=1.2, cancel_prob=0.3, seed=7)
+    frame_list = [frame_columns(orders[i:i + args.frame_n])
+                  for i in range(0, len(orders), args.frame_n)]
+    pool = RespPrePool(RespClient(port=args.resp_port))
+    queue = AmqpQueue("doOrder", port=args.broker_port)
+    add, delete = race_orders()
+    pool.add((add.symbol, add.uuid, add.oid))
+    with timed_calls(((pool, "mark_frame", "mark_frame"),
+                      (queue, "publish", "publish"))) as split:
+        t0 = time.time()
+        queue.publish(encode_order(delete))
+        queue.publish(encode_order(add))
+        for cols in frame_list:
+            gateway_step(pool, queue, cols)
+        t1 = time.time()
+    queue.close()
+    return dict(first_unix=t0, last_unix=t1, orders=len(orders),
+                messages=2 + len(frame_list), split=split)
+
+
+def amqp_consumer(args) -> dict:
+    """Phase 12 (b)'s consumer process: a MatchEngine on args.device whose
+    pre-pool is a RespPrePool on the marker server (it never marks), an
+    OrderConsumer at depth 2 on the frame wire over two AmqpQueues, run
+    until args.messages are committed; K1's launches counted and K1 held
+    against its plain version at the inputs the run gave it; on the card
+    every submit_frame under no_host_sync()."""
+    from gome_tpu_torch.bus import QueueBus
+    from gome_tpu_torch.bus.amqp import AmqpQueue
+    from gome_tpu_torch.engine.prepool import RespPrePool
+    from gome_tpu_torch.ops.match_step import batch_step
+    from gome_tpu_torch.persist.resp import RespClient
+
+    device = torch.device(args.device)
+    bus = QueueBus(AmqpQueue("doOrder", port=args.broker_port),
+                   AmqpQueue("matchOrder", port=args.broker_port))
+    eng, bus, consumer = consumer_stack(device, args.symbols, 2,
+                                        batch_wait_s=0.002, bus=bus)
+    host = require_host(eng, "phase 12 (b) consumer")
+    eng.pre_pool = RespPrePool(RespClient(port=args.resp_port))
+    q = bus.order_queue
+    q.end_offset()  # consume from here on: the gateway publishes next
+    print("READY", flush=True)
+    guard = (no_host_sync() if device.type == "cuda"
+             else contextlib.nullcontext([0]))
+    t_first = None
+    deadline = time.monotonic() + AMQP_WAIT_S
+    batch_step.launches = 0
+    with keep_kernel_inputs() as kept, guard as checked, \
+            host_split(eng) as split:
+        while q.committed() < args.messages:
+            if time.monotonic() > deadline:
+                raise SystemExit(f"phase 12 (b) consumer: {q.committed()} "
+                                 f"of {args.messages} messages in "
+                                 f"{AMQP_WAIT_S} s")
+            if t_first is None and q.end_offset():
+                t_first = time.time()
+            consumer.run_once()
+        t_last = time.time()
+        launches = batch_step.launches
+    worst, kept_line = check_kept_inputs("phase 12 (b) consumer", kept)
+    eng.batch.verify_books()
+    bus.order_queue.close()
+    bus.match_queue.close()
+    split = {k: v for k, v in split.items() if k != "gateway"}
+    return dict(first_unix=t_first, last_unix=t_last, launches=launches,
+                split=split, expected=expected_launches(eng),
+                orders=eng.stats.orders,
+                dropped=eng.stats.dropped_no_prepool, kernel_worst=worst,
+                kept_line=kept_line, checked=checked[0], host=host,
+                fallbacks=eng.stats.frame_fallbacks)
+
+
+def tail_of(f) -> str:
+    """The last 2,000 characters a worker wrote to its stderr file."""
+    f.flush()
+    f.seek(0)
+    return f.read()[-2000:]
+
+
+def amqp_worker(argv) -> int:
+    """`python3 chip_smoke.py --amqp-consumer|--amqp-gateway ...`: one
+    process of phase 12 (b)'s split topology; writes its result JSON."""
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--device", default="cuda")
+    for name in ("--broker-port", "--resp-port", "--symbols", "--orders",
+                 "--frame-n", "--messages"):
+        ap.add_argument(name, type=int, default=0)
+    args = ap.parse_args(argv[1:])
+    run = amqp_consumer if argv[0] == "--amqp-consumer" else amqp_gateway
+    result = run(args)
+    with open(args.out, "w") as f:
+        json.dump(result, f, sort_keys=True)
+    return 0
+
+
+def split_topology(work: str, device: str = "cuda", n_orders: int = 200_000,
+                   n_symbols: int = 10240, frame_n: int = 8192,
+                   timeout_s: float = AMQP_WAIT_S) -> dict:
+    """Phase 12 (b): the reference's three processes and the broker. This
+    process holds the port's FakeBroker and reads matchOrder through a
+    port AmqpQueue; `python -m gome_tpu_torch.persist.respserver` is the
+    marker store; a consumer process (amqp_consumer) on `device` and then
+    a gateway process (amqp_gateway) join them. The events must equal
+    the oracle's under the race's interleaving, seqs 0..n-1, both
+    counting one dropped ADD; the consumer checks K1 and its books
+    itself. Returns the processes' results and the end-to-end times."""
+    from gome_tpu_torch.bus.amqp import AmqpQueue
+    from gome_tpu_torch.bus.colwire import decode_event_frame
+    from gome_tpu_torch.bus.fakebroker import FakeBroker
+    from gome_tpu_torch.utils.streams import multi_symbol_stream
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    orders = multi_symbol_stream(n=n_orders, n_symbols=n_symbols, zipf_a=1.2,
+                                 cancel_prob=0.3, seed=7)
+    want, oracle_stats = raced_oracle(orders)
+    n_messages = 2 + -(-n_orders // frame_n)
+    broker = FakeBroker().start()
+    procs, errs = [], {}
+    try:
+        srv = subprocess.Popen(
+            [sys.executable, "-m", "gome_tpu_torch.persist.respserver",
+             "--port", "0"], stdout=subprocess.PIPE, text=True, cwd=here)
+        procs.append(srv)
+        ready = srv.stdout.readline().split()
+        if not ready or ready[0] != "READY":
+            raise SystemExit(f"phase 12 (b): marker server said {ready}")
+        common = ["--broker-port", str(broker.port), "--resp-port", ready[1],
+                  "--symbols", str(n_symbols)]
+        reader = AmqpQueue("matchOrder", port=broker.port)
+        reader.end_offset()  # this process consumes matchOrder
+        outs = {r: os.path.join(work, f"amqp-{r}.json")
+                for r in ("consumer", "gateway")}
+        t_launch = time.time()
+        errs = {r: open(p + ".err", "w+") for r, p in outs.items()}
+        consumer = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--amqp-consumer",
+             "--out", outs["consumer"], "--device", device,
+             "--messages", str(n_messages), *common],
+            stdout=subprocess.PIPE, stderr=errs["consumer"], text=True,
+            cwd=here)
+        procs.append(consumer)
+        line = consumer.stdout.readline().strip()
+        if line != "READY":
+            consumer.wait(30)
+            raise SystemExit(f"phase 12 (b): consumer said {line!r}: "
+                             f"{tail_of(errs['consumer'])}")
+        consumer_boot = time.time() - t_launch
+        gateway = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--amqp-gateway",
+             "--out", outs["gateway"], "--orders", str(n_orders),
+             "--frame-n", str(frame_n), *common],
+            stdout=subprocess.DEVNULL, stderr=errs["gateway"], text=True,
+            cwd=here)
+        procs.append(gateway)
+        events, t_done = [], None
+        deadline = time.monotonic() + timeout_s
+        while len(events) < len(want):
+            if time.monotonic() > deadline:
+                raise SystemExit(f"phase 12 (b): {len(events)} of "
+                                 f"{len(want)} events in {timeout_s} s")
+            for name, p in (("consumer", consumer), ("gateway", gateway)):
+                if p.poll() not in (None, 0):
+                    raise SystemExit(f"phase 12 (b): the {name} exited "
+                                     f"{p.returncode}: "
+                                     f"{tail_of(errs[name])}")
+            msgs = reader.poll_batch(64, 0.05)
+            for m in msgs:
+                events.extend(decode_event_frame(m.body).to_results())
+            if msgs:
+                reader.commit(msgs[-1].offset + 1)
+        t_done = time.time()
+        for name, p in (("consumer", consumer), ("gateway", gateway)):
+            if p.wait(timeout_s) != 0:
+                raise SystemExit(f"phase 12 (b): the {name} exited "
+                                 f"{p.returncode}: {tail_of(errs[name])}")
+        reader.close()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+        for f in errs.values():
+            f.close()
+        broker.stop()
+    res = {}
+    for role, path in outs.items():
+        with open(path) as f:
+            res[role] = json.load(f)
+    c, g = res["consumer"], res["gateway"]
+    check_events("phase 12 (b) split topology", unstamped(events), want)
+    if [e.seq for e in events] != list(range(len(want))):
+        raise SystemExit(f"phase 12 (b): seqs not 0..{len(want) - 1}")
+    if (c["dropped"], oracle_stats.dropped_no_prepool) != (1, 1):
+        raise SystemExit(f"phase 12 (b): dropped_no_prepool consumer "
+                         f"{c['dropped']}, oracle "
+                         f"{oracle_stats.dropped_no_prepool}, expected 1")
+    if device == "cuda" and (c["launches"] <= 0
+                             or c["launches"] != c["expected"]):
+        raise SystemExit(f"phase 12 (b): the consumer launched K1 "
+                         f"{c['launches']} times for {c['expected']} "
+                         "expected from its device calls")
+    return dict(consumer=c, gateway=g, events=len(events), t_done=t_done,
+                consumer_boot=consumer_boot, messages=n_messages,
+                orders=n_orders)
+
+
+def broker_fault_check(device, symbols: int, orders,
+                       frame_n: int = FAULT_FRAME_N) -> dict:
+    """Phase 12 (c), tests/test_reconnect.py's drill at the engine's width:
+    `orders` as ORDER frames through a depth-0 consumer (batch_n 1, frame
+    wire), first on memory queues, then on two SupervisedAmqpQueues of a
+    FakeBroker that kills every connection at its FAULT_EVERY-th publish
+    (the order feed's and the event publishes), with one kill of the
+    consuming connection once half the frames are committed. Every frame
+    is published first, then the consumer steps (step_with_policy). The
+    match-queue bodies must equal the memory run's byte for byte, and the
+    events the oracle's. K1 held against its plain version at the faulted
+    run's inputs."""
+    from gome_tpu_torch.bus import QueueBus
+    from gome_tpu_torch.bus.amqp import SupervisedAmqpQueue
+    from gome_tpu_torch.bus.colwire import decode_event_frame
+    from gome_tpu_torch.bus.fakebroker import FakeBroker
+    from gome_tpu_torch.ops.match_step import batch_step
+
+    frame_list = [frame_columns(orders[i:i + frame_n])
+                  for i in range(0, len(orders), frame_n)]
+
+    def run(bus, mid_kill=None):
+        eng, bus, consumer = consumer_stack(device, symbols, 0, bus=bus)
+        for cols in frame_list:
+            gateway_step(eng, bus.order_queue, cols)
+        q = bus.order_queue
+        deadline = time.monotonic() + 120
+        while q.committed() < q.end_offset():
+            if time.monotonic() > deadline:
+                raise SystemExit(f"phase 12 (c): {q.committed()} of "
+                                 f"{q.end_offset()} frames in 120 s")
+            consumer.step_with_policy()
+            if mid_kill is not None:
+                mid_kill(q.committed())
+        eng.batch.verify_books()
+        mq = bus.match_queue
+        return eng, [m.body for m in mq.read_from(0, mq.end_offset())]
+
+    _, plain_bodies = run(None)
+    broker = FakeBroker(close_abruptly_on_publish=FAULT_EVERY).start()
+    kills = []
+    try:
+        bus = QueueBus(*(SupervisedAmqpQueue(name, port=broker.port,
+                                             policy=fast_policy())
+                         for name in ("doOrder", "matchOrder")))
+
+        def mid_kill(committed):
+            if committed >= len(frame_list) // 2 and not kills:
+                kills.append(broker.kill_connections(consuming="doOrder"))
+
+        t0 = time.perf_counter()
+        batch_step.launches = 0
+        with keep_kernel_inputs() as kept:
+            eng, bodies = run(bus, mid_kill)
+            launches = batch_step.launches
+        secs = time.perf_counter() - t0
+        worst, kept_line = check_kept_inputs("phase 12 (c)", kept)
+        connects = {q.name: q.supervisor().snapshot()["connects_total"]
+                    for q in (bus.order_queue, bus.match_queue)}
+        for q in (bus.order_queue, bus.match_queue):
+            q.close()
+    finally:
+        broker.stop()
+    if bodies != plain_bodies:
+        raise SystemExit(f"phase 12 (c): {len(bodies)} match-queue bodies "
+                         f"under broker faults differ from the memory bus's "
+                         f"{len(plain_bodies)}")
+    events = [e for b in bodies for e in decode_event_frame(b).to_results()]
+    check_events("phase 12 (c)", unstamped(events), oracle_events(orders))
+    if kills != [1] or min(connects.values()) < 2:
+        raise SystemExit(f"phase 12 (c): kills {kills}, connects {connects}")
+    if device.type == "cuda" and (launches <= 0 or
+                                  launches != expected_launches(eng)):
+        raise SystemExit(f"phase 12 (c): {launches} K1 launches for "
+                         f"{expected_launches(eng)} expected")
+    return dict(launches=launches, connects=connects, frames=len(frame_list),
+                bodies=len(bodies), events=len(events), secs=secs,
+                worst=worst, kept_line=kept_line)
+
+
+def phase12(card: str, device, sizes, zipf, flow8, p8c) -> dict:
+    """Phase 12, the RabbitMQ transport: (a) the service booted from a
+    rabbitmq: section against the port's FakeBroker, (b) the split
+    topology across processes, (c) broker faults. Returns the numbers;
+    each part prints as it ends."""
+    from gome_tpu_torch.bus.fakebroker import FakeBroker
+    from gome_tpu_torch.config import load_config
+    from gome_tpu_torch.ops.match_step import batch_step
+
+    t_phase = time.perf_counter()
+    requests, tail, want = flow8
+    broker = FakeBroker().start()
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            path = os.path.join(work, "config.yaml")
+            with open(path, "w") as f:
+                f.write(f"rabbitmq:\n  host: 127.0.0.1\n  port: "
+                        f"{broker.port}\n  username: guest\n"
+                        f"  password: guest\n")
+            bus_cfg = load_config(path).bus
+        if bus_cfg.backend != "amqp":
+            raise SystemExit(f"phase 12 (a): rabbitmq: loaded as {bus_cfg}")
+        with keep_kernel_inputs() as kept:
+            svc = service_run(sizes, 0, requests, tail, want, len(zipf),
+                              batch_step, subscribe=False, bus=bus_cfg,
+                              load_run=False)
+        a_worst, a_line = check_kept_inputs("phase 12 (a)", kept)
+        del kept
+    finally:
+        broker.stop()
+    if svc["bodies"] != p8c["bodies"]:
+        raise SystemExit("phase 12 (a): matchOrder bodies over AMQP differ "
+                         "from phase 8 (c)'s")
+    conns = svc["health"]["detail"]["connections"]
+    amqp_conns = {k: v for k, v in conns.items() if k.startswith("amqp:")}
+    if sorted(amqp_conns) != ["amqp:doOrder", "amqp:matchOrder"] or any(
+            v["breaker"] != "closed" for v in amqp_conns.values()):
+        raise SystemExit(f"phase 12 (a): /healthz connections {conns}")
+    rate, rate8 = len(zipf) / svc["secs"], len(zipf) / p8c["secs"]
+    sp = svc["split"]
+    print(f"phase 12 (a): {svc['host']}: EngineService from a rabbitmq: "
+          f"section (SupervisedAmqpQueue doOrder and matchOrder on the "
+          f"port's FakeBroker; int64, depth 0, json match wire, no "
+          f"subscriber): {len(svc['bodies'])} matchOrder bodies, read back "
+          f"through the service's AMQP match queue, byte-equal to phase 8 "
+          f"(c)'s memory-bus bodies; /healthz 200 with "
+          + ", ".join(f"{k} breaker {v['breaker']} ({v['connects_total']} "
+                      f"connects)" for k, v in sorted(amqp_conns.items()))
+          + f"; {svc['launches']} K1 launches = device calls")
+    print(a_line)
+    print(f"phase 12 (a) [{card}]: {rate:,.0f} orders/s over the wire and "
+          f"AMQP ({svc['secs']:.3f} s), phase 8 (c) {rate8:,.0f} in this run "
+          f"(ratio {rate / rate8:.3f}); consumer thread busy "
+          f"{sp['consumer'] - sp['consumer_wait']:.4f} s (+ "
+          f"{sp['consumer_wait']:.4f} polling), event publish "
+          f"{sp['publish']:.4f} s ({svc['events']} JSON documents, one "
+          f"confirmed publish each); feed {sp['feed'] - sp['feed_wait']:.4f} "
+          f"s (+ {sp['feed_wait']:.4f} polling); gateway admission "
+          f"{sp['gateway']:.4f} s")
+    a_launches = svc["launches"]
+    del svc
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as work:
+        b = split_topology(work, "cuda", sizes["zipf_n"], sizes["symbols"],
+                           sizes["batch"])
+    c, g = b["consumer"], b["gateway"]
+    e2e = b["t_done"] - g["first_unix"]
+    print(f"phase 12 (b): the split topology: the port's marker server "
+          f"(python -m gome_tpu_torch.persist.respserver), a consumer "
+          f"process on the card ({c['host']}; RespPrePool, never marks; "
+          f"OrderConsumer depth 2, frame wire, two AmqpQueues; booted in "
+          f"{b['consumer_boot']:.1f} s), a gateway process ({g['orders']:,} "
+          f"orders over {sizes['symbols']:,} symbols in {g['messages'] - 2} "
+          f"ORDER frames of {sizes['batch']:,}, each encode + mark_frame "
+          f"into the marker server + publish, after the race's DEL and "
+          f"marked ADD) and this process reading matchOrder: {b['events']:,} "
+          f"events equal to the oracle's under the race's interleaving, "
+          f"seqs 0..{b['events'] - 1}; dropped_no_prepool 1 in the consumer "
+          f"and the oracle; {c['launches']} K1 launches = device calls; "
+          f"books verified; no host sync in {c['checked']} submit_frame "
+          f"calls; {c['fallbacks']} frame fallbacks")
+    print(c["kept_line"])
+    g_s = g["last_unix"] - g["first_unix"]
+    c_s = c["last_unix"] - c["first_unix"]
+    print(f"phase 12 (b) [{card}]: gateway {g['orders'] / g_s:,.0f} "
+          f"orders/s ({g_s:.3f} s publishing: mark_frame into the marker "
+          f"server {g['split']['mark_frame']:.4f} s, AMQP publish "
+          f"{g['split']['publish']:.4f} s); consumer "
+          f"{c['orders'] / c_s:,.0f} orders/s ({c_s:.3f} s from its first "
+          f"message to its last commit; host split: "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in c["split"].items())
+          + f", other {c_s - sum(c['split'].values()):.4f} s); end to end "
+          f"{g['orders'] / e2e:,.0f} orders/s ({e2e:.3f} s from the "
+          f"gateway's first publish to the last event read here)")
+
+    fc = broker_fault_check(device, sizes["symbols"], zipf[:FAULT_ORDERS])
+    print(f"phase 12 (c): broker faults: the flow's first {FAULT_ORDERS:,} "
+          f"orders in {fc['frames']} ORDER frames of {FAULT_FRAME_N} through "
+          f"a depth-0 consumer on the card over SupervisedAmqpQueues of a "
+          f"FakeBroker(close_abruptly_on_publish={FAULT_EVERY}) plus one "
+          f"kill_connections(consuming='doOrder') mid-drain: "
+          f"{fc['bodies']} matchOrder bodies byte-equal to the memory bus's, "
+          f"{fc['events']:,} events equal to the oracle's; connects_total "
+          + ", ".join(f"{k} {v}" for k, v in fc["connects"].items())
+          + f"; {fc['launches']} K1 launches = device calls; "
+          f"{fc['secs']:.3f} s")
+    print(fc["kept_line"])
+    secs = time.perf_counter() - t_phase
+    print(f"phase 12 [{card}]: the RabbitMQ transport in {secs:.1f} s")
+    return dict(worst=max(a_worst, c["kernel_worst"], fc["worst"]),
+                launches=dict(service=a_launches,
+                              split_topology_consumer=c["launches"],
+                              broker_faults=fc["launches"]), seconds=secs)
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 def time_ms(fn, runs: int, warmup: int = 3) -> float:
@@ -3988,6 +4483,8 @@ def main() -> int:
         return persist_worker(sys.argv[1:])
     if sys.argv[1:2] == ["--sim-worker"]:
         return sim_worker(sys.argv[1:])
+    if sys.argv[1:2] in (["--amqp-consumer"], ["--amqp-gateway"]):
+        return amqp_worker(sys.argv[1:])
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
@@ -4101,6 +4598,7 @@ def main() -> int:
     p10 = phase10(card, device, sizes)
     p11 = phase11(card, device, sizes, zipf, want_zipf, timing,
                   f_orders_per_s, flow8, s_runs["c"])
+    p12 = phase12(card, device, sizes, zipf, flow8, s_runs["c"])
     h_launches = ab_runs[0][2]["launches"]
     row = dict(name="match_step", **KERNEL_ROWS["match_step"],
                launches=launches, frame_path_launches=f_launches,
@@ -4120,10 +4618,11 @@ def main() -> int:
                    sharded_engine=p11["c_launches"],
                    service_mesh=p11["svc_launches"],
                    restores=p11["e"]["launches"]),
+               amqp_path_launches=p12["launches"],
                max_abs_err=max(worst, f_worst, c_worst, s_worst,
                                p9["drill"]["final"]["kernel_worst"],
                                p9["svc"]["worst"], p10["worst"],
-                               p11["worst"]),
+                               p11["worst"], p12["worst"]),
                ms=results["a"]["ms"],
                device_ms=results["a"]["device_ms"], plain_ms=results["a"]["plain_ms"],
                bound_ms=results["a"]["bound_ms"],
@@ -4134,7 +4633,7 @@ def main() -> int:
                     library_ms=None, checked=True,
                     T=sizes["sim_scan_t"][0],
                     **p10["hawkes_row"])
-    print(f"chip_smoke [{card}]: phases 1-11 in "
+    print(f"chip_smoke [{card}]: phases 1-12 in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [row, scan_row]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,8 @@
 """Message bus — the reference's RabbitMQ layer (gomengine/engine/rabbitmq.go)
 re-expressed as a pluggable queue abstraction. The port of
 ``gome_tpu/bus/__init__.py``: the memory, file and native file backends,
-both wire codecs, and `make_bus`, which builds the two-queue bus from the
-config's BusConfig. The amqp backend is not ported yet: make_bus refuses it
-(ROADMAP Queue 1 item 2c) rather than fall back to the memory bus.
+both wire codecs, the AMQP 0-9-1 client and its fake broker, and
+`make_bus`, which builds the two-queue bus from the config's BusConfig.
 
 Topology parity: two named queues, inbound ``doOrder`` (orders + cancels)
 and outbound ``matchOrder`` (fill/cancel events) — rabbitmq.go:60-84 and the
@@ -16,8 +15,11 @@ two consume loops rabbitmq.go:86-177. Backends:
            queue doubles as the replay log for crash recovery (§5.4).
   cfile  — the same on-disk format through the port's C++ log
            (NativeFileQueue; one write+fsync per published batch).
-  amqp   — (not ported yet, ROADMAP Queue 1 item 2c) the reference's AMQP
-           0-9-1 client and its fake broker.
+  amqp   — a dependency-free AMQP 0-9-1 protocol client (bus/amqp.py)
+           speaking to RabbitMQ or the in-process fake broker
+           (bus/fakebroker.py); when no broker is listening, make_bus
+           falls back loudly to `memory` so a reference config.yaml
+           still boots.
 
 Deliberately NOT reproduced: the reference opens a brand-new AMQP connection
 per published message (NewSimpleRabbitMQ inline at engine.go:37,112,157,174,
@@ -73,10 +75,11 @@ def decode_message_orders(body: bytes) -> list:
 def make_bus(config) -> QueueBus:
     """Build the two-queue bus from a BusConfig (gome_tpu_torch.config).
 
-    Unlike the reference, nothing falls back: `cfile` without g++ raises
-    (a failed build raises from the build itself) instead of taking the
-    Python `file` queue, and `amqp` raises instead of booting on the memory
-    bus, since the port has no AMQP client yet."""
+    `amqp` gives two SupervisedAmqpQueues, or, when no broker answers, the
+    memory bus with the reference's RuntimeWarning (a transport fallback:
+    the engine still runs on the card or raises). Unlike the reference,
+    `cfile` without g++ raises (a failed build raises from the build
+    itself) instead of taking the Python `file` queue."""
     import os
 
     if config.backend == "memory":
@@ -93,10 +96,45 @@ def make_bus(config) -> QueueBus:
             name, os.path.join(config.dir, name)
         )
     elif config.backend == "amqp":
-        raise NotImplementedError(
-            "bus.backend amqp (a rabbitmq: section): the port has no AMQP "
-            "client yet (ROADMAP Queue 1 item 2c); use memory, file or cfile"
-        )
+        # Supervised client: reconnect with backoff + circuit breaker +
+        # topology re-declare on every ConnectionError (utils.resilience).
+        # The raw AmqpQueue fails loudly and stays down; the supervised
+        # wrapper is what makes a broker bounce a non-event.
+        from .amqp import SupervisedAmqpQueue
+
+        def factory(name, _cfg=config):
+            return SupervisedAmqpQueue(
+                name,
+                host=_cfg.host,
+                port=_cfg.port,
+                username=_cfg.username or "guest",
+                password=_cfg.password or "guest",
+            )
+
+        # A reference config.yaml selects this backend (its rabbitmq:
+        # section); the service must still BOOT when no broker is
+        # listening — fall back loudly to the in-process backend instead
+        # of crashing at startup.
+        order_q = None
+        try:
+            order_q = factory(config.order_queue)
+            return QueueBus(
+                order_queue=order_q, match_queue=factory(config.match_queue)
+            )
+        except OSError as e:
+            if order_q is not None:  # match-queue connect failed: clean up
+                order_q.close()
+            import warnings
+
+            warnings.warn(
+                f"amqp broker unreachable at {config.host}:{config.port} "
+                f"({e}); falling back to the in-process memory bus — "
+                "matching runs, but cross-process AMQP interop is off "
+                "until a broker is available",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+            factory = lambda name: MemoryQueue(name)
     else:  # pragma: no cover - BusConfig validates
         raise ValueError(config.backend)
     return QueueBus(

@@ -1,0 +1,1045 @@
+"""AMQP 0-9-1 transport — the reference's actual inter-process fabric
+(gomengine/engine/rabbitmq.go) as a first-class bus backend. The port's
+copy of ``gome_tpu/bus/amqp.py``: the same frames on the wire, byte for
+byte, so either package's client talks to either package's broker. Host
+code on sockets only — its reader and heartbeat threads never touch the
+card; the consumer thread that polls the queue is the one that steps the
+engine.
+
+This is a dependency-free protocol implementation (no pika/amqpstorm in
+this image): a socket client speaking the 0-9-1 frame protocol subset the
+reference uses — Connection Start/Tune/Open, Channel.Open, Queue.Declare
+(idempotent, rabbitmq.go:62-69), Basic.Publish with content frames,
+Basic.Consume/Deliver, Basic.Ack — against any broker (RabbitMQ included)
+or the in-process fake (gome_tpu_torch.bus.fakebroker) used by the tests.
+
+Deliberately NOT reproduced: the reference opens a brand-new connection
+per published message (NewSimpleRabbitMQ inline at engine.go:37,112,157,
+174,193) — each AmqpQueue holds ONE connection for its lifetime.
+
+Queue-contract adaptation: AMQP has server-side destructive consume with
+acks, not offset-addressed logs. AmqpQueue maps the framework's
+offset/commit contract onto it:
+
+  * deliveries arrive on a background reader into a local arrival buffer;
+    offset = arrival index (FIFO per queue, matching the broker order);
+  * `commit(n)` acks through the delivery tag of arrival n-1
+    (multiple-flag), so broker-side at-least-once matches the contract —
+    uncommitted messages redeliver after a crash/reconnect;
+  * the consume loop starts LAZILY on the first read-side call: an
+    instance used only for publishing (a gateway process) never competes
+    with the real consumer for deliveries;
+  * read-side calls on an instance that also published wait (bounded) for
+    the loopback deliveries to catch up with the local publish count, so
+    publish-then-read is deterministic in-process.
+"""
+
+from __future__ import annotations
+
+import socket
+import struct
+import threading
+import time
+
+from .base import Message, Queue, _Waitable
+
+FRAME_METHOD = 1
+FRAME_HEADER = 2
+FRAME_BODY = 3
+FRAME_HEARTBEAT = 8
+FRAME_END = 0xCE
+
+PROTOCOL_HEADER = b"AMQP\x00\x00\x09\x01"
+
+
+# --- wire primitives -----------------------------------------------------
+
+
+def shortstr(s) -> bytes:
+    b = s.encode() if isinstance(s, str) else s
+    if len(b) > 255:
+        raise ValueError("shortstr too long")
+    return bytes([len(b)]) + b
+
+
+def longstr(b) -> bytes:
+    b = b.encode() if isinstance(b, str) else b
+    return struct.pack(">I", len(b)) + b
+
+
+def read_shortstr(buf: memoryview, off: int):
+    n = buf[off]
+    return bytes(buf[off + 1 : off + 1 + n]).decode(), off + 1 + n
+
+
+def read_longstr(buf: memoryview, off: int):
+    (n,) = struct.unpack_from(">I", buf, off)
+    return bytes(buf[off + 4 : off + 4 + n]), off + 4 + n
+
+
+def skip_table(buf: memoryview, off: int) -> int:
+    (n,) = struct.unpack_from(">I", buf, off)
+    return off + 4 + n
+
+
+EMPTY_TABLE = struct.pack(">I", 0)
+
+
+def encode_table(d: dict) -> bytes:
+    """AMQP field table: string keys, long-string ('S') values. This is
+    the subset message headers need (trace propagation publishes
+    {"x-trace": "<id>@<t>"}); everything is stringified."""
+    body = b"".join(
+        shortstr(k) + b"S" + longstr(str(v)) for k, v in d.items()
+    )
+    return struct.pack(">I", len(body)) + body
+
+
+def read_table(buf: memoryview, off: int) -> tuple[dict, int]:
+    """Parse an AMQP field table -> (dict, next offset). Recognizes the
+    value types brokers commonly put in headers ('S' long string, 't'
+    bool, 'I' int32, 'l' int64); an unknown type code stops the parse
+    (the table length still advances the offset correctly, so framing
+    never desyncs — we just drop the unparseable tail)."""
+    (n,) = struct.unpack_from(">I", buf, off)
+    off += 4
+    end = off + n
+    out: dict = {}
+    while off < end:
+        key, off = read_shortstr(buf, off)
+        t = buf[off]
+        off += 1
+        if t == 0x53:  # 'S' long string
+            v, off = read_longstr(buf, off)
+            out[key] = v.decode()
+        elif t == 0x74:  # 't' bool
+            out[key] = bool(buf[off])
+            off += 1
+        elif t == 0x49:  # 'I' int32
+            (out[key],) = struct.unpack_from(">i", buf, off)
+            off += 4
+        elif t == 0x6C:  # 'l' int64
+            (out[key],) = struct.unpack_from(">q", buf, off)
+            off += 8
+        else:
+            break
+    return out, end
+
+
+#: basic-properties flag bit for the headers table (AMQP 0-9-1 §4.2.6.1:
+#: content-type bit 15, content-encoding 14, headers 13).
+FLAG_HEADERS = 1 << 13
+
+
+def frame(ftype: int, channel: int, payload: bytes) -> bytes:
+    return (
+        struct.pack(">BHI", ftype, channel, len(payload))
+        + payload
+        + bytes([FRAME_END])
+    )
+
+
+def method(class_id: int, method_id: int, args: bytes = b"") -> bytes:
+    return struct.pack(">HH", class_id, method_id) + args
+
+
+def read_exact(sock: socket.socket, n: int) -> bytes:
+    out = b""
+    while len(out) < n:
+        chunk = sock.recv(n - len(out))
+        if not chunk:
+            raise ConnectionError("AMQP peer closed the connection")
+        out += chunk
+    return out
+
+
+#: Hard upper bound on any incoming frame payload, regardless of the
+#: negotiated frame-max: a corrupt/hostile size field must fail the
+#: connection loudly, not allocate gigabytes.
+MAX_FRAME_SIZE = 16 << 20
+
+
+def read_frame(sock: socket.socket):
+    """-> (type, channel, payload)."""
+    hdr = read_exact(sock, 7)
+    ftype, channel, size = struct.unpack(">BHI", hdr)
+    if size > MAX_FRAME_SIZE:
+        raise ConnectionError(f"AMQP frame size {size} exceeds sanity bound")
+    payload = read_exact(sock, size) if size else b""
+    end = read_exact(sock, 1)
+    if end[0] != FRAME_END:
+        raise ConnectionError(f"bad AMQP frame end {end!r}")
+    return ftype, channel, payload
+
+
+def content_frames(
+    channel: int, body: bytes, frame_max: int, headers: dict | None = None
+) -> list[bytes]:
+    """Content header + body frames for one message (class 60 basic).
+    Zero-length bodies are header-only. `headers` becomes the
+    basic-properties headers table (trace propagation rides it)."""
+    if headers:
+        props = struct.pack(">HHQH", 60, 0, len(body), FLAG_HEADERS)
+        header = props + encode_table(headers)
+    else:
+        header = struct.pack(">HHQH", 60, 0, len(body), 0)  # no properties
+    out = [frame(FRAME_HEADER, channel, header)]
+    limit = max(frame_max - 8, 1024)
+    for i in range(0, len(body), limit):
+        out.append(frame(FRAME_BODY, channel, body[i : i + limit]))
+    return out
+
+
+# --- client --------------------------------------------------------------
+
+
+class AmqpQueue(Queue, _Waitable):
+    """One AMQP 0-9-1 queue behind the framework's offset/commit contract
+    (module docstring). One TCP connection + one channel per instance."""
+
+    SYNC_WAIT_S = 5.0  # loopback publish -> delivery catch-up bound
+
+    def __init__(
+        self,
+        name: str,
+        host: str = "127.0.0.1",
+        port: int = 5672,
+        username: str = "guest",
+        password: str = "guest",
+        vhost: str = "/",
+        connect_timeout_s: float = 3.0,
+        confirm: bool = False,
+    ):
+        """confirm=True puts the channel in publisher-confirm mode
+        (Confirm.Select): publish() blocks until the broker's Basic.Ack
+        for that message, so a publish that returns HAS been enqueued —
+        the property reconnect-with-retry needs to be redeliver-safe
+        (bus.amqp.SupervisedAmqpQueue always enables it). Cost: one
+        round trip per publish; the throughput paths use the memory/
+        file/native buses, so the trade is latency-for-certainty on
+        exactly the transport where certainty matters."""
+        self.name = name
+        self._init_wait()
+        self._lock = threading.RLock()  # socket writes + state
+        self._rpc_lock = threading.Lock()  # one outstanding sync RPC
+        self._rpc_event = threading.Event()
+        # (token, (cls, mth, payload)) — an event-mediated handoff slot,
+        # NOT lock-guarded: _rpc nulls it (under _rpc_lock) before each
+        # send, the reader stores into it and sets _rpc_event, and the
+        # waiter reads it only after the event fires (happens-before via
+        # Event). Mutation sites carry explicit GL70x suppressions.
+        self._rpc_reply: tuple | None = None
+        self._rpc_expect: tuple | None = None  # guarded by self._rpc_lock — ((cls, mth), token)
+        self._rpc_seq = 0  # guarded by self._rpc_lock (token source, _rpc)
+        self._buffer: list[bytes] = []  # guarded by self._lock (arrivals)
+        self._tags: list[int] = []  # guarded by self._lock (tag/arrival)
+        self._redelivered: list[bool] = []  # guarded by self._lock
+        self._hdrs: list[dict | None] = []  # guarded by self._lock
+        self._committed = 0  # guarded by self._lock
+        self._acked_through = 0  # guarded by self._lock (broker-acked)
+        self._published = 0  # guarded by self._lock (loopback sync)
+        self._consuming = False  # single-writer: the polling thread (_ensure_consuming)
+        # One-way latch: ANY thread (rpc waiter, sender, reader, closer)
+        # may flip it False->True, and it never goes back. Readers
+        # tolerate staleness — paths where it matters re-check under the
+        # relevant lock. Mutation sites carry explicit GL70x suppressions.
+        self._closed = False
+        self._frame_max = 131072  # single-writer: __init__'s handshake (pre-thread)
+        self._pending_deliver: tuple | None = None  # single-writer: the reader thread
+        self._confirm = False  # set after Confirm.Select below
+        self._pub_seq = 0  # guarded by self._lock (1-based confirm tags)
+        self._confirmed = 0  # guarded by self._ack_cond (ack frontier)
+        self._ack_cond = threading.Condition()
+
+        self._heartbeat = 0  # single-writer: __init__'s handshake (pre-thread)
+        self._sock = socket.create_connection(
+            (host, port), timeout=connect_timeout_s
+        )
+        try:
+            self._sock.settimeout(None)
+            self._handshake(username, password, vhost)
+            if self._heartbeat:
+                # Inbound-silence bound: a peer quiet for 2 intervals is
+                # dead (the spec's expiry rule); recv then times out and
+                # the read loop fails the connection loudly.
+                self._sock.settimeout(2.0 * self._heartbeat)
+                threading.Thread(
+                    target=self._heartbeat_loop,
+                    name=f"amqp-hb-{name}",
+                    daemon=True,
+                ).start()
+            self._reader = threading.Thread(
+                target=self._read_loop, name=f"amqp-{name}", daemon=True
+            )
+            self._reader.start()
+            # channel + idempotent declare (rabbitmq.go:62-69 semantics)
+            self._rpc((20, 11), method(20, 10, shortstr("")))
+            self._rpc(
+                (50, 11),
+                method(
+                    50,
+                    10,
+                    struct.pack(">H", 0)
+                    + shortstr(self.name)
+                    + bytes([0])  # passive/durable/exclusive/auto-del/no-wait
+                    + EMPTY_TABLE,
+                ),
+            )
+            if confirm:
+                # Confirm.Select (nowait=0): broker Basic.Acks publishes.
+                self._rpc((85, 11), method(85, 10, bytes([0])))
+                self._confirm = True
+        except Exception:
+            # No half-open leaks: a failed handshake/declare closes the
+            # socket (which also ends the reader thread) before raising.
+            self._closed = True
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            raise
+
+    # -- protocol plumbing -------------------------------------------------
+    def _handshake(self, username, password, vhost) -> None:
+        self._sock.sendall(PROTOCOL_HEADER)
+        ftype, _, payload = read_frame(self._sock)
+        buf = memoryview(payload)
+        class_id, method_id = struct.unpack_from(">HH", buf, 0)
+        if (ftype, class_id, method_id) != (FRAME_METHOD, 10, 10):
+            raise ConnectionError("expected Connection.Start")
+        start_ok = method(
+            10,
+            11,
+            EMPTY_TABLE  # client-properties
+            + shortstr("PLAIN")
+            + longstr(b"\x00" + username.encode() + b"\x00" + password.encode())
+            + shortstr("en_US"),
+        )
+        self._sock.sendall(frame(FRAME_METHOD, 0, start_ok))
+        ftype, _, payload = read_frame(self._sock)
+        class_id, method_id = struct.unpack_from(">HH", payload, 0)
+        if (class_id, method_id) != (10, 30):
+            raise ConnectionError("expected Connection.Tune")
+        channel_max, frame_max, hb = struct.unpack_from(">HIH", payload, 4)
+        self._frame_max = min(frame_max or 131072, 131072)
+        # Heartbeat negotiation: accept the server's proposal (0 disables).
+        # A server that proposes heartbeats WILL drop silent connections
+        # (~2 intervals), so an idle publisher must send them — and we in
+        # turn treat >2 intervals of inbound silence as a dead peer (the
+        # read timeout below), instead of blocking forever on a TCP
+        # connection whose other end is gone.
+        self._heartbeat = hb
+        tune_ok = method(
+            10, 31, struct.pack(">HIH", channel_max, self._frame_max, hb)
+        )
+        self._sock.sendall(frame(FRAME_METHOD, 0, tune_ok))
+        open_ = method(10, 40, shortstr(vhost) + shortstr("") + bytes([0]))
+        self._sock.sendall(frame(FRAME_METHOD, 0, open_))
+        ftype, _, payload = read_frame(self._sock)
+        class_id, method_id = struct.unpack_from(">HH", payload, 0)
+        if (class_id, method_id) != (10, 41):
+            raise ConnectionError("expected Connection.OpenOk")
+
+    def _rpc(self, expect: tuple[int, int], method_payload: bytes):
+        """Send a method on channel 1 and block for the expected reply
+        (dispatched by the reader thread)."""
+        with self._rpc_lock:
+            if self._closed:
+                raise ConnectionError(
+                    f"AMQP connection is closed (rpc {expect})"
+                )
+            # Correlation token: the reader echoes the token it read from
+            # _rpc_expect back alongside the reply it stores, and the
+            # waiter validates it. This catches a descheduled reader
+            # delivering a previous RPC's reply into a fresh slot. It is
+            # defense-in-depth, not a full fix for late replies: the real
+            # guarantee is below — an RPC TIMEOUT FAILS THE CONNECTION,
+            # because once an expected reply is in flight but untracked,
+            # no tag can resynchronize the channel's request/reply stream
+            # (a same-method retry could still adopt the late reply).
+            self._rpc_seq += 1
+            token = self._rpc_seq
+            self._rpc_expect = (expect, token)
+            self._rpc_reply = None  # fresh slot: reader stores, we read  # gomelint: disable=GL702 — event-handoff slot (see __init__)
+            self._rpc_event.clear()
+            try:
+                with self._lock:
+                    self._send(frame(FRAME_METHOD, 1, method_payload))
+                if not self._rpc_event.wait(self.SYNC_WAIT_S):
+                    # The reply is now an untracked in-flight frame; any
+                    # further sync RPC on this channel could adopt it.
+                    # Fail the connection: callers reconnect fresh.
+                    self._closed = True  # gomelint: disable=GL702 — one-way latch (see __init__)
+                    try:
+                        self._sock.close()
+                    except OSError:
+                        pass
+                    raise ConnectionError(
+                        f"AMQP rpc timeout waiting for {expect}; "
+                        "connection failed (reply stream unsyncable)"
+                    )
+                stored = self._rpc_reply
+                if stored is None:  # reader died while we waited
+                    raise ConnectionError(
+                        f"AMQP connection failed while waiting for {expect}"
+                    )
+                got_token, reply = stored
+                if got_token != token or (reply[0], reply[1]) != expect:
+                    # Same unsyncable state as the timeout above: OUR
+                    # reply is still in flight and untracked, so a retry
+                    # on this connection could adopt it. Fail the
+                    # connection before raising.
+                    self._closed = True  # gomelint: disable=GL702 — one-way latch (see __init__)
+                    try:
+                        self._sock.close()
+                    except OSError:
+                        pass
+                    raise ConnectionError(
+                        f"AMQP stale rpc reply {reply[:2]} (token "
+                        f"{got_token}), wanted {expect} (token {token})"
+                    )
+                return reply
+            finally:
+                # Cleared on EVERY exit (success, timeout, send failure):
+                # a timed-out RPC that left expect set would otherwise let
+                # its late reply be stored into the NEXT rpc's fresh slot.
+                self._rpc_expect = None
+
+
+    def _send(self, data: bytes) -> None:
+        """All post-handshake writes go through here. The socket-level
+        timeout is the heartbeat-expiry RECV bound (2*hb), which would
+        also cut off sendall() mid-frame on a slow-but-alive link (large
+        publishes up to frame_max can legitimately take longer than one
+        window). So writes loop send() with a progress check: a window
+        that moves ANY bytes resets the clock, and only two consecutive
+        zero-progress windows (~4*hb with no bytes accepted — the peer's
+        receive window has been closed for two full expiry periods) fail
+        the connection. A failed/desynced write leaves an unknown amount
+        of a frame on the wire — framing is unrecoverable, so the
+        connection is marked closed and the caller gets the documented
+        ConnectionError, never a raw socket.timeout + desynced retry.
+
+        Progress alone is not liveness: a peer trickling one byte per
+        window would reset the stall counter forever while this thread
+        holds the write lock (wedging heartbeats and every RPC behind
+        it). So the whole frame also gets an aggregate deadline — two
+        full windows of grace plus a 64 KB/s floor rate — after which a
+        technically-moving-but-dead-slow link is failed like a stalled
+        one."""
+        try:
+            timeout = self._sock.gettimeout()
+            deadline = (
+                time.monotonic() + 2.0 * timeout + len(data) / 65536.0
+                if timeout
+                else None
+            )
+            with memoryview(data) as mv:
+                off = 0
+                stalled_windows = 0
+                while off < len(mv):
+                    if self._closed:
+                        # The reader already declared the connection dead
+                        # (heartbeat expiry / peer close); don't keep
+                        # pushing bytes at a corpse while holding _lock.
+                        raise ConnectionError("connection closed mid-send")
+                    if deadline is not None and time.monotonic() > deadline:
+                        raise socket.timeout(
+                            f"send of {len(data)}B below floor rate"
+                        )
+                    try:
+                        sent = self._sock.send(mv[off:])
+                    except socket.timeout:
+                        stalled_windows += 1
+                        if stalled_windows >= 2:
+                            raise
+                        continue
+                    if sent:
+                        stalled_windows = 0
+                    else:
+                        # A zero-byte send (peer-shutdown edge on some
+                        # platforms) is a stalled window too: without this
+                        # the loop would busy-spin holding _lock until the
+                        # aggregate deadline.
+                        stalled_windows += 1
+                        if stalled_windows >= 2:
+                            raise socket.timeout(
+                                "send made no progress (zero-byte sends)"
+                            )
+                    off += sent
+        except (socket.timeout, OSError) as e:
+            self._closed = True  # gomelint: disable=GL701 — one-way latch (see __init__)
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            raise ConnectionError(f"AMQP send failed: {e}") from e
+
+    def _heartbeat_loop(self) -> None:
+        """Outbound heartbeats at half the negotiated interval (idle
+        publishers would otherwise be dropped by a heartbeat-enforcing
+        broker). Any frame counts as liveness traffic per spec, but
+        unconditional heartbeats are simpler and always sufficient."""
+        hb = frame(FRAME_HEARTBEAT, 0, b"")
+        while not self._closed:
+            time.sleep(self._heartbeat / 2.0)
+            if self._closed:
+                return
+            try:
+                with self._lock:
+                    if self._closed:
+                        return
+                    self._send(hb)
+            except OSError:
+                return
+
+    def _read_loop(self) -> None:
+        try:
+            while not self._closed:
+                try:
+                    ftype, channel, payload = read_frame(self._sock)
+                except socket.timeout:
+                    raise ConnectionError(
+                        f"AMQP heartbeat expired: no traffic from peer in "
+                        f"{2 * self._heartbeat}s"
+                    ) from None
+                if ftype == FRAME_HEARTBEAT:
+                    continue
+                if ftype == FRAME_METHOD:
+                    class_id, method_id = struct.unpack_from(">HH", payload, 0)
+                    if (class_id, method_id) == (60, 60):  # Basic.Deliver
+                        buf = memoryview(payload)
+                        off = 4
+                        _tag, off = read_shortstr(buf, off)
+                        dtag, redel = struct.unpack_from(">QB", buf, off)
+                        self._pending_deliver = (
+                            (dtag, bool(redel)), bytearray(), [0], [None]
+                        )
+                        continue
+                    if (class_id, method_id) == (60, 80) and self._confirm:
+                        # Publisher confirm: Basic.Ack from the broker.
+                        # Tags are sequential per channel and acked in
+                        # order (multiple or not), so the high-water mark
+                        # is the confirmation frontier.
+                        tag, _mult = struct.unpack_from(">QB", payload, 4)
+                        with self._ack_cond:
+                            if tag > self._confirmed:
+                                self._confirmed = tag
+                            self._ack_cond.notify_all()
+                        continue
+                    # Benign off-lock read: one reference load under the
+                    # GIL; a stale value only means a reply is dropped or
+                    # token-rejected, which the waiter's timeout/token
+                    # validation is designed to absorb.
+                    expect = self._rpc_expect  # gomelint: disable=GL402 — see above
+                    if expect is not None and expect[0] == (
+                        class_id,
+                        method_id,
+                    ):
+                        # Event-handoff slot (see __init__): the store
+                        # happens-before the waiter's read via _rpc_event.
+                        self._rpc_reply = (  # gomelint: disable=GL701 — see above
+                            expect[1],
+                            (class_id, method_id, payload),
+                        )
+                        self._rpc_event.set()
+                        continue
+                    if (class_id, method_id) == (10, 50):  # Connection.Close
+                        with self._lock:
+                            self._sock.sendall(
+                                frame(FRAME_METHOD, 0, method(10, 51))
+                            )
+                        raise ConnectionError("broker closed the connection")
+                    if (class_id, method_id) == (20, 40):  # Channel.Close
+                        # Server killed our (only) channel — acknowledge,
+                        # then fail the queue loudly: every later op
+                        # raises instead of publishing into a dead
+                        # channel. (Previously this was silently ignored.)
+                        code, = struct.unpack_from(">H", payload, 4)
+                        with self._lock:
+                            self._sock.sendall(
+                                frame(FRAME_METHOD, channel, method(20, 41))
+                            )
+                        raise ConnectionError(
+                            f"broker closed the channel (code {code})"
+                        )
+                    continue  # unsolicited method we don't care about
+                if ftype == FRAME_HEADER and self._pending_deliver:
+                    (size,) = struct.unpack_from(">Q", payload, 4)
+                    (flags,) = struct.unpack_from(">H", payload, 12)
+                    if flags & FLAG_HEADERS:
+                        hdrs, _ = read_table(memoryview(payload), 14)
+                        self._pending_deliver[3][0] = hdrs or None
+                    self._pending_deliver[2][0] = size
+                    if size == 0:
+                        self._complete_delivery()
+                    continue
+                if ftype == FRAME_BODY and self._pending_deliver:
+                    self._pending_deliver[1].extend(payload)
+                    if (
+                        len(self._pending_deliver[1])
+                        >= self._pending_deliver[2][0]
+                    ):
+                        self._complete_delivery()
+        except (ConnectionError, OSError):
+            if not self._closed:
+                self._closed = True  # gomelint: disable=GL701 — one-way latch (see __init__)
+            # Fail any in-flight RPC NOW (it would otherwise block its
+            # full timeout against a connection that is already dead) —
+            # but never clobber a reply already stored: the reader can
+            # die right after delivering a success, and the waiter must
+            # still see it. _rpc nulls the slot before each send, so a
+            # None here means no reply genuinely arrived.
+            self._rpc_event.set()
+            self._notify_publish()  # wake any poll_batch waiter
+            # Fail publishers waiting on confirms. getattr: protocol-level
+            # tests build partially-initialized instances via __new__.
+            ack_cond = getattr(self, "_ack_cond", None)
+            if ack_cond is not None:
+                with ack_cond:
+                    ack_cond.notify_all()
+
+    def _complete_delivery(self) -> None:
+        (dtag, redelivered), body, _, hdr = self._pending_deliver
+        self._pending_deliver = None
+        with self._lock:
+            self._buffer.append(bytes(body))
+            self._tags.append(dtag)
+            self._redelivered.append(redelivered)
+            self._hdrs.append(hdr[0])
+        self._notify_publish()
+
+    def _ensure_consuming(self) -> None:
+        if self._consuming:
+            return
+        self._rpc(
+            (60, 21),
+            method(
+                60,
+                20,
+                struct.pack(">H", 0)
+                + shortstr(self.name)
+                + shortstr(f"c-{self.name}")
+                + bytes([0])  # no-local/no-ack/exclusive/no-wait
+                + EMPTY_TABLE,
+            ),
+        )
+        # Only after ConsumeOk: a failed/timed-out RPC must leave the flag
+        # unset so the next poll retries instead of silently never
+        # consuming again.
+        self._consuming = True
+
+    def _sync(self) -> None:
+        """Read-side loopback barrier: wait (bounded) until every message
+        WE published has arrived back via consume."""
+        self._ensure_consuming()
+        deadline = time.monotonic() + self.SYNC_WAIT_S
+        while True:
+            with self._lock:
+                caught_up = len(self._buffer) >= self._published
+            if caught_up or self._closed or time.monotonic() >= deadline:
+                break
+            self._wait_for_publish(0.002)
+
+    # -- Queue contract ----------------------------------------------------
+    supports_headers = True
+
+    def publish(self, body: bytes, headers: dict | None = None) -> int:
+        with self._lock:
+            if self._closed:
+                raise ConnectionError("AMQP connection is closed")
+            pub = method(
+                60,
+                40,
+                struct.pack(">H", 0)
+                + shortstr("")  # default exchange
+                + shortstr(self.name)  # routing key = queue
+                + bytes([0]),
+            )
+            parts = [frame(FRAME_METHOD, 1, pub)] + content_frames(
+                1, body, self._frame_max, headers=headers
+            )
+            self._send(b"".join(parts))
+            if not self._confirm:
+                off = self._published
+                self._published += 1
+                return off
+            self._pub_seq += 1
+            seq = self._pub_seq
+        # Confirm mode: block (outside the write lock) until the broker's
+        # Basic.Ack covers this publish. No ack within the window, or a
+        # dead connection, is a FAILED publish — the message may or may
+        # not be enqueued, and only the caller's reconnect+retry (against
+        # a broker that drops pre-enqueue) or redelivery dedup can resolve
+        # that; we fail loudly instead of guessing.
+        deadline = time.monotonic() + self.SYNC_WAIT_S
+        with self._ack_cond:
+            while self._confirmed < seq and not self._closed:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                self._ack_cond.wait(left)
+            if self._confirmed < seq:
+                raise ConnectionError(
+                    f"publish {seq} unconfirmed (confirmed through "
+                    f"{self._confirmed}; closed={self._closed})"
+                )
+        with self._lock:
+            off = self._published
+            self._published += 1
+            return off
+
+    def read_from(self, offset: int, max_n: int) -> list[Message]:
+        self._sync()
+        with self._lock:
+            return [
+                Message(
+                    offset=i, body=self._buffer[i], headers=self._hdrs[i]
+                )
+                for i in range(
+                    offset, min(offset + max_n, len(self._buffer))
+                )
+            ]
+
+    def end_offset(self) -> int:
+        self._sync()
+        with self._lock:
+            return max(len(self._buffer), self._published)
+
+    def depth(self) -> int:
+        # Deliberately NO _sync(): this is the scrape-time lag gauge
+        # (bus.base.export_queue_metrics) and a /metrics scrape must
+        # never do a broker round trip. Reads the local arrival/publish
+        # view — momentarily stale until the next consume-path sync,
+        # never blocking.
+        with self._lock:
+            return max(len(self._buffer), self._published) - self._committed
+
+    def committed(self) -> int:
+        with self._lock:
+            return self._committed
+
+    def commit(self, offset: int) -> None:
+        self._ensure_consuming()
+        with self._lock:
+            if offset < self._committed:
+                raise ValueError(
+                    f"commit {offset} behind committed {self._committed}"
+                )
+            end = max(len(self._buffer), self._published)
+            if offset > end:
+                raise ValueError(f"commit {offset} past end {end}")
+            self._committed = offset
+            if offset > self._acked_through and offset <= len(self._tags):
+                ack = method(
+                    60, 80, struct.pack(">QB", self._tags[offset - 1], 1)
+                )
+                self._send(frame(FRAME_METHOD, 1, ack))
+                self._acked_through = offset
+
+    def rollback(self, offset: int) -> None:
+        with self._lock:
+            if offset > self._committed:
+                raise ValueError("rollback must move backwards")
+            # Local replay: arrivals stay buffered, so rewinding the
+            # pointer replays them (broker acks already sent stand — the
+            # buffer IS the replay log for this process's lifetime).
+            self._committed = offset
+
+    def truncate_to(self, offset: int) -> None:
+        with self._lock:
+            if offset < self._committed:
+                raise ValueError("cannot truncate below committed")
+            # Individually ack ONLY the dropped tail so the broker forgets
+            # it (recovery regenerates it by deterministic replay). A
+            # multiple-ack through the last tag would also ack the
+            # uncommitted, undropped middle — which must stay redeliverable.
+            for tag in self._tags[offset:]:
+                ack = method(60, 80, struct.pack(">QB", tag, 0))
+                self._send(frame(FRAME_METHOD, 1, ack))
+            del self._buffer[offset:]
+            del self._tags[offset:]
+            del self._redelivered[offset:]
+            del self._hdrs[offset:]
+            self._published = min(self._published, offset)
+
+    def close(self) -> None:
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True  # gomelint: disable=GL702 — one-way latch (see __init__)
+            try:
+                close = method(
+                    10,
+                    50,
+                    struct.pack(">H", 200)  # reply-code
+                    + shortstr("bye")
+                    + struct.pack(">HH", 0, 0),  # offending class/method
+                )
+                self._sock.sendall(frame(FRAME_METHOD, 0, close))
+            except OSError:
+                pass
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+
+
+# --- supervised client ---------------------------------------------------
+
+
+class SupervisedAmqpQueue(Queue):
+    """An AmqpQueue under supervision (utils.resilience.Supervised): every
+    ConnectionError tears the TCP connection down and the next operation
+    reconnects under backoff + circuit breaker, re-declares the topology
+    (AmqpQueue.__init__ declares idempotently), resumes the consume, and
+    retries. This is the caller the raw client's fail-loudly contract
+    ("callers reconnect fresh", _rpc) was always waiting for.
+
+    Offset/commit contract across reconnects — the wrapper owns the
+    arrival log, the inner client is a disposable transport:
+
+      * wrapper offset = index into the wrapper-lifetime arrival log
+        `_log`, which is NEVER truncated by a reconnect;
+      * after a reconnect the broker redelivers everything it still holds
+        unacked — including messages whose ack was in flight when the
+        connection died. Every redelivered message was delivered to THIS
+        wrapper before (single-logical-consumer topology, the repo's
+        queue contract), so it is already in the log: arrivals with the
+        Basic.Deliver REDELIVERED bit are skipped, fresh ones appended.
+        Offsets therefore stay stable and nothing is ever read twice or
+        lost, whatever the broker's ack frontier was at the crash;
+      * commit() is LOCAL and never raises on transport faults: the
+        committed offset is this process's read cursor, while the broker
+        ack that makes it durable is sent best-effort and DEFERRED when
+        the connection is down (flushed by the next successful drain). A
+        process crash still replays from the broker's acked point
+        (at-least-once, same as the raw client).
+
+    Publishes run in publisher-confirm mode: publish() returning means
+    the broker ENQUEUED the message, so a reconnect retry after a failed
+    publish is redeliver-safe (a broker that died before the enqueue
+    never confirmed it). The residual window — broker enqueues, then dies
+    before the confirm reaches us — duplicates on retry, exactly as with
+    any AMQP publisher; the drills script their kills on the
+    drop-before-enqueue fault modes this repo's fake broker provides."""
+
+    SYNC_WAIT_S = AmqpQueue.SYNC_WAIT_S
+
+    def __init__(
+        self,
+        name: str,
+        host: str = "127.0.0.1",
+        port: int = 5672,
+        username: str = "guest",
+        password: str = "guest",
+        vhost: str = "/",
+        connect_timeout_s: float = 3.0,
+        policy=None,
+        breaker=None,
+    ):
+        from ..utils.resilience import Supervised
+
+        self.name = name
+        self._state = threading.Lock()  # log/cursor fields below
+        self._io = threading.RLock()  # serializes compound queue ops
+        self._log: list[bytes] = []  # guarded by self._state
+        self._log_hdrs: list[dict | None] = []  # guarded by self._state
+        self._committed = 0  # guarded by self._state
+        self._published = 0  # guarded by self._state
+        self._consuming = False  # guarded by self._state
+        # Per-inner-connection cursors (reset by _on_reconnect): _n0 is
+        # the log length when the connection opened, _r counts arrivals
+        # skipped as redelivered, _inner_seen counts inner arrivals the
+        # wrapper has consumed. Inner arrival j corresponds to log
+        # position (_n0 - _r) + j — the formula the deferred broker acks
+        # use to translate the committed cursor into a delivery tag.
+        self._n0 = 0  # guarded by self._state
+        self._r = 0  # guarded by self._state
+        self._inner_seen = 0  # guarded by self._state
+
+        def factory():
+            # confirm=True: publish() returning means ENQUEUED — the
+            # property that makes reconnect-with-retry redeliver-safe
+            # (an unconfirmed publish is retried; a broker that died
+            # before the enqueue never acked it).
+            return AmqpQueue(
+                name, host, port, username, password, vhost,
+                connect_timeout_s, confirm=True,
+            )
+
+        self._sup = Supervised(
+            f"amqp:{name}",
+            factory,
+            policy=policy,
+            breaker=breaker,
+            on_reconnect=[self._on_reconnect],
+        )
+        # Dial eagerly, ONE attempt: a dead broker at construction is a
+        # deployment problem make_bus handles (loud memory fallback), not
+        # something to hide behind a 15s backoff schedule.
+        try:
+            self._sup.prime()
+        except BaseException:
+            self._sup.close()  # unregister from the supervisor table
+            raise
+
+    # -- reconnect re-setup ------------------------------------------------
+    def _on_reconnect(self, q: AmqpQueue) -> None:
+        """Fresh connection: topology is already re-declared (the client
+        constructor declares idempotently). Reset the per-connection
+        cursors — the log itself is untouched; redelivered arrivals dedup
+        against it (class docstring) — and resume the consume so
+        redelivery starts flowing without waiting for the next read."""
+        with self._state:
+            self._n0 = len(self._log)
+            self._r = 0
+            self._inner_seen = 0
+            consuming = self._consuming
+        if consuming:
+            q._ensure_consuming()
+
+    def supervisor(self):
+        return self._sup
+
+    # -- internals ---------------------------------------------------------
+    def _drain(self, sync: bool) -> None:
+        """Pull new arrivals from the inner client into the wrapper log and
+        flush any deferred broker acks. With sync=True, wait (bounded) for
+        the loopback catch-up: everything THIS wrapper published should be
+        back in the log before a read-side call returns (the raw client's
+        publish-then-read determinism, across reconnects). Transport
+        faults leave the log as-is — callers' poll loops retry."""
+        deadline = time.monotonic() + self.SYNC_WAIT_S
+
+        def pull(q: AmqpQueue):
+            with self._state:
+                self._consuming = True
+                start = self._inner_seen
+            msgs = q.read_from(start, 1 << 30)
+            with self._state:
+                for m in msgs:
+                    if m.offset < self._inner_seen:
+                        continue
+                    if q._redelivered[m.offset]:
+                        # Replayed delivery: already in the log (class
+                        # docstring); count it so the tag<->log-position
+                        # mapping stays aligned, but do not append.
+                        self._r += 1
+                    else:
+                        self._log.append(m.body)
+                        self._log_hdrs.append(m.headers)
+                    self._inner_seen = m.offset + 1
+                # Deferred broker acks: ack through the committed cursor
+                # as far as arrivals allow. Inner arrival j maps to log
+                # position (_n0 - _r) + j; the estimate is conservative
+                # while redeliveries are still streaming in (_r only
+                # grows, so the target only grows — never over-acks).
+                target = min(
+                    self._committed - self._n0 + self._r, len(q._tags)
+                )
+            if target > q._committed:
+                q.commit(target)
+
+        while True:
+            try:
+                self._sup.call(pull, retry_op=False)
+            except (ConnectionError, OSError):
+                return  # degraded: serve what the log already has
+            with self._state:
+                caught_up = len(self._log) >= self._published
+            if not sync or caught_up or time.monotonic() >= deadline:
+                return
+            time.sleep(0.002)
+
+    # -- Queue contract ----------------------------------------------------
+    supports_headers = True
+
+    def publish(self, body: bytes, headers: dict | None = None) -> int:
+        with self._io:
+            self._sup.call(lambda q: q.publish(body, headers=headers))
+            with self._state:
+                off = self._published
+                self._published += 1
+            return off
+
+    def read_from(self, offset: int, max_n: int) -> list[Message]:
+        with self._io:
+            self._drain(sync=True)
+            with self._state:
+                return [
+                    Message(
+                        offset=i,
+                        body=self._log[i],
+                        headers=self._log_hdrs[i],
+                    )
+                    for i in range(
+                        offset, min(offset + max_n, len(self._log))
+                    )
+                ]
+
+    def end_offset(self) -> int:
+        with self._io:
+            self._drain(sync=True)
+            with self._state:
+                return max(len(self._log), self._published)
+
+    def depth(self) -> int:
+        # Scrape-time lag gauge: no _io lock, no drain — a wedged broker
+        # (or a reconnect in progress under _io) must not block /metrics.
+        # The local log/cursor view is momentarily stale, never torn.
+        with self._state:
+            return max(len(self._log), self._published) - self._committed
+
+    def committed(self) -> int:
+        with self._state:
+            return self._committed
+
+    def commit(self, offset: int) -> None:
+        with self._io:
+            with self._state:
+                if offset < self._committed:
+                    raise ValueError(
+                        f"commit {offset} behind committed {self._committed}"
+                    )
+                end = max(len(self._log), self._published)
+                if offset > end:
+                    raise ValueError(f"commit {offset} past end {end}")
+                self._committed = offset
+                self._consuming = True
+            # Broker ack rides the next successful drain if this fails —
+            # commit-after-publish must never die on a transport fault.
+            self._drain(sync=False)
+
+    def rollback(self, offset: int) -> None:
+        with self._state:
+            if offset > self._committed:
+                raise ValueError("rollback must move backwards")
+            self._committed = offset
+
+    def truncate_to(self, offset: int) -> None:
+        with self._io:
+            with self._state:
+                if offset < self._committed:
+                    raise ValueError("cannot truncate below committed")
+                inner_off = offset - self._n0 + self._r
+
+            def drop(q: AmqpQueue):
+                if inner_off < len(q._tags):
+                    q.truncate_to(max(inner_off, 0))
+
+            try:
+                self._sup.call(drop, retry_op=False)
+            except (ConnectionError, OSError):
+                pass  # tail redelivers; recovery truncates again
+            with self._state:
+                del self._log[offset:]
+                del self._log_hdrs[offset:]
+                self._published = min(self._published, offset)
+                self._inner_seen = min(
+                    self._inner_seen, max(inner_off, 0)
+                )
+
+    def close(self) -> None:
+        self._sup.close()
+

@@ -3,9 +3,8 @@ config system (gomengine/util/conf.go:3-30 + config.yaml.example).
 
 The port of ``gome_tpu/config.py``: every section keeps its fields, its
 defaults and its checks, so one YAML file loads into both packages. What
-differs: `EngineConfig.book_config()` returns the port's BookConfig (torch
-dtypes); `SimConfig` keeps its fields but not `env_config()`, which waits
-for the port of ``sim/`` (ROADMAP Queue 1 item 7); `yaml` is imported only
+differs: `EngineConfig.book_config()` and `SimConfig.env_config()` return
+the port's BookConfig and EnvConfig (torch dtypes); `yaml` is imported only
 when there is a file to read, so the port imports without it. Sections the
 port does not run yet load here and are refused by EngineService at
 construction, each naming its ROADMAP item (service/app.py).
@@ -72,9 +71,9 @@ class BusConfig:
       cfile  — the same log format via the port's native C++ library
                (batch-amortized fsync; a failed build raises, and without
                g++ make_bus raises: it never falls back to `file`)
-      amqp   — external RabbitMQ (the reference's bus/amqp.py); accepted
-               here so a reference config loads, refused by make_bus until
-               the AMQP client is ported (ROADMAP Queue 1 item 2c)
+      amqp   — external RabbitMQ via the dependency-free AMQP 0-9-1
+               client (bus/amqp.py); boots on the memory backend with a
+               loud warning when no broker is listening
     """
 
     backend: str = "memory"
@@ -200,7 +199,7 @@ class OpsConfig:
     defaults and checks are the reference's, so a config loads into both
     packages; the port has no obs/ yet, so EngineService refuses an
     enabled `ops:` section with any of cost, timeline, profile, hostprof
-    or placement on (ROADMAP Queue 1 item 8). Set them false."""
+    or placement on (ROADMAP Queue 1 items 3 and 4). Set them false."""
 
     host: str = "127.0.0.1"
     port: int = 9109
@@ -281,7 +280,7 @@ class OpsConfig:
 @dataclasses.dataclass(frozen=True)
 class FleetConfig:
     """Fleet aggregation (the reference's obs/fleet.py; the port refuses an
-    enabled section, ROADMAP Queue 1 item 9) — this process polls the
+    enabled section, ROADMAP Queue 1 item 5) — this process polls the
     listed member processes' ops endpoints and serves the merged view
     under its own ops server's /fleet. Disabled unless a `fleet:`
     section appears in config.yaml (requires `ops:` too — the merged

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..ops import match_step
-from ..types import Action, MatchResult, Order, OrderType
+from ..types import Action, MatchResult, Order, OrderType, check_kernel
 from ..utils.cache import IdentityCache
 from .book import (
     BUY,
@@ -292,13 +292,25 @@ class BatchEngine:
         auto_grow: bool = True,
         max_slots: int = 1 << 16,
         max_cap: int = 1 << 14,
+        kernel: str = "scan",
+        pallas_interpret: bool = False,
+        mesh=None,
         dense: bool = True,
         dense_t_max: int = 1024,
         device=None,
-        mesh=None,
     ):
-        """max_slots / max_cap bound auto-grow (symbol lanes / per-side book
+        """The reference's parameters in the reference's order, then the
+        port's own `device`.
+
+        max_slots / max_cap bound auto-grow (symbol lanes / per-side book
         capacity); growth past a ceiling raises CapacityError.
+
+        kernel: the reference's "scan" or "pallas" (checked against
+        types.KERNELS); pallas_interpret: its Pallas interpreter switch.
+        Both kept so the reference's calls bind, and checked here once;
+        every value runs the one step: K1 on the card, its plain version
+        on the CPU. self.kernel is kept only to be read back (the
+        reference's attribute); no step reads it.
 
         dense: let the columnar path pack batches touching few symbols into
         compact gather/scatter grids over just the live lanes instead of
@@ -314,6 +326,7 @@ class BatchEngine:
         rows. Lane counts stay multiples of the mesh size (growth rounds
         up). The engine's device is then the mesh's home device, where
         the frame path compacts events and whole-stack reads gather."""
+        check_kernel(kernel)
         if config.cap > max_cap:
             raise ValueError(f"cap {config.cap} exceeds max_cap {max_cap}")
         if n_slots > max_slots:
@@ -342,6 +355,7 @@ class BatchEngine:
         self.n_slots = n_slots
         self.max_t = max_t
         self.auto_grow = auto_grow
+        self.kernel = kernel
         self.max_slots = max_slots
         self.max_cap = max_cap
         self.dense = dense

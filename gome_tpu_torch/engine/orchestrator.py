@@ -38,12 +38,15 @@ class MatchEngine:
         n_slots: int = 1024,
         max_t: int = 32,
         auto_grow: bool = True,
+        kernel: str = "scan",
         device=None,
         **batch_kw,
     ):
-        """device: the CUDA card by default (raises if there is none);
-        "cpu" runs the plain PyTorch version. batch_kw passes through to
-        BatchEngine (mesh, dense, dense_t_max, max_slots, max_cap); with
+        """kernel: the reference's "scan" or "pallas"; both run the one
+        step (BatchEngine). device: the CUDA card by default (raises if
+        there is none); "cpu" runs the plain PyTorch version. batch_kw
+        passes through to BatchEngine (mesh, dense, dense_t_max,
+        max_slots, max_cap, pallas_interpret); with
         mesh= (gome_tpu_torch.parallel.make_mesh) the books split into
         per-shard blocks and the engine's device is the mesh's home."""
         self.batch = BatchEngine(
@@ -51,6 +54,7 @@ class MatchEngine:
             n_slots,
             max_t=max_t,
             auto_grow=auto_grow,
+            kernel=kernel,
             device=device,
             **batch_kw,
         )

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..engine.book import BookConfig, BookState, init_books, to_device
+from ..types import check_kernel
 
 SYM_AXIS = "sym"
 
@@ -295,13 +296,17 @@ def _check_blocks(mesh: Mesh, *trees) -> None:
                              "(shard_batch)")
 
 
-def sharded_batch_step(config: BookConfig, mesh: Mesh):
+def sharded_batch_step(config: BookConfig, mesh: Mesh, kernel: str = "scan",
+                       pallas_interpret: bool = False):
     """The full-grid step per shard: on each block, the cap-class slice,
     K1, the capped-lane guard and the write-back that BatchEngine._step
     runs for a full grid (engine.batch.full_grid_step), launched on that
     shard's device. Returns fn(books, ops) -> (books, outs), all three
-    Sharded; no cross-shard traffic."""
+    Sharded; no cross-shard traffic. kernel and pallas_interpret are the
+    reference's arguments, kept so its calls bind; every value runs K1."""
     from ..engine import batch
+
+    check_kernel(kernel)
 
     def stepper(books: Sharded, ops: Sharded):
         _check_blocks(mesh, books, ops)
@@ -331,7 +336,8 @@ def _dense_block_ids(ids_local: np.ndarray, d: int, r_s: int,
     return ids, n_live
 
 
-def sharded_dense_step(config: BookConfig, mesh: Mesh):
+def sharded_dense_step(config: BookConfig, mesh: Mesh, kernel: str = "scan",
+                       pallas_interpret: bool = False):
     """The dense live-lane step per shard, the multi-card form of
     BatchEngine's dense grid: shard d's rows [d * R_s, (d+1) * R_s) name
     only lanes it owns, so on each block it gathers its local lanes, runs
@@ -341,8 +347,11 @@ def sharded_dense_step(config: BookConfig, mesh: Mesh):
     Returns fn(books, ids_local, ops) -> (books, outs): books and ops
     Sharded, ids_local the [D * R_s] shard-local lane ids on the HOST
     (sentinel >= S/D on padding rows: gathered as zero books, dropped by
-    the scatter); each block's ids go up to its device."""
+    the scatter); each block's ids go up to its device. kernel and
+    pallas_interpret as in sharded_batch_step."""
     from ..engine import batch
+
+    check_kernel(kernel)
 
     def stepper(books: Sharded, ids_local, ops: Sharded):
         _check_blocks(mesh, books, ops)

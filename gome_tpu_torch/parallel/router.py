@@ -22,7 +22,7 @@ import torch
 
 from ..engine.book import BookConfig, resolve_device
 from ..engine.orchestrator import MatchEngine
-from ..types import MatchResult, Order
+from ..types import MatchResult, Order, check_kernel
 
 
 def fnv1a(s: str) -> int:
@@ -66,16 +66,20 @@ class ShardedEngine:
         config: BookConfig | None = None,
         n_slots: int = 128,
         max_t: int = 32,
+        kernel: str = "scan",
         engine_factory=None,
         device=None,
     ):
-        """device: every shard's device (e.g. "cpu"); by default shard i
-        runs on CUDA card i % device_count. engine_factory(i) -> MatchEngine
-        replaces the default shards."""
+        """kernel: the reference's "scan" or "pallas", checked here and
+        passed to every default shard's MatchEngine. device: every shard's
+        device (e.g. "cpu"); by default shard i runs on CUDA card
+        i % device_count. engine_factory(i) -> MatchEngine replaces the
+        default shards."""
+        check_kernel(kernel)
         self.router = ShardRouter(n_shards)
         factory = engine_factory or (
             lambda i: MatchEngine(
-                config=config, n_slots=n_slots, max_t=max_t,
+                config=config, n_slots=n_slots, max_t=max_t, kernel=kernel,
                 device=shard_device(i, device),
             )
         )

@@ -36,21 +36,18 @@ OBS_FLAGS = ("cost", "timeline", "profile", "hostprof", "placement")
 
 def refuse_unported(config: Config) -> None:
     """Raise for every part of `config` the port cannot run yet, naming
-    the ROADMAP item that will port it (bus.backend amqp is refused by
-    make_bus): the port has no AMQP backend to fall back from, so a
-    config naming one is refused rather than quietly run on the memory
-    bus."""
+    the ROADMAP item that will port it."""
     if config.ops.enabled:
         armed = [f for f in OBS_FLAGS if getattr(config.ops, f)]
         if armed:
             raise NotImplementedError(
                 f"ops: {', '.join(armed)} on: the port has no obs/ yet "
-                "(ROADMAP Queue 1 item 8); set them false"
+                "(ROADMAP Queue 1 items 3 and 4); set them false"
             )
     if config.fleet.enabled:
         raise NotImplementedError(
             "a fleet: section: the port has no fleet aggregator yet "
-            "(ROADMAP Queue 1 item 9)"
+            "(ROADMAP Queue 1 item 5)"
         )
 
 
@@ -103,6 +100,7 @@ class EngineService:
             n_slots=e.n_slots,
             max_t=e.max_t,
             auto_grow=e.auto_grow,
+            kernel=e.kernel,
             device=device,
             mesh=mesh,
         )
@@ -209,7 +207,7 @@ class EngineService:
                 self, host=self.config.ops.host, port=self.config.ops.port
             )
         # The reference's GOME_RACECHECK=1 hook (analysis.racecheck) comes
-        # with the port of analysis/ (ROADMAP Queue 1 item 10).
+        # with the port of analysis/ (ROADMAP Queue 1 item 6).
 
     def start(self):
         """Start gRPC server + consumer + feed threads (+ the ops HTTP

@@ -16,7 +16,7 @@ Differences, deliberate:
 The port of ``gome_tpu/service/gateway.py``: the same responses, marks and
 doOrder bodies, byte for byte. The reference's obs/ admit hooks
 (HOSTPROF.note_admit, PLACEMENT.note_admit*) are left out until the port
-has obs/ (ROADMAP Queue 1 item 8); disarmed they are no-ops there too.
+has obs/ (ROADMAP Queue 1 item 3); disarmed they are no-ops there too.
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ stdlib ThreadingHTTPServer, no dependencies, curl-able:
 The port of ``gome_tpu/service/ops.py`` for the parts the port has. The
 reference's obs/ routes (/cost, /timeline, /profile, /hostprof, /fleet,
 /capacity, /placement) answer 404 here, as any unknown path does, until
-the port has obs/ (ROADMAP Queue 1 item 8). /durability carries the
+the port has obs/ (ROADMAP Queue 1 items 3 and 4). /durability carries the
 Persister's probe() under "persist" (null when no Persister is attached).
 
 Enabled by an `ops:` section in config.yaml (port, host) or by

@@ -18,6 +18,12 @@ from dataclasses import dataclass, field, replace
 KERNELS = ("scan", "pallas")
 
 
+def check_kernel(kernel: str) -> None:
+    """Raise unless `kernel` is one of the reference's KERNELS values."""
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
+
+
 class Side(enum.IntEnum):
     """api/order.proto:4-7 — TransactionType {BUY=0, SALE=1}."""
 

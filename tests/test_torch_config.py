@@ -1,9 +1,9 @@
 """The port's config (gome_tpu_torch.config) against gome_tpu.config: one
 YAML file with every section loads into both packages with equal sections
 (dataclasses.asdict), the same checks reject the same bad values with the
-same messages, EngineService refuses every section, backend and flag
-the port cannot run yet, naming the ROADMAP item that will port it, and
-the persist: and redis: sections boot (an unusable store keeps the
+same messages, EngineService refuses every section and flag the port
+cannot run yet, naming the ROADMAP item that will port it, and the
+rabbitmq:, persist: and redis: sections boot (an unusable store keeps the
 in-process pool, as in gome_tpu)."""
 
 import dataclasses
@@ -190,17 +190,63 @@ QUIET_OPS = "ops:\n  port: 0\n  trace: false\n" + "".join(
 
 
 @pytest.mark.parametrize("text, error, item", [
-    ("rabbitmq:\n  port: 1\n", NotImplementedError, "item 2c"),
-    ("bus:\n  backend: amqp\n", NotImplementedError, "item 2c"),
     *[(QUIET_OPS.replace(f"{f}: false", f"{f}: true"), NotImplementedError,
-       "item 8") for f in OBS_FLAGS],
-    ("ops:\n  port: 0\n", NotImplementedError, "item 8"),
-    ("fleet:\n  members: [a=http://x:1]\n", NotImplementedError, "item 9"),
+       "items 3 and 4") for f in OBS_FLAGS],
+    ("ops:\n  port: 0\n", NotImplementedError, "items 3 and 4"),
+    ("fleet:\n  members: [a=http://x:1]\n", NotImplementedError, "item 5"),
 ])
 def test_unported_parts_are_refused(tmp_path, text, error, item):
     cfg = tconfig.load_config(write(tmp_path, text))
     with pytest.raises(error, match=f"ROADMAP Queue 1 {item}\\b"):
         EngineService(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("text", ["rabbitmq:\n  port: {port}\n",
+                                  "bus:\n  backend: amqp\n  port: {port}\n"])
+@pytest.mark.parametrize("listening", [True, False])
+def test_rabbitmq_section_boots(tmp_path, text, listening):
+    """A rabbitmq: section (or bus.backend amqp) boots both packages'
+    services alike: with a broker listening, on two SupervisedAmqpQueues
+    that the health view lists with closed breakers; with none, on the
+    memory bus after the same RuntimeWarning (these cases were refusals
+    before the AMQP port)."""
+    import gome_tpu.bus.amqp as jamqp
+    import gome_tpu.bus.memory as jmemory
+    import gome_tpu.utils.resilience as jresilience
+    import gome_tpu_torch.bus.amqp as tamqp
+    import gome_tpu_torch.bus.memory as tmemory
+    import gome_tpu_torch.utils.resilience as tresilience
+    from gome_tpu.service.app import EngineService as JService
+    from gome_tpu_torch.bus.fakebroker import FakeBroker
+
+    broker = FakeBroker()
+    port = broker.start().port if listening else 1  # nothing at port 1
+    sides = ((jconfig, JService, {}, jamqp, jmemory, jresilience),
+             (tconfig, EngineService, {"device": "cpu"}, tamqp, tmemory,
+              tresilience))
+    try:
+        path = write(tmp_path, "grpc:\n  port: 0\nengine:\n  n_slots: 8\n"
+                     + text.format(port=port))
+        for config, service, kw, amqp, memory, resilience in sides:
+            cfg = config.load_config(path)
+            assert cfg.bus.backend == "amqp"
+            if listening:
+                svc = service(cfg, **kw)
+                queues = (svc.bus.order_queue, svc.bus.match_queue)
+                assert all(isinstance(q, amqp.SupervisedAmqpQueue)
+                           for q in queues)
+                conns = resilience.resilience_snapshot()
+                for name in ("doOrder", "matchOrder"):
+                    assert conns[f"amqp:{name}"]["breaker"] == "closed"
+                for q in queues:
+                    q.close()
+            else:
+                with pytest.warns(RuntimeWarning, match="falling back"):
+                    svc = service(cfg, **kw)
+                assert isinstance(svc.bus.order_queue, memory.MemoryQueue)
+                assert isinstance(svc.bus.match_queue, memory.MemoryQueue)
+    finally:
+        broker.stop()
 
 
 def test_mesh_devices_boot_a_cpu_mesh(tmp_path):

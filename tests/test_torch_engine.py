@@ -302,3 +302,100 @@ def test_pre_rebasing_snapshot_restores(dtype):
     assert head + got == oracle_keys(orders)
     assert_states_equal(t.batch.export_state(), j.batch.export_state())
     t.batch.verify_books()
+
+
+def reference_calls():
+    """The five signatures of both packages that take the reference's
+    kernel= argument, each with its reference arguments by position and
+    by keyword (gome_tpu's defaults, kernel "pallas"): (name, gome_tpu's
+    callable, the port's, [(args, kwargs), ...])."""
+    import gome_tpu.engine.batch as jbatch
+    import gome_tpu.parallel.mesh as jmesh
+    import gome_tpu.parallel.router as jrouter
+    import gome_tpu_torch.parallel.mesh as tmesh
+    import gome_tpu_torch.parallel.router as trouter
+
+    cfg, mesh = object(), object()
+    return [
+        ("MatchEngine", JEngine, MatchEngine, [
+            ((cfg, 8, 16, True, "pallas"), {}),
+            ((cfg,), dict(n_slots=8, max_t=16, auto_grow=True,
+                          kernel="pallas", pallas_interpret=True))]),
+        ("BatchEngine", jbatch.BatchEngine, BatchEngine, [
+            ((cfg, 8, 16, True, 1 << 16, 1 << 14, "pallas", True, None,
+              True, 1024), {}),
+            ((cfg, 8), dict(kernel="pallas", pallas_interpret=True,
+                            dense=False))]),
+        ("ShardedEngine", jrouter.ShardedEngine, trouter.ShardedEngine, [
+            ((2, cfg, 8, 16, "pallas", None), {}),
+            ((2,), dict(config=cfg, kernel="pallas"))]),
+        ("sharded_batch_step", jmesh.sharded_batch_step,
+         tmesh.sharded_batch_step, [((cfg, mesh, "pallas", True), {}),
+                                    ((cfg, mesh), dict(kernel="pallas"))]),
+        ("sharded_dense_step", jmesh.sharded_dense_step,
+         tmesh.sharded_dense_step, [((cfg, mesh, "pallas", True), {}),
+                                    ((cfg, mesh), dict(kernel="pallas"))]),
+    ]
+
+
+@pytest.mark.parametrize("name", ["MatchEngine", "BatchEngine",
+                                  "ShardedEngine", "sharded_batch_step",
+                                  "sharded_dense_step"])
+def test_reference_kernel_arguments_bind(name):
+    """The reference's kernel= (and pallas_interpret=) arguments, by
+    position and by keyword, bind to the same parameters of the port's
+    signature as of gome_tpu's; the port's own `device` comes after them,
+    and the sharded steps add nothing (without the kernel parameter, a
+    positional "pallas" lands on `device` or `engine_factory`)."""
+    import inspect
+
+    (_, jfn, tfn, calls), = [c for c in reference_calls() if c[0] == name]
+    jsig, tsig = inspect.signature(jfn), inspect.signature(tfn)
+    for args, kwargs in calls:
+        want = jsig.bind(*args, **kwargs).arguments
+        got = tsig.bind(*args, **kwargs).arguments
+        assert got == want, (args, kwargs)
+        assert got.get("kernel", want.get("kernel")) == "pallas"
+    tnames = list(tsig.parameters)
+    jnames = [n for n in jsig.parameters if n != "batch_kw"]
+    assert tnames[:len(jnames)] == jnames
+    assert tnames[len(jnames):] == {
+        "MatchEngine": ["device", "batch_kw"], "BatchEngine": ["device"],
+        "ShardedEngine": ["device"]}.get(name, [])
+
+
+@pytest.mark.parametrize("kernel", ["scan", "pallas"])
+def test_reference_kernel_positional_runs(kernel):
+    """MatchEngine(cfg, 8, 16, True, kernel, device="cpu") runs the one
+    step whatever the reference's kernel value and gives the oracle's
+    events, as gome_tpu's MatchEngine does with the same arguments; a
+    ShardedEngine built the reference's way matches too; an unknown
+    kernel raises in both packages."""
+    import gome_tpu.parallel.router as jrouter
+    import gome_tpu_torch.parallel.router as trouter
+
+    orders = jstreams.multi_symbol_stream(n=160, n_symbols=6, seed=5,
+                                          zipf_a=1.2, cancel_prob=0.25)
+    j = JEngine(JConfig(cap=8, max_fills=4), 8, 16, True, kernel)
+    t = MatchEngine(BookConfig(cap=8, max_fills=4), 8, 16, True, kernel,
+                    device="cpu")
+    assert t.batch.kernel == kernel
+    got, want = run_pair(j, t, orders, batch=40, columnar=False)
+    assert got == want == oracle_keys(orders)
+    t.batch.verify_books()
+    sharded = trouter.ShardedEngine(2, BookConfig(cap=8, max_fills=4), 8,
+                                    16, kernel, device="cpu")
+    for o in to_torch_orders(orders):
+        sharded.mark(o)
+    got = [e for i in range(0, len(orders), 40)
+           for e in sharded.process(to_torch_orders(orders[i:i + 40]))]
+    assert event_keys(got) == oracle_keys(orders)
+    for make in (lambda: JEngine(JConfig(cap=8), 8, 16, True, "triton"),
+                 lambda: MatchEngine(BookConfig(cap=8), 8, 16, True,
+                                     "triton", device="cpu"),
+                 lambda: trouter.ShardedEngine(2, BookConfig(cap=8), 8, 16,
+                                               "triton", device="cpu"),
+                 lambda: jrouter.ShardedEngine(2, JConfig(cap=8), 8, 16,
+                                               "triton")):
+        with pytest.raises(ValueError, match="kernel must be one of"):
+            make()

@@ -45,6 +45,8 @@ def test_port_files_were_found():
         assert f"gome_tpu_torch/sim/{name}.py" in PORT_FILES
     for name in ("__init__", "mesh", "router"):
         assert f"gome_tpu_torch/parallel/{name}.py" in PORT_FILES
+    for name in ("amqp", "fakebroker"):
+        assert f"gome_tpu_torch/bus/{name}.py" in PORT_FILES
     assert len(PORT_FILES) > 10
 
 
@@ -72,7 +74,8 @@ def test_importing_the_port_loads_neither():
         "gome_tpu_torch.persist, gome_tpu_torch.persist.respserver, "
         "gome_tpu_torch.sim, gome_tpu_torch.sim.stats, "
         "gome_tpu_torch.ops.hawkes_scan, gome_tpu_torch.parallel, "
-        "gome_tpu_torch.parallel.mesh, gome_tpu_torch.parallel.router\n"
+        "gome_tpu_torch.parallel.mesh, gome_tpu_torch.parallel.router, "
+        "gome_tpu_torch.bus.amqp, gome_tpu_torch.bus.fakebroker\n"
         "bad = [m for m in sys.modules if m in ('jax', 'gome_tpu') or "
         "m.startswith(('jax.', 'gome_tpu.'))]\n"
         "print(bad)\n"

@@ -9,7 +9,10 @@ import contextlib
 import functools
 import json
 import os
+import pathlib
 import signal
+import subprocess
+import sys
 import threading
 import time
 import types
@@ -385,8 +388,26 @@ def key_tree(x):
     return type(x).__name__
 
 
-@limited(120)
 def test_ops_server_matches():
+    """Both packages' metric REGISTRYs are process-wide, and a service that
+    an earlier test in this worker built leaves its names there. The
+    comparison runs in a fresh process, where both start as imports leave
+    them, so /metrics is compared exactly whatever ran before."""
+    code = ("import sys; sys.path.insert(0, 'tests')\n"
+            "import conftest, test_torch_service_parts as m\n"
+            "m.compare_ops_servers()\n"
+            "print('compared')\n")
+    proc = subprocess.run([sys.executable, "-c", code],
+                          cwd=pathlib.Path(__file__).resolve().parents[1],
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.splitlines()[-1] == "compared", proc.stdout
+
+
+def compare_ops_servers():
+    """The OpsServer of each package's EngineService, started with the
+    threads not running: equal /healthz, /durability, /trace and 404s,
+    and no /metrics name in the port's that gome_tpu's lacks."""
     from gome_tpu.bus import encode_order
     from gome_tpu.types import Order, Side
 
