@@ -119,10 +119,15 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
  10. the market simulator (gome_tpu_torch.sim): (a) the Hawkes bin scan
      (K5) against its plain version on draws made on the card, T = 32 and
      1,024 from mu and from the stationary intensity, 65,536 (one long
-     chain) from the stationary one: occur, etype, oid and next_oid equal,
-     lam bit-equal; ms, device_ms, the plain version's ms and the bound,
-     whose per-bin chain is built from a one-thread clock64 probe of the
-     add, logf, expf and compare-select latencies (hawkes_scan.cu);
+     chain) from the stationary one, and at every edge input
+     (hawkes_edge_case: an event in every bin, none, u_ev equal to
+     p_event, tied maxima, an intensity at 0, a cut last round, T around
+     a warp and a grid): occur, etype, oid and next_oid equal, lam
+     bit-equal; ms, device_ms, cycles a bin, the plain version's ms, the
+     bound (an event-free bin's update of lam, which no design removes)
+     and the chain without speculation beside it, both from a one-warp
+     clock64 probe (hawkes_scan.cu) of the add, logf, expf,
+     compare-select, shuffle, ballot, shared-load and update latencies;
      (b) the environment at 256 lanes (cap 32, K 8, int32): a 1,000-step
      rollout under set_sync_debug_mode("error") with more than 1,000
      events, more than 100 trades and no overflow, one K1 and one K5
@@ -197,6 +202,14 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
 
 The last two lines are the kernel table (JSON) and
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --k5-times <checkout>
+
+builds K5 of that checkout's package, holds it against that package's
+plain version at phase 10 (a)'s draws (T 32 and 1,024) and edge inputs,
+times it at T 32, 1,024 and 65,536 and times phase 10 (d)'s generator on
+it, and prints one JSON line. Run it on two checkouts in turns (A, B, B,
+A, ...) to compare them on one card.
 """
 
 from __future__ import annotations
@@ -2783,10 +2796,13 @@ def sim_env_config(lanes: int, cap: int = 32, k: int = 8, **flow):
 
 def chain_latencies(device) -> dict:
     """Cycles of one dependent step of each operation on a bin's path,
-    from hawkes_scan.cu's one-thread clock64 probe (the best of three runs
+    from hawkes_scan.cu's one-warp clock64 probe (the best of three runs
     of 2**14 steps each): `add` a float add, `log` logf(x + c), `exp`
     expf(x * c), `cs` a compare and select (the probe's step less one
-    add)."""
+    add); the steps that can pick a realized candidate: `shfl` a shuffle
+    whose source lane is the previous result, `ballot` a ballot of a
+    compare, `lds` a shared-memory load; and `update` an event-free bin's
+    update of one intensity (subtract, fused multiply-add)."""
     import ctypes
 
     from gome_tpu_torch.ops import build
@@ -2796,8 +2812,8 @@ def chain_latencies(device) -> dict:
                       ctypes.c_void_p, ctypes.c_void_p]
     probe.restype = ctypes.c_int
     n = 1 << 14
-    cycles = torch.zeros(4, dtype=torch.int64, device=device)
-    sink = torch.zeros(4, dtype=torch.float32, device=device)
+    cycles = torch.zeros(8, dtype=torch.int64, device=device)
+    sink = torch.zeros(8 * 32, dtype=torch.float32, device=device)
     best = None
     for _ in range(3):
         err = probe(n, 1.0, cycles.data_ptr(), sink.data_ptr(),
@@ -2807,30 +2823,49 @@ def chain_latencies(device) -> dict:
                              f"launch (error {err})")
         got = (cycles.cpu().double() / n).tolist()
         best = got if best is None else [min(a, b) for a, b in zip(best, got)]
-    add, log, exp, cs_add = best
-    return dict(add=add, log=log, exp=exp, cs=cs_add - add)
+    add, log, exp, cs_add, shfl, ballot, lds, update = best
+    return dict(add=add, log=log, exp=exp, cs=cs_add - add, shfl=shfl,
+                ballot=ballot, lds=lds, update=update)
 
 
 def hawkes_chain_cycles(lat) -> float:
-    """Cycles of one bin's least dependent path from lam to the next lam,
+    """Cycles of one bin's least dependent path from lam to the next lam
+    when bins are taken one at a time (the chain without speculation),
     from the probe's latencies: the larger of (A) log(lam + eps), + g,
     and a three-level tree argmax whose compare-selects carry alpha's
     column from registers as their payload, and (B) the six-term sum left
     to right (the function's rounding order: five adds), * -dt, exp and
     1 - p; then the compare u < p selecting that column or 0, and the
-    update's add. The decay's FMA runs beside both."""
+    update's add. The decay's FMA runs beside both. Speculation goes
+    below it: it evaluates later bins before this path ends."""
     a = lat["log"] + lat["add"] + 3 * lat["cs"]
     b = 5 * lat["add"] + lat["exp"] + lat["add"]
     return max(a, b) + lat["cs"] + lat["add"]
 
 
-def hawkes_bound_ms(t_bins: int, chain_cycles: float) -> tuple[float, str]:
+def hawkes_spec_cycles(lat) -> float:
+    """Cycles a bin that no design removes, speculating or not: the probe's
+    event-free update of one intensity, fma(lam - mu, decay, mu), a
+    subtract and a fused multiply-add. Every design applies T such updates
+    in order, since the outputs and the last lam are the realized path's,
+    bit for bit, and each update rounds what the last one gave; a bin with
+    an event also adds alpha's column. The reference's + 0.0f on an
+    event-free bin is not counted: the FMA never returns -0 while mu is
+    not -0, so adding +0 changes no bit. The pick of a realized candidate
+    is not counted either: a design may pick once for many bins (K5 once a
+    round of up to five)."""
+    return lat["update"]
+
+
+def hawkes_bound_ms(t_bins: int, cycles_per_bin: float) -> tuple[float, str]:
     """Least time for one scan of T bins: its bytes (draws in, three [T]
-    outputs, lam and the counter) over HBM bandwidth, or T times one bin's
-    dependent chain (hawkes_chain_cycles) at the boost clock."""
+    outputs, lam and the counter) over HBM bandwidth, or T times
+    `cycles_per_bin` (hawkes_spec_cycles for the bound, hawkes_chain_cycles
+    for the chain without speculation) at the boost clock, whichever is
+    larger."""
     nbytes = t_bins * (4 + 6 * 4 + 3 * 4) + 2 * 6 * 4 + 2 * 4
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    by_chain = t_bins * chain_cycles / SM_CLOCK_HZ * 1e3
+    by_chain = t_bins * cycles_per_bin / SM_CLOCK_HZ * 1e3
     return (by_bytes, "bytes") if by_bytes > by_chain else (by_chain,
                                                             "operations")
 
@@ -2852,6 +2887,99 @@ def scan_inputs(config, t_bins: int, lam0, seed: int, device):
     lam = torch.tensor(lam0, dtype=torch.float32, device=device)
     oid0 = torch.ones((), dtype=torch.int32, device=device)
     return lam, oid0, draws.u_ev, draws.g_ty
+
+
+#: T values of K5's edge inputs: around a warp (32) and a 1,024-bin grid.
+HAWKES_EDGE_T = (1, 2, 3, 7, 8, 31, 32, 33, 1023, 1024, 1025)
+#: K5's edge inputs, built by hawkes_edge_case.
+HAWKES_EDGE_CASES = ("event_every_bin", "no_event", "u_equals_p",
+                     "tied_maxima", "zero_intensity", "partial_last_round",
+                     *(f"T{t}" for t in HAWKES_EDGE_T))
+#: The etype of tied_maxima's g_ty rows, in turn.
+HAWKES_TIE_ETYPES = (0, 2, 4, 0)
+#: The intensities zero_intensity starts at 0.
+HAWKES_ZERO_TYPES = (0, 3, 5)
+
+
+def hawkes_event_thresholds(config, lam, t_bins: int) -> torch.Tensor:
+    """p_event of each of `t_bins` bins along the event-free path from
+    `lam`, on lam's device, with hawkes_scan_reference's own expressions
+    (so equal to its p_event bit for bit)."""
+    from gome_tpu_torch.ops.hawkes_scan import N_EVENT_TYPES, _constants
+
+    mu_np, _, decay, neg_dt = _constants(config)
+    mu = torch.from_numpy(mu_np).to(lam.device)
+    mu64 = mu.double()
+    zero = torch.zeros(N_EVENT_TYPES, dtype=torch.float32, device=lam.device)
+    out = torch.empty(t_bins, dtype=torch.float32, device=lam.device)
+    for t in range(t_bins):
+        total = lam[0]
+        for i in range(1, N_EVENT_TYPES):
+            total = total + lam[i]
+        out[t] = 1.0 - torch.exp(total * neg_dt)
+        lam = ((lam - mu).double() * decay + mu64).float() + zero
+    return out
+
+
+def hawkes_edge_case(config, name: str, device):
+    """(lam, oid0, u_ev, g_ty) on `device` for one of HAWKES_EDGE_CASES,
+    from numpy draws seeded by the name (u_ev uniform, g_ty Gumbel, both
+    float32; T 1,024 unless named): event_every_bin: 100 times the
+    stationary lam and u_ev 0, so every bin has an event; no_event: u_ev
+    1; u_equals_p: u_ev equal to each bin's p_event along the event-free
+    path (hawkes_event_thresholds on `device`), so the strict u < p never
+    holds; tied_maxima: lam = mu and no event, so the two sides of each
+    kind stay tied, and g_ty rows tied on types 0-1, 2-3, 4-5 and on all
+    six in turn (HAWKES_TIE_ETYPES); zero_intensity: the stationary lam
+    with HAWKES_ZERO_TYPES at 0, so log(lam + eps) is log(1e-12), below
+    every other type's score at bin 0; partial_last_round: no event at T
+    1,027, so the kernel's last round of five bins is cut short; T<n>: the
+    stationary lam and random draws at T = n."""
+    import zlib
+
+    t_bins = int(name[1:]) if name.startswith("T") else (
+        1027 if name == "partial_last_round" else 1024)
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    u_ev = rng.random(t_bins, dtype=np.float32)
+    u_ty = rng.random((t_bins, 6), dtype=np.float32)
+    g_ty = -np.log(-np.log(np.maximum(u_ty, np.finfo(np.float32).tiny)))
+    lam0 = stationary_lam(config)
+    if name == "event_every_bin":
+        lam0 = 100 * lam0
+        u_ev[:] = 0
+    elif name in ("no_event", "partial_last_round"):
+        u_ev[:] = 1
+    elif name == "tied_maxima":
+        lam0 = config.mu()
+        u_ev[:] = 1
+        rows = np.zeros((len(HAWKES_TIE_ETYPES), 6), np.float32)
+        for r, e in enumerate(HAWKES_TIE_ETYPES[:3]):
+            rows[r, e:e + 2] = 5.0
+        g_ty = rows[np.arange(t_bins) % len(rows)]
+    elif name == "zero_intensity":
+        lam0 = lam0.copy()
+        lam0[list(HAWKES_ZERO_TYPES)] = 0.0
+    elif not name.startswith("T") and name != "u_equals_p":
+        raise ValueError(f"no K5 edge case {name!r}")
+    lam = torch.tensor(lam0, dtype=torch.float32, device=device)
+    oid0 = torch.ones((), dtype=torch.int32, device=device)
+    u = (hawkes_event_thresholds(config, lam, t_bins) if name == "u_equals_p"
+         else torch.from_numpy(u_ev).to(device))
+    g = torch.from_numpy(np.ascontiguousarray(g_ty, np.float32)).to(device)
+    return lam, oid0, u, g
+
+
+def time_scan(config, args) -> dict:
+    """K5's ms (median of CUDA events around one call), device_ms and
+    cycles a bin at `args` (200 calls, 20 from T 4,096 on)."""
+    from gome_tpu_torch.ops.hawkes_scan import hawkes_scan
+
+    t_bins = args[2].shape[0]
+    runs = 200 if t_bins < 4096 else 20
+    dev_ms = device_ms(lambda: hawkes_scan(config, *args), runs)
+    return dict(ms=time_ms(lambda: hawkes_scan(config, *args), runs),
+                device_ms=dev_ms,
+                cycles_per_bin=dev_ms * 1e-3 * SM_CLOCK_HZ / t_bins)
 
 
 def check_scan(label, config, args) -> tuple[int, float, float]:
@@ -3152,6 +3280,7 @@ def sim_traffic(device, n_orders: int, lanes: int, t_bins: int,
     orders = [o for c in cols for o in orders_from_columns(c)][:n_orders]
     return orders, dict(
         secs=secs, pumps=pumps, fetch_s=fetch_s,
+        host_s={p: v[0] for p, v in parts.items()},
         device_s={p: span_seconds(v[1]) for p, v in parts.items()},
         launches=launches, peak_gb=peak_gb, worst=worst,
         scan_worst=scan_worst, kept_lines=[k1_line, k5_line])
@@ -3231,12 +3360,13 @@ def sim_stats_check(device, lanes: int, t_bins: int) -> list[str]:
     return lines
 
 
-def phase10(card: str, device, sizes) -> dict:
-    """The market simulator on the card, each part printed as it ends."""
-    from gome_tpu_torch.ops.hawkes_scan import hawkes_scan, hawkes_scan_reference
-    from gome_tpu_torch.sim import FlowConfig, make_manifest, run_from_manifest
+def phase10a(card: str, device, sizes) -> dict:
+    """Phase 10 (a): K5 against its plain version on draws made on the
+    card and at every edge input (HAWKES_EDGE_CASES), then timed beside
+    its two bounds, each line printed as it ends."""
+    from gome_tpu_torch.ops.hawkes_scan import hawkes_scan_reference
+    from gome_tpu_torch.sim import FlowConfig
 
-    t_phase = time.perf_counter()
     flow = FlowConfig()
     scans, scan_worst = {}, 0.0
     scan_t = sizes["sim_scan_t"]
@@ -3248,20 +3378,26 @@ def phase10(card: str, device, sizes) -> dict:
                 f"phase 10 (a) T={t_bins} from {name}", flow, args)
             scans[(t_bins, name)] = (args, events, plain_s)
             scan_worst = max(scan_worst, err)
+    edges = []
+    for name in HAWKES_EDGE_CASES:
+        events, _, err = check_scan(f"phase 10 (a) edge input {name}", flow,
+                                    hawkes_edge_case(flow, name, device))
+        scan_worst = max(scan_worst, err)
+        edges.append(f"{name} {events}")
     lat = chain_latencies(device)
     chain = hawkes_chain_cycles(lat)
+    spec = hawkes_spec_cycles(lat)
     k5 = {}
     for t_bins in scan_t:
         args = scans[(t_bins, "stationary")][0]
-        runs = 200 if t_bins < 4096 else 20
-        bound, bound_by = hawkes_bound_ms(t_bins, chain)
+        bound, bound_by = hawkes_bound_ms(t_bins, spec)
         plain_ms = (time_ms(lambda: hawkes_scan_reference(flow, *args), 5, 1)
                     if t_bins == 32 else
                     1e3 * scans[(t_bins, "stationary")][2])
         k5[t_bins] = dict(
-            ms=time_ms(lambda: hawkes_scan(flow, *args), runs),
-            device_ms=device_ms(lambda: hawkes_scan(flow, *args), runs),
-            plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+            **time_scan(flow, args), plain_ms=plain_ms, bound_ms=bound,
+            bound_by=bound_by,
+            chain_bound_ms=hawkes_bound_ms(t_bins, chain)[0],
             events=scans[(t_bins, "stationary")][1])
     for t_bins, r in k5.items():
         print(f"phase 10 (a) [{card}]: hawkes_scan (K5) T={t_bins}: equal to "
@@ -3270,16 +3406,35 @@ def phase10(card: str, device, sizes) -> dict:
               f"lam; ms {r['ms']:.4f} (median), device_ms "
               f"{r['device_ms']:.4f}; plain {r['plain_ms']:.3f} ms "
               f"({'median of 5' if t_bins == 32 else 'one run'}); bound "
-              f"{r['bound_ms']:.5f} ms ({r['bound_by']}, "
-              f"{chain:.1f} cycles a bin at {SM_CLOCK_HZ / 1e9:.2f} GHz); "
-              f"the kernel {r['device_ms'] * 1e-3 * SM_CLOCK_HZ / t_bins:.1f}"
-              f" cycles a bin")
-    print(f"phase 10 (a) [{card}]: latency probe (one thread, clock64, best "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}, {spec:.2f} cycles a "
+              f"bin, an event-free update of lam, at "
+              f"{SM_CLOCK_HZ / 1e9:.2f} GHz); the chain without speculation "
+              f"{r['chain_bound_ms']:.5f} ms ({chain:.1f} cycles a bin); the "
+              f"kernel {r['cycles_per_bin']:.1f} cycles a bin")
+    print(f"phase 10 (a) [{card}]: K5 equal to its plain version at "
+          f"{len(edges)} edge inputs (name and events): " + ", ".join(edges))
+    print(f"phase 10 (a) [{card}]: latency probe (one warp, clock64, best "
           f"of 3 x 2**14 dependent steps), cycles a step: add "
           f"{lat['add']:.2f}, logf(x + c) {lat['log']:.2f}, expf(x * c) "
-          f"{lat['exp']:.2f}, compare-select {lat['cs']:.2f}; a bin's least "
-          f"dependent path max(log + add + 3 cs, 6 add + exp + add) + cs + "
-          f"add = {chain:.2f} cycles")
+          f"{lat['exp']:.2f}, compare-select {lat['cs']:.2f}, shuffle "
+          f"{lat['shfl']:.2f}, ballot {lat['ballot']:.2f}, shared load "
+          f"{lat['lds']:.2f} (the last four: the steps that can pick a "
+          f"realized candidate), an event-free update (sub, fma) "
+          f"{lat['update']:.2f}; a bin's least dependent path without "
+          f"speculation max(log + add + 3 cs, 6 add + exp + add) + cs + "
+          f"add = {chain:.2f} cycles; the bound, any design: the update, "
+          f"{spec:.2f} cycles")
+    return dict(k5=k5, worst=scan_worst)
+
+
+def phase10(card: str, device, sizes) -> dict:
+    """The market simulator on the card, each part printed as it ends."""
+    from gome_tpu_torch.sim import make_manifest, run_from_manifest
+
+    t_phase = time.perf_counter()
+    a = phase10a(card, device, sizes)
+    k5, scan_worst = a["k5"], a["worst"]
+    scan_t = sizes["sim_scan_t"]
 
     # (b) geometry (i): 256 lanes, the reference's acceptance rollout.
     config_i = sim_env_config(sizes["sim_i_lanes"])
@@ -3406,7 +3561,9 @@ def phase10(card: str, device, sizes) -> dict:
             max_abs_err=max([scan_worst] + [r["scan_worst"] for r in runs]),
             ms=head["ms"], device_ms=head["device_ms"],
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-            bound_by=head["bound_by"], launches=run_i["launches"][1],
+            bound_by=head["bound_by"], chain_bound_ms=head["chain_bound_ms"],
+            cycles_per_bin=head["cycles_per_bin"],
+            launches=run_i["launches"][1],
             per_t={str(t): r for t, r in k5.items()},
             sim_path_launches=dict(
                 rollout_256=run_i["launches"][1],
@@ -4478,6 +4635,51 @@ def load_kernel(card: str) -> None:
                 print(f"  ptxas {name}: {line.strip()}", file=sys.stderr)
 
 
+def k5_times(argv) -> int:
+    """`--k5-times <tree>`: K5 of the gome_tpu_torch package in <tree> (a
+    checkout's root, built there) on this card: equal to that package's
+    plain version at phase 10 (a)'s draws from the stationary lam (T 32 and
+    1,024) and at every edge input, then ms, device_ms and cycles a bin at
+    T 32, 1,024 and 65,536, and phase 10 (d)'s generator (sim_traffic,
+    after one pump off the clock) on that package. Prints one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --k5-times: needs a CUDA card", file=sys.stderr)
+        return 1
+    tree = os.path.abspath(argv[1])
+    sys.path.insert(0, tree)
+    import gome_tpu_torch
+
+    if not os.path.abspath(gome_tpu_torch.__file__).startswith(tree + os.sep):
+        raise SystemExit(f"--k5-times: gome_tpu_torch came from "
+                         f"{gome_tpu_torch.__file__}, not {tree}")
+    from gome_tpu_torch.ops.hawkes_scan import hawkes_scan
+    from gome_tpu_torch.sim import FlowConfig
+
+    device = torch.device("cuda")
+    flow = FlowConfig()
+    for name in HAWKES_EDGE_CASES:
+        check_scan(f"--k5-times {tree} edge input {name}", flow,
+                   hawkes_edge_case(flow, name, device))
+    out = {}
+    for t_bins in (32, 1024, 65536):
+        args = scan_inputs(flow, t_bins, stationary_lam(flow), 100 + t_bins,
+                           device)
+        if t_bins < 4096:
+            check_scan(f"--k5-times {tree} T={t_bins}", flow, args)
+        out[str(t_bins)] = dict(
+            **time_scan(flow, args),
+            events=int(hawkes_scan(flow, *args).occur.sum()))
+    sim_traffic(device, 1, 10_240, 1_024, 0)
+    orders, gen = sim_traffic(device, 50_000, 10_240, 1_024, 128)
+    gen = dict(orders_per_s=len(orders) / gen["secs"], secs=gen["secs"],
+               pumps=gen["pumps"], fetch_s=gen["fetch_s"],
+               host_s=gen["host_s"], device_s=gen["device_s"],
+               launches=gen["launches"])
+    print(json.dumps(dict(tree=tree, card=card_line(), k5=out,
+                          edges=len(HAWKES_EDGE_CASES), generator=gen)))
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--persist-worker"]:
         return persist_worker(sys.argv[1:])
@@ -4485,6 +4687,8 @@ def main() -> int:
         return sim_worker(sys.argv[1:])
     if sys.argv[1:2] in (["--amqp-consumer"], ["--amqp-gateway"]):
         return amqp_worker(sys.argv[1:])
+    if sys.argv[1:2] == ["--k5-times"]:
+        return k5_times(sys.argv[1:])
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "

@@ -13,20 +13,32 @@ scan body does:
 ``hawkes_scan`` runs the hand-written CUDA kernel ``ops/csrc/hawkes_scan.cu``
 on CUDA tensors and ``hawkes_scan_reference``, a Python loop over the bins
 on tensors, on CPU tensors. What bounds the kernel is the serial dependency
-chain from one bin's intensities to the next, not bytes.
+chain from one bin's intensities to the next, not bytes. The kernel
+speculates: a bin has seven outcomes (no event, or an event of one of six
+types), so one round evaluates bin t and, on 28 more lanes, bins t + 1 to
+t + 4 along the event-free path with each outcome of the bin before,
+keeps the realized path (its first event and the bin after it, or all
+five bins) and goes on from the kept lanes' intensities: about 4.2 bins a
+round at the flow's stationary intensity, at least two. Four warps share
+the round (two take the logs, one the occurrence test, one stages the draws
+and the outputs). See the source's note for the layout and its cost.
 
 Both take the six-term sum left to right and round every float32 operation
-in the same order. The decay is one fused multiply-add, rounded once, as
-XLA's CPU compiler contracts the reference's ``mu + (lam - mu) * decay``:
-the kernel calls ``__fmaf_rn``, the plain version takes the product and the
-sum in float64 (the product is exact there) and rounds to float32, which
-differs from one rounding only when the float64 sum lands on a float32
-midpoint (about 2**-28 of values). So given equal ``occur`` and ``etype``
-the intensities are bit-equal (tolerance 0): lam's update never reads the
-sum, the exp or the log. The kernel and the plain version on the card call
-the same CUDA expf / logf; on the CPU, and in XLA, exp and log may differ
-from them by an ulp, which can move ``occur`` or ``etype`` only for a draw
-within an ulp of its threshold.
+in the same order, and every speculative lane runs the serial path's own
+operations on the intensities the serial path holds at its bin, so the
+kept path is the serial one bit for bit. The decay is one fused
+multiply-add, rounded once, as XLA's CPU compiler contracts the
+reference's ``mu + (lam - mu) * decay``: the kernel calls ``__fmaf_rn``,
+the plain version takes the product and the sum in float64 (the product is
+exact there) and rounds to float32, which differs from one rounding only
+when the float64 sum lands on a float32 midpoint (about 2**-28 of values).
+So given equal ``occur`` and ``etype`` the intensities are bit-equal
+(tolerance 0): lam's update never reads the sum, the exp or the log. The
+argmax keeps the first maximum (a later type wins only when strictly
+larger, as ``torch.argmax`` does for values that are not NaN). The kernel
+and the plain version on the card call the same CUDA expf / logf; on the
+CPU, and in XLA, exp and log may differ from them by an ulp, which can move
+``occur`` or ``etype`` only for a draw within an ulp of its threshold.
 """
 
 from __future__ import annotations

@@ -329,7 +329,7 @@ def test_need_exact_with_a_frame_in_flight_on_the_card(cuda):
 def test_hawkes_scan_kernel_matches_plain_version(cuda, t_bins, start):
     """K5 against its plain version on draws made on the card: occur,
     etype, oid and next_oid equal, lam bit-equal; T = 3,000 crosses the
-    kernel's 1,024-bin staging chunks."""
+    kernel's 512-bin staging chunks."""
     from gome_tpu_torch.ops import hawkes_scan
     from gome_tpu_torch.sim import FlowConfig
 
@@ -342,6 +342,25 @@ def test_hawkes_scan_kernel_matches_plain_version(cuda, t_bins, start):
     assert hawkes_scan.hawkes_scan.launches == 1
     for a, b in zip(args, before):
         assert torch.equal(a, b)  # the kernel never writes its inputs
+
+
+@pytest.mark.parametrize("name", chip_smoke.HAWKES_EDGE_CASES)
+def test_hawkes_scan_kernel_matches_plain_version_on_edge_inputs(cuda, name):
+    """K5 against its plain version at each of chip_smoke's edge inputs
+    (an event in every bin, none, u_ev equal to p_event, tied maxima, an
+    intensity at 0, a cut last round, T around a warp and a grid): occur,
+    etype, oid and next_oid equal, lam bit-equal, one launch."""
+    from gome_tpu_torch.ops import hawkes_scan
+    from gome_tpu_torch.sim import FlowConfig
+
+    config = FlowConfig()
+    args = chip_smoke.hawkes_edge_case(config, name, cuda)
+    before = [a.clone() for a in args]
+    hawkes_scan.hawkes_scan.launches = 0
+    chip_smoke.check_scan(name, config, args)
+    assert hawkes_scan.hawkes_scan.launches == 1
+    for a, b in zip(args, before):
+        assert torch.equal(a, b)
 
 
 def test_sim_env_on_the_card_equals_the_cpu(cuda):

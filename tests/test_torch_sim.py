@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from gome_tpu.engine.book import BookConfig as JBookConfig
 from gome_tpu.sim import env as j_env
 from gome_tpu.sim import flow as j_flow
@@ -636,6 +637,72 @@ def test_hawkes_scan_wrapper_checks_its_inputs():
         k5.hawkes_scan(config, lam, oid, u, torch.rand(6, 4).T)
     with pytest.raises(ValueError, match="non-empty"):
         k5.hawkes_scan(config, lam, oid, u[:0], g[:0])
+
+
+@pytest.mark.parametrize("name", chip_smoke.HAWKES_EDGE_CASES)
+def test_hawkes_edge_inputs_hit_what_they_name(name):
+    """chip_smoke's K5 edge inputs (held against the kernel on the card)
+    through the plain version on the CPU: each hits what it names, and the
+    order ids advance by one after each ADD."""
+    config = FlowConfig()
+    lam, oid0, u_ev, g_ty = chip_smoke.hawkes_edge_case(config, name, CPU)
+    out = k5.hawkes_scan_reference(config, lam, oid0, u_ev, g_ty)
+    occ, ety = host(out.occur), host(out.etype)
+    assert np.isfinite(host(out.lam)).all()
+    adds = occ & (ety // 2 != 1)
+    np.testing.assert_array_equal(
+        host(out.oid), 1 + np.concatenate([[0], np.cumsum(adds)[:-1]]))
+    assert int(out.next_oid) == 1 + int(adds.sum())
+    if name == "event_every_bin":
+        assert occ.all()
+    elif name == "no_event":
+        assert not occ.any()
+    elif name == "u_equals_p":
+        # u_ev is p_event itself, so the strict u < p never holds; one ulp
+        # lower and the first bin has its event
+        assert not occ.any()
+        below = torch.nextafter(u_ev, torch.zeros_like(u_ev))
+        first = k5.hawkes_scan_reference(config, lam, oid0, below, g_ty)
+        assert int(first.occur[0]) == 1
+    elif name == "tied_maxima":
+        assert not occ.any()
+        want = np.resize(np.asarray(chip_smoke.HAWKES_TIE_ETYPES), len(ety))
+        np.testing.assert_array_equal(ety, want)
+        score = g_ty[:4] + torch.log(lam + k5.EPS)
+        for row, e in zip(score, chip_smoke.HAWKES_TIE_ETYPES):
+            assert row[e] == row[e + 1] == row.max()  # a tie, the first kept
+    elif name == "zero_intensity":
+        zeros = list(chip_smoke.HAWKES_ZERO_TYPES)
+        assert (host(lam)[zeros] == 0).all()
+        assert ety[0] not in zeros
+    elif name == "partial_last_round":
+        assert not occ.any() and len(occ) == 1027
+    else:
+        assert len(occ) == int(name[1:])
+
+
+def test_hawkes_bounds_on_a_fixed_probe():
+    """K5's bound arithmetic (chip_smoke) on fixed probe latencies: the
+    chain without speculation, the floor that no design removes (an
+    event-free update of lam, whatever the pick costs, and no larger than
+    that chain), and the bytes term."""
+    lat = dict(add=4.89, log=91.88, exp=46.75, cs=14.87, shfl=26.01,
+               ballot=18.38, lds=29.0, update=9.26)
+    chain = chip_smoke.hawkes_chain_cycles(lat)
+    assert chain == pytest.approx(
+        max(91.88 + 4.89 + 3 * 14.87, 6 * 4.89 + 46.75) + 14.87 + 4.89)
+    spec = chip_smoke.hawkes_spec_cycles(lat)
+    assert spec == 9.26 and spec <= chain
+    cheap_picks = dict(lat, cs=1.0, shfl=1.0, ballot=1.0, lds=1.0)
+    assert chip_smoke.hawkes_spec_cycles(cheap_picks) == 9.26
+    for t_bins in (1, 32, 1024, 65536):
+        by_bytes = (t_bins * (4 + 6 * 4 + 3 * 4) + 2 * 6 * 4 + 2 * 4) / 3.35e12
+        bound, _ = chip_smoke.hawkes_bound_ms(t_bins, spec)
+        assert bound == pytest.approx(
+            1e3 * max(by_bytes, t_bins * spec / 1.98e9))
+        assert bound <= chip_smoke.hawkes_bound_ms(t_bins, chain)[0]
+    assert chip_smoke.hawkes_bound_ms(1024, 1e-3) == pytest.approx(
+        ((1024 * 40 + 56) / 3.35e12 * 1e3, "bytes"))
 
 
 @pytest.mark.parametrize("dtype", ["int32", "int64"])
