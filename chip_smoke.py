@@ -75,20 +75,21 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      cap 256, K 16, max_t 32, int64, the json match wire), started on the
      card, three runs: (b) depth 0 and (a) depth 2 with a SubscribeMatches
      stream opened first through the port's OrderStub, (c) depth 0 with
-     no subscriber. Phase 3's 200,000 orders go over the wire as
-     DoOrderBatch requests of 4,096 (cancels in the mask), one at a time,
-     then two DoOrder and one DeleteOrder; the stream must deliver the
-     oracle's events through match_result_to_pb, byte for byte, in order
-     ((c): the match queue's documents must decode to them); /healthz
-     answers 200 and /metrics counts the requests, the orders and the
-     events sent; clients.doorder.load_client (concurrency 8,
-     DoOrderBatch of 1,024) sends 200,000 more orders over the 10,240
-     symbols, every one accepted; books verified; K1 held against its
+     no subscriber. Phase 3's 200,000 orders ((b), (a): their first
+     102,400) go over the wire as DoOrderBatch requests of 4,096 (cancels
+     in the mask), one at a time, then two DoOrder and one DeleteOrder;
+     the stream must deliver the oracle's events through
+     match_result_to_pb, byte for byte, in order ((c): the match queue's
+     documents must decode to them); /healthz answers 200 and /metrics
+     counts the requests, the orders and the events sent; in (c)
+     clients.doorder.load_client (concurrency 8, DoOrderBatch of 1,024)
+     sends 200,000 more orders over the 10,240 symbols, every one
+     accepted; books verified; K1 held against its
      plain version at the inputs the service gave it. Printed per run:
      orders/s over the wire beside phase 6's in this run, the
      DoOrderBatch round trip p50/p99, K1's launches, the split between
-     gateway admission, consumer (and its parts) and feed, and
-     load_client's orders/s;
+     gateway admission, consumer (and its parts) and feed, and (c)'s
+     load_client orders/s;
   9. durability: (a) the crash drill: the flow as ORDER frames of 8,192 in
      a file queue, consumed by workers that are fresh interpreters
      (`python3 chip_smoke.py --persist-worker ...`: the engine on the
@@ -198,7 +199,29 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      consumer over SupervisedAmqpQueues of a broker that kills every
      connection at its 9th publish, plus one kill of the consuming
      connection mid-drain: bodies byte-equal to the memory bus's, the
-     reconnects counted.
+     reconnects counted;
+ 13. the host-side observability plane (gome_tpu_torch.obs): (a) phase 8
+     (c)'s service run twice, with every obs/ flag off and with timeline
+     (sampling every 0.25 s), hostprof and placement armed: matchOrder
+     bodies byte-equal between the two and to phase 8 (c)'s, no host sync
+     in any of the armed run's submit_frame calls, K1 held against its
+     plain version at the armed run's deepest and widest grids, both
+     orders/s and their ratio (the armed run also installs
+     the compile journal, which no ops: flag arms yet, and prints its
+     first-seen dispatch combos); (b) the armed service with ops.trace on
+     over the flow's first 20,000 orders (the gateway's scalar loop):
+     events equal to the oracle's and
+     nonzero gome_stage_seconds counts for pad_pack, device_execute,
+     decode and publish, each stage's summed seconds printed; (c) the
+     armed run's /timeline (at least 4 samples, cuda:0's live bytes at
+     least the books' bytes, one geometry hash on the last two samples),
+     /placement (ledger dispatches equal to the dense grids the engine
+     ran, their rows per live lane p50, the flow's most frequent symbol on
+     top), /capacity (no verdict) and /hostprof (samples and a stage
+     table; ?drill=1 and ?format=collapsed), every route with the
+     reference's keys and no TPU artifact's value; (d) the columnar
+     gateway admit drill (obs.hostprof.gateway_drill), which must mark
+     through the native pre-pool.
 
 The last two lines are the kernel table (JSON) and
 {"ok": true, "device": {...}}.
@@ -210,10 +233,19 @@ plain version at phase 10 (a)'s draws (T 32 and 1,024) and edge inputs,
 times it at T 32, 1,024 and 65,536 and times phase 10 (d)'s generator on
 it, and prints one JSON line. Run it on two checkouts in turns (A, B, B,
 A, ...) to compare them on one card.
+
+    python3 chip_smoke.py --obs-ab
+
+runs phase 8 (c)'s service and flow with every obs/ flag off, with
+timeline, hostprof and placement each armed alone, and with all three
+(phase 13 (a)'s armed run), in the order off, all, timeline, hostprof,
+placement, placement, hostprof, timeline, all, off: bodies byte-equal
+in every run; prints one JSON line of each run's orders/s and split.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -249,6 +281,10 @@ PEAK_INT_OPS_PER_S = 132 * 64 * 1.98e9
 
 MID = 1_000_000
 LOT_MAX32 = (1 << 30) - 1
+
+#: Every ops: flag that arms an obs/ surface (the service runs of phases
+#: 8-12 turn them all off; phase 13 arms timeline, hostprof, placement).
+ALL_OBS_FLAGS = ("cost", "timeline", "profile", "hostprof", "placement")
 
 
 def card_line() -> str:
@@ -1626,6 +1662,10 @@ SERVICE_PARTS = ("gateway", "consumer", "consumer_wait", "publish", "feed",
                  "feed_wait")
 # (label, pipeline depth, whether a SubscribeMatches stream takes the events)
 SERVICE_RUNS = (("b", 0, True), ("a", 2, True), ("c", 0, False))
+#: (b) and (a), the runs with a subscriber (one gRPC message an event, ~3,000
+#: orders/s), send the flow's first 25 DoOrderBatch requests (102,400
+#: orders) and leave load_client to (c): the script's time limit.
+SUBSCRIBED_REQUESTS = 25
 
 
 def wire_request(pb, order):
@@ -1799,7 +1839,8 @@ def expected_launches(engine) -> int:
 
 def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
                 kernel, subscribe: bool = True, mesh_devices: int = 0,
-                bus=None, load_run: bool = True):
+                bus=None, load_run: bool = True, label: str | None = None,
+                ops_kw: dict | None = None, on_done=None):
     """Phase 8, one run: EngineService from a Config written in code (gRPC
     on port 0, ops on), started on the card; with `subscribe`, a
     SubscribeMatches stream opened through the port's OrderStub first; the
@@ -1816,7 +1857,10 @@ def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
     leaves load_client out (phase 12 (a): its 200,001 orders would add
     about 46 s over AMQP, see PERF.md section 4). Without a
     subscriber the match-queue bodies of the flow are returned under
-    "bodies"; /healthz's payload under "health"."""
+    "bodies"; /healthz's payload under "health". Every obs/ flag is off
+    unless `ops_kw` (OpsConfig fields) turns it on; `on_done(svc)` runs
+    once the flow is drained and checked, before the service stops, and
+    its result is returned under "scraped"; `label` names the run."""
     import grpc
 
     from gome_tpu_torch.api import order_pb2 as pb
@@ -1826,10 +1870,9 @@ def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
     from gome_tpu_torch.config import Config, EngineConfig, GrpcConfig, \
         OpsConfig
     from gome_tpu_torch.service import EngineService
-    from gome_tpu_torch.service.app import OBS_FLAGS
     from gome_tpu_torch.service.matchfeed import match_result_to_pb
 
-    label = (
+    label = label or (
         f"phase 8 depth {depth}" if bus is None and not mesh_devices else
         f"phase 11 (d) mesh_devices {mesh_devices}, depth {depth}"
         if bus is None else
@@ -1841,8 +1884,9 @@ def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
         engine=EngineConfig(cap=256, max_fills=16, n_slots=sizes["symbols"],
                             max_t=32, pipeline_depth=depth,
                             mesh_devices=mesh_devices),
-        ops=OpsConfig(enabled=True, port=0, trace=False,
-                      **dict.fromkeys(OBS_FLAGS, False)))
+        ops=OpsConfig(enabled=True, port=0, **{
+            "trace": False, **dict.fromkeys(ALL_OBS_FLAGS, False),
+            **(ops_kw or {})}))
     svc = EngineService(cfg)
     host = require_host(svc.engine, label)
     if svc.engine.config.dtype != torch.int64 or svc.consumer.batch_n != \
@@ -1913,10 +1957,13 @@ def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
             health = json.loads(body)
             m1 = http_get(svc.ops.port, "/metrics")[1]
             counters = {
+                # Under the tracer the gateway takes its scalar loop: one
+                # doOrder message per order.
                 "doOrder messages": (
                     metric(m1, 'gome_bus_end_offset{queue="doOrder"}')
                     - metric(m0, 'gome_bus_end_offset{queue="doOrder"}'),
-                    len(requests) + len(tail)),
+                    (n_orders if cfg.ops.trace else len(requests))
+                    + len(tail)),
                 "orders consumed": (
                     metric(m1, "gome_orders_consumed_total")
                     - metric(m0, "gome_orders_consumed_total"),
@@ -1935,6 +1982,7 @@ def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
                     or svc.feed.events_seen != len(want):
                 raise SystemExit(f"{label}: feed seqs {state}, "
                                  f"{svc.feed.events_seen} events seen")
+            scraped = None if on_done is None else on_done(svc)
             load, load_secs = None, None
             if load_run:
                 n_load = sizes["zipf_n"]
@@ -1955,8 +2003,8 @@ def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
                 split=split, consumer_split=consumer_split,
                 subscribe=subscribe, counters=counters, load=load,
                 load_secs=load_secs, events=len(want),
-                requests=len(requests), health=health,
-                bodies=None if subscribe else bodies)
+                requests=len(requests), orders=n_orders, health=health,
+                bodies=None if subscribe else bodies, scraped=scraped)
 
 
 def phase8(sizes, zipf):
@@ -1977,11 +2025,17 @@ def phase8(sizes, zipf):
     tail = unary_tail()
     want = oracle_events(list(zipf) + tail)
     requests = wire_batches(pb, zipf)
+    n_sub = min(SUBSCRIBED_REQUESTS * WIRE_BATCH, len(zipf))
+    want_sub = oracle_events(list(zipf[:n_sub]) + tail)
     runs = {}
     with keep_kernel_inputs() as kept:
         for tag, depth, subscribe in SERVICE_RUNS:
-            runs[tag] = service_run(sizes, depth, requests, tail, want,
-                                    len(zipf), batch_step, subscribe)
+            if subscribe:
+                flow = (requests[:SUBSCRIBED_REQUESTS], tail, want_sub, n_sub)
+            else:
+                flow = (requests, tail, want, len(zipf))
+            runs[tag] = service_run(sizes, depth, *flow, batch_step,
+                                    subscribe, load_run=not subscribe)
             runs[tag]["depth"] = depth
             torch.cuda.empty_cache()
         worst, kept_line = check_kept_inputs("phase 8", kept)
@@ -1989,7 +2043,7 @@ def phase8(sizes, zipf):
         f"phase 8 ({tag}): {r['host']}: EngineService "
         f"(grpc port 0, ops on, pipeline_depth={r['depth']}, json match wire, "
         f"int64, cap 256, K 16, max_t 32, batch_n {32 * (sizes['symbols'] // 8)}) "
-        f"started on the card; {len(zipf)} orders over {sizes['symbols']} "
+        f"started on the card; {r['orders']} orders over {sizes['symbols']} "
         f"symbols sent as {r['requests']} DoOrderBatch requests of "
         f"{WIRE_BATCH} (cancel mask) plus 2 DoOrder and 1 DeleteOrder; "
         + (f"SubscribeMatches streamed {r['events']} MatchEvents byte-equal "
@@ -2001,8 +2055,9 @@ def phase8(sizes, zipf):
         f"/metrics " + ", ".join(f"{k} {int(v[0])}" for k, v in
                                  r["counters"].items())
         + f" = sent; {r['launches']} kernel launches = device calls; "
-        f"load_client (concurrency 8, batch_n 1024) {r['load']['ok']} of "
-        f"{r['load']['sent']} ok; books verified"
+        + (f"load_client (concurrency 8, batch_n 1024) {r['load']['ok']} of "
+           f"{r['load']['sent']} ok; " if r["load"] else "")
+        + "books verified"
         for tag, r in runs.items()]
     lines.append(kept_line)
     return runs, worst, lines, (requests, tail, want)
@@ -2013,7 +2068,7 @@ def print_phase8(card: str, sizes, s_runs, p6_runs) -> None:
     this run (p6_runs: phase 6's runs by depth)."""
     for tag, r in s_runs.items():
         depth = r["depth"]
-        rate = sizes["zipf_n"] / r["secs"]
+        rate = r["orders"] / r["secs"]
         p6 = sizes["zipf_n"] / p6_runs[depth]["secs"]
         rtt_p50, rtt_p99 = np.percentile(np.array(r["rtt"]) * 1e3, [50, 99])
         sp = r["split"]
@@ -2034,11 +2089,11 @@ def print_phase8(card: str, sizes, s_runs, p6_runs) -> None:
               f"polling); in the consumer: event publish {sp['publish']:.4f}, "
               + ", ".join(f"{k} {v:.4f}" for k, v in
                           r["consumer_split"].items() if k != "gateway")
-              + f"; {r['launches']} K1 launches; load_client "
-              f"{load['sent'] / load['elapsed_s']:,.0f} orders/s accepted "
-              f"({load['elapsed_s']:.3f} s), "
-              f"{load['sent'] / r['load_secs']:,.0f} orders/s to the last "
-              f"commit")
+              + f"; {r['launches']} K1 launches"
+              + (f"; load_client {load['sent'] / load['elapsed_s']:,.0f} "
+                 f"orders/s accepted ({load['elapsed_s']:.3f} s), "
+                 f"{load['sent'] / r['load_secs']:,.0f} orders/s to the "
+                 f"last commit" if load else ""))
 
 
 # -- phase 9 -----------------------------------------------------------------
@@ -2411,7 +2466,6 @@ def durable_config(sizes, work: str, store_port: int):
     redis: section naming the phase's FakeRedisServer."""
     from gome_tpu_torch.config import BusConfig, Config, EngineConfig, \
         GrpcConfig, OpsConfig, PersistConfig, StoreConfig
-    from gome_tpu_torch.service.app import OBS_FLAGS
 
     return Config(
         grpc=GrpcConfig(host="127.0.0.1", port=0),
@@ -2422,7 +2476,7 @@ def durable_config(sizes, work: str, store_port: int):
                               every_n_batches=SERVICE_PERSIST_EVERY, keep=2),
         store=StoreConfig(enabled=True, host="127.0.0.1", port=store_port),
         ops=OpsConfig(enabled=True, port=0, trace=False,
-                      **dict.fromkeys(OBS_FLAGS, False)))
+                      **dict.fromkeys(ALL_OBS_FLAGS, False)))
 
 
 def durable_service(cfg):
@@ -4545,6 +4599,313 @@ def phase12(card: str, device, sizes, zipf, flow8, p8c) -> dict:
                               broker_faults=fc["launches"]), seconds=secs)
 
 
+# -- phase 13 ----------------------------------------------------------------
+
+#: (a)'s armed run: the obs/ surfaces the port has, the timeline sampling
+#: four times a second.
+OBS_ARMED = dict(timeline=True, timeline_interval_s=0.25, hostprof=True,
+                 placement=True)
+TRACED_ORDERS = 20_000  # (b): the flow's first orders, with the tracer on
+OBS_STAGES = ("pad_pack", "device_execute", "decode", "publish")
+#: The reference's artifacts, each measured on a TPU: no payload of the
+#: port may carry one of their values, nor name them.
+TPU_ARTIFACTS = ("CAPACITY_r01", "PLACEMENT_r01", "MULTICHIP_r06",
+                 "BENCH_SERVICE_r05", "BENCH_r05", "FLEET_r01")
+#: The reference's top-level keys of each route's payload (armed).
+OBS_KEYS = dict(
+    timeline={"enabled", "interval_s", "samples"},
+    placement={"enabled", "admits", "top", "topk_share", "sketch",
+               "occupancy", "lanes", "attribution", "verdict"},
+    capacity={"enabled"},
+    hostprof={"enabled", "hz", "keep", "admits", "live", "drill"},
+)
+TIMELINE_KEYS = {"ts", "t", "rss_bytes", "cpu_utime_s", "cpu_stime_s",
+                 "majflt", "nvcsw", "nivcsw", "frames", "orders", "engine",
+                 "live", "compile", "queue", "bus", "placement"}
+
+
+@contextlib.contextmanager
+def dense_grids():
+    """Record every dense grid geometry any engine decides in the block
+    (BatchEngine._grid_geometry, wrapped on the class): yields the list of
+    their rows per live lane."""
+    from gome_tpu_torch.engine.batch import BatchEngine
+
+    inner = BatchEngine._grid_geometry
+    seen = []
+
+    def geometry(self, live, first=True, cls=None):
+        out = inner(self, live, first, cls)
+        if out[0]:
+            seen.append(out[1] / len(live))
+        return out
+
+    BatchEngine._grid_geometry = geometry
+    try:
+        yield seen
+    finally:
+        BatchEngine._grid_geometry = inner
+
+
+def disarm_obs() -> None:
+    """Every process-wide obs/ singleton and the tracer back to disarmed."""
+    from gome_tpu_torch.obs import HOSTPROF, JOURNAL, TIMELINE
+    from gome_tpu_torch.obs.placement import PLACEMENT
+    from gome_tpu_torch.utils.trace import TRACER
+
+    for single in (TIMELINE, HOSTPROF, PLACEMENT, JOURNAL, TRACER):
+        single.disable()
+
+
+def obs_scrape(svc) -> dict:
+    """Phase 13 (c), while the armed service is still up and drained: wait
+    for two timeline samples taken after the drain, then read the four
+    routes, /hostprof?format=collapsed and ?drill=1, /metrics, and the
+    books' bytes (obs.live.pytree_stats)."""
+    from gome_tpu_torch.obs.live import pytree_stats
+    from gome_tpu_torch.obs.timeline import TIMELINE
+
+    t_drained = TIMELINE.clock()
+    deadline = time.monotonic() + 10
+    while sum(1 for x in TIMELINE.series() if x["t"] > t_drained) < 2:
+        if time.monotonic() > deadline:
+            raise SystemExit("phase 13 (c): the timeline took no two samples "
+                             "in 10 s after the drain")
+        time.sleep(0.05)
+    port = svc.ops.port
+    out = {}
+    for route in (*OBS_KEYS, "hostprof?format=collapsed",
+                  "hostprof?drill=1", "metrics"):
+        code, body = http_get(port, f"/{route}")
+        if code != 200:
+            raise SystemExit(f"phase 13 (c): /{route} answered {code}")
+        out[route] = body if route in ("metrics", "hostprof?format=collapsed"
+                                       ) else json.loads(body)
+    out["books"] = pytree_stats(svc.engine.batch.books)
+    out["device"] = str(svc.engine.batch.books.price.device)
+    return out
+
+
+def stage_totals(text: str) -> dict:
+    """{stage: [count, seconds]} of gome_stage_seconds in /metrics text."""
+    out = {}
+    for line in text.splitlines():
+        for part, i in (("_count", 0), ("_sum", 1)):
+            head = f'gome_stage_seconds{part}{{stage="'
+            if line.startswith(head):
+                stage = line[len(head):].split('"', 1)[0]
+                out.setdefault(stage, [0.0, 0.0])[i] = float(
+                    line.rsplit(" ", 1)[1])
+    return out
+
+
+def check_obs_payloads(sc: dict, flow_orders, dense) -> dict:
+    """Phase 13 (c)'s checks on the armed run's scrape; returns the
+    numbers it prints."""
+    for route, want in OBS_KEYS.items():
+        missing = want - set(sc[route])
+        if missing or sc[route]["enabled"] is not (route != "capacity"):
+            raise SystemExit(f"phase 13 (c): /{route} misses {missing} or "
+                             f"is enabled={sc[route].get('enabled')}")
+    text = json.dumps([sc[r] for r in OBS_KEYS]) + json.dumps(
+        sc["hostprof?drill=1"])
+    named = [a for a in TPU_ARTIFACTS if a in text]
+    if named:
+        raise SystemExit(f"phase 13 (c): a payload names {named}")
+    samples = sc["timeline"]["samples"]
+    books = sc["books"]["bytes"]
+    if len(samples) < 4 or any(TIMELINE_KEYS - set(x) for x in samples):
+        raise SystemExit(f"phase 13 (c): /timeline has {len(samples)} "
+                         "samples, or one misses a key")
+    last = samples[-2:]
+    card_live = [x["live"]["devices"][sc["device"]]["allocated_bytes"]
+                 for x in last]
+    hashes = {x["engine"]["geometry_hash"] for x in last}
+    if min(card_live) < books or len(hashes) != 1:
+        raise SystemExit(f"phase 13 (c): /timeline's last samples: "
+                         f"{sc['device']} live {card_live} against the "
+                         f"books' {books} B, "
+                         f"geometry hashes {hashes}")
+    pl = sc["placement"]
+    occ = pl["occupancy"]
+    top_flow = collections.Counter(
+        o.symbol for o in flow_orders).most_common(1)[0]
+    if occ["frames"] != len(dense) or not pl["top"] or \
+            pl["top"][0]["symbol"] != top_flow[0] or \
+            pl["admits"] != len(flow_orders):
+        raise SystemExit(f"phase 13 (c): /placement ledger {occ['frames']} "
+                         f"dispatches against {len(dense)} dense grids run, "
+                         f"top {pl['top'][:1]} against the flow's "
+                         f"{top_flow}, admits {pl['admits']} of "
+                         f"{len(flow_orders)}")
+    attr = pl["attribution"]
+    if pl["verdict"] is not None or attr["hash_partition"]["baseline"] \
+            is not None or any(c["baseline"] is not None
+                               for c in attr["components"]) \
+            or not attr["reconciliation"]["within_tol"]:
+        raise SystemExit(f"phase 13 (c): /placement verdict or baselines "
+                         f"not None, or not reconciled: {attr}")
+    if sc["capacity"] != {"enabled": False}:
+        raise SystemExit(f"phase 13 (c): /capacity {sc['capacity']}")
+    live = sc["hostprof"]["live"]
+    drill = sc["hostprof?drill=1"]["drill"]
+    if not live["total_samples"] or not live["stages"] or drill is None \
+            or not drill["stages"]:
+        raise SystemExit(f"phase 13 (c): /hostprof live {live.get('stages')}"
+                         f" ({live.get('total_samples')} samples), drill "
+                         f"{None if drill is None else drill['stages']}")
+    collapsed = sc["hostprof?format=collapsed"]
+    if not collapsed.strip() or collapsed.startswith("#"):
+        raise SystemExit("phase 13 (c): /hostprof?format=collapsed is empty")
+    return dict(samples=len(samples), last=samples[-1], books=books,
+                device=sc["device"],
+                card_live=card_live[-1], hash=hashes.pop(),
+                p50=float(np.median(dense)), occupancy=occ,
+                top=pl["top"][0], live=live, drill=drill,
+                gauge_p50=metric(sc["metrics"],
+                                 "gome_dispatched_rows_per_live_lane_p50"),
+                stacks=len(collapsed.splitlines()))
+
+
+def phase13(card: str, sizes, zipf, flow8, p8c) -> dict:
+    """Phase 13, the host-side observability plane (obs/): (a) phase 8
+    (c)'s service disarmed, then armed (timeline every 0.25 s, hostprof,
+    placement, and the compile journal by hand): bodies byte-equal, K1 at
+    the armed run's inputs; (b) the armed service with the tracer on over
+    the flow's first 20,000 orders: the engine's stages on /metrics; (c) the
+    armed run's four routes; (d) the columnar admit drill on the native
+    pre-pool. Returns the numbers; each part prints as it ends."""
+    from gome_tpu_torch.api import order_pb2 as pb
+    from gome_tpu_torch.obs import JOURNAL
+    from gome_tpu_torch.obs.hostprof import gateway_drill
+    from gome_tpu_torch.ops.match_step import batch_step
+
+    t_phase = time.perf_counter()
+    requests, tail, want = flow8
+    n = len(zipf)
+    disarm_obs()
+    try:
+        off = service_run(sizes, 0, requests, tail, want, n, batch_step,
+                          subscribe=False, load_run=False,
+                          label="phase 13 (a) obs disarmed")
+        torch.cuda.empty_cache()
+        # The compile journal too: `cost` (its /cost) is not ported, so no
+        # ops: flag arms it; installed by hand it records the frame path's
+        # first-seen dispatch combos.
+        JOURNAL.install()
+        # The armed hooks read no device value: every submit_frame of the
+        # armed run runs under set_sync_debug_mode("error").
+        with keep_kernel_inputs() as kept, dense_grids() as dense, \
+                no_host_sync() as checked:
+            on = service_run(sizes, 0, requests, tail, want, n, batch_step,
+                             subscribe=False, load_run=False,
+                             label="phase 13 (a) obs armed",
+                             ops_kw=OBS_ARMED, on_done=obs_scrape)
+        if not checked[0]:
+            raise SystemExit("phase 13 (a): the armed run made no "
+                             "submit_frame call")
+        journal = JOURNAL.summary()
+        disarm_obs()
+        a_worst, kept_line = check_kept_inputs("phase 13 (a)", kept)
+        del kept
+        torch.cuda.empty_cache()
+        for tag, r in (("disarmed", off), ("armed", on)):
+            if r["bodies"] != p8c["bodies"]:
+                bad = next((i for i, (x, y) in enumerate(
+                    zip(r["bodies"], p8c["bodies"])) if x != y),
+                    min(len(r["bodies"]), len(p8c["bodies"])))
+                raise SystemExit(f"phase 13 (a): the {tag} run's matchOrder "
+                                 f"bodies differ from phase 8 (c)'s at {bad}")
+        c = check_obs_payloads(on["scraped"], list(zipf) + tail, dense)
+        rate_off, rate_on = n / off["secs"], n / on["secs"]
+        print(f"phase 13 (a): {on['host']}: phase 8 (c)'s service (int64, "
+              f"depth 0, json wire, no subscriber) disarmed, then with "
+              f"timeline (0.25 s), hostprof and placement armed and the "
+              f"compile journal installed: "
+              f"{len(on['bodies'])} matchOrder bodies byte-equal between "
+              f"the two and to phase 8 (c)'s; {off['launches']} / "
+              f"{on['launches']} K1 launches = device calls; no host sync "
+              f"in the armed run's {checked[0]} submit_frame calls")
+        print(kept_line)
+        print(f"phase 13 (a) [{card}]: disarmed {rate_off:,.0f} orders/s "
+              f"({off['secs']:.3f} s), armed {rate_on:,.0f} orders/s "
+              f"({on['secs']:.3f} s); armed / disarmed {rate_on / rate_off:.4f}"
+              f"; consumer busy {off['split']['consumer'] - off['split']['consumer_wait']:.4f}"
+              f" / {on['split']['consumer'] - on['split']['consumer_wait']:.4f} s, "
+              f"gateway admission {off['split']['gateway']:.4f} / "
+              f"{on['split']['gateway']:.4f} s; journal: "
+              + (", ".join(f"{k} {v['count']} first-seen in "
+                           f"{v['seconds']:.4f} s" for k, v in journal.items())
+                 or "empty"))
+
+        n_b = TRACED_ORDERS
+        req_b, want_b = wire_batches(pb, zipf[:n_b]), oracle_events(zipf[:n_b])
+        try:
+            traced = service_run(
+                sizes, 0, req_b, [], want_b, n_b, batch_step,
+                subscribe=False, load_run=False,
+                label="phase 13 (b) traced", ops_kw=dict(OBS_ARMED, trace=True),
+                on_done=lambda svc: http_get(svc.ops.port, "/metrics")[1])
+        finally:
+            disarm_obs()
+        stages = stage_totals(traced["scraped"])
+        zero = [st for st in OBS_STAGES if stages.get(st, [0, 0])[0] <= 0]
+        if zero:
+            raise SystemExit(f"phase 13 (b): gome_stage_seconds has no "
+                             f"observation of {zero}: {stages}")
+        print(f"phase 13 (b) [{card}]: the armed service with ops.trace on, "
+              f"{n_b:,} orders (the gateway's scalar "
+              f"loop under the tracer): {n_b / traced['secs']:,.0f} orders/s"
+              f" ({traced['secs']:.3f} s), {len(want_b):,} events equal to "
+              f"the oracle's; gome_stage_seconds count / summed s: "
+              + ", ".join(f"{st} {int(v[0])} / {v[1]:.4f}"
+                          for st, v in stages.items())
+              + f"; {traced['launches']} K1 launches")
+
+        last, occ, live, dr = c["last"], c["occupancy"], c["live"], c["drill"]
+        print(f"phase 13 (c) [{card}]: /timeline {c['samples']} samples "
+              f"(last: rss {last['rss_bytes'] / 2**20:.1f} MiB, cpu "
+              f"{last['cpu_utime_s']:.2f} + {last['cpu_stime_s']:.2f} s, "
+              f"nivcsw {last['nivcsw']}, {c['device']} live "
+              f"{c['card_live'] / 2**20:.1f} MiB >= the books' "
+              f"{c['books'] / 2**20:.1f} MiB, geometry hash {c['hash']} on "
+              f"the last two, {last['engine']['seen_combos']} combos); "
+              f"/placement {occ['frames']} ledger dispatches = dense grids "
+              f"run, rows per live lane p50 {c['p50']:.4f} (this run; "
+              f"gauge {c['gauge_p50']:.4f} over the process), ledger "
+              f"{occ['rows_per_live_lane']:.4f}, padding "
+              f"{occ['padding_bytes'] / 2**20:.1f} MiB; top {c['top']['symbol']}"
+              f" {c['top']['count']} = the flow's; /capacity no verdict; "
+              f"/hostprof live {live['total_samples']} samples, coverage "
+              f"{live['coverage_pct']}%: "
+              + ", ".join(f"{k} {v['pct']}%" for k, v in live["stages"].items())
+              + f"; ?drill=1 scalar admit {dr['admit_ns_per_order']:.1f} "
+              f"ns/order; ?format=collapsed {c['stacks']} stacks; no TPU "
+              f"artifact's value in any payload")
+
+        d = gateway_drill(n_orders=16_384, min_samples=64, max_rounds=24,
+                          path="columnar", batch_n=1024)
+        if d["prepool"] != "native":
+            raise SystemExit(f"phase 13 (d): the columnar drill marked "
+                             f"through the {d['prepool']} pre-pool")
+        print(f"phase 13 (d) [{card}]: gateway_drill(columnar, batch 1,024) "
+              f"on the native pre-pool: {d['orders']:,} orders in "
+              f"{d['rounds']} rounds, {d['admit_ns_per_order']:.1f} ns/order, "
+              f"{d['admit_orders_per_sec_per_core']:,} orders/s/core, "
+              f"{d['sampler']['samples']} samples ({d['sampler']['mode']}), "
+              f"coverage {d['coverage_pct']}%: "
+              + ", ".join(f"{k} {v.get('ns_per_order')} ns"
+                          for k, v in d["stages"].items()))
+    finally:
+        disarm_obs()
+    secs = time.perf_counter() - t_phase
+    print(f"phase 13 [{card}]: the observability plane in {secs:.1f} s")
+    return dict(worst=a_worst, seconds=secs, launches=dict(
+        disarmed=off["launches"], armed=on["launches"],
+        traced=traced["launches"]),
+        ratio=rate_on / rate_off, p50=c["p50"], stages=stages)
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 def time_ms(fn, runs: int, warmup: int = 3) -> float:
@@ -4635,6 +4996,60 @@ def load_kernel(card: str) -> None:
                 print(f"  ptxas {name}: {line.strip()}", file=sys.stderr)
 
 
+OBS_AB_RUNS = ("off", "all", "timeline", "hostprof", "placement",
+               "placement", "hostprof", "timeline", "all", "off")
+
+
+def obs_ab() -> int:
+    """`--obs-ab`: phase 8 (c)'s service (int64, depth 0, json wire, no
+    subscriber) over the 200,000-order flow in OBS_AB_RUNS's order, each
+    run's matchOrder bodies byte-equal to the first's; one JSON line of
+    orders/s, the consumer's busy seconds and the gateway's admission
+    seconds per run."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --obs-ab: needs a CUDA card", file=sys.stderr)
+        return 1
+    import logging
+
+    from gome_tpu_torch.api import order_pb2 as pb
+    from gome_tpu_torch.ops.match_step import batch_step
+    from gome_tpu_torch.utils.streams import multi_symbol_stream
+
+    card = card_line()
+    load_kernel(card)
+    logging.getLogger("gome_tpu_torch.matchfeed").setLevel(logging.WARNING)
+    sizes = dict(symbols=10240, zipf_n=200_000)
+    zipf = multi_symbol_stream(n=sizes["zipf_n"], n_symbols=sizes["symbols"],
+                               zipf_a=1.2, cancel_prob=0.3, seed=7)
+    tail = unary_tail()
+    want = oracle_events(list(zipf) + tail)
+    requests = wire_batches(pb, zipf)
+    runs, first = [], None
+    for arm in OBS_AB_RUNS:
+        kw = {} if arm == "off" else OBS_ARMED if arm == "all" else {
+            arm: True, "timeline_interval_s": 0.25}
+        try:
+            r = service_run(sizes, 0, requests, tail, want, len(zipf),
+                            batch_step, subscribe=False, load_run=False,
+                            label=f"--obs-ab {arm}", ops_kw=kw)
+        finally:
+            disarm_obs()
+        first = first or r["bodies"]
+        if r["bodies"] != first:
+            raise SystemExit(f"--obs-ab {arm}: bodies differ from the "
+                             "first run's")
+        sp = r["split"]
+        runs.append(dict(
+            arm=arm, orders_per_s=len(zipf) / r["secs"], secs=r["secs"],
+            consumer_busy=sp["consumer"] - sp["consumer_wait"],
+            gateway=sp["gateway"], feed_busy=sp["feed"] - sp["feed_wait"],
+            launches=r["launches"]))
+        del r
+        torch.cuda.empty_cache()
+    print(json.dumps(dict(card=card, runs=runs)))
+    return 0
+
+
 def k5_times(argv) -> int:
     """`--k5-times <tree>`: K5 of the gome_tpu_torch package in <tree> (a
     checkout's root, built there) on this card: equal to that package's
@@ -4687,6 +5102,8 @@ def main() -> int:
         return sim_worker(sys.argv[1:])
     if sys.argv[1:2] in (["--amqp-consumer"], ["--amqp-gateway"]):
         return amqp_worker(sys.argv[1:])
+    if sys.argv[1:2] == ["--obs-ab"]:
+        return obs_ab()
     if sys.argv[1:2] == ["--k5-times"]:
         return k5_times(sys.argv[1:])
     t_start = time.perf_counter()
@@ -4803,6 +5220,7 @@ def main() -> int:
     p11 = phase11(card, device, sizes, zipf, want_zipf, timing,
                   f_orders_per_s, flow8, s_runs["c"])
     p12 = phase12(card, device, sizes, zipf, flow8, s_runs["c"])
+    p13 = phase13(card, sizes, zipf, flow8, s_runs["c"])
     h_launches = ab_runs[0][2]["launches"]
     row = dict(name="match_step", **KERNEL_ROWS["match_step"],
                launches=launches, frame_path_launches=f_launches,
@@ -4823,10 +5241,11 @@ def main() -> int:
                    service_mesh=p11["svc_launches"],
                    restores=p11["e"]["launches"]),
                amqp_path_launches=p12["launches"],
+               obs_path_launches=p13["launches"],
                max_abs_err=max(worst, f_worst, c_worst, s_worst,
                                p9["drill"]["final"]["kernel_worst"],
                                p9["svc"]["worst"], p10["worst"],
-                               p11["worst"], p12["worst"]),
+                               p11["worst"], p12["worst"], p13["worst"]),
                ms=results["a"]["ms"],
                device_ms=results["a"]["device_ms"], plain_ms=results["a"]["plain_ms"],
                bound_ms=results["a"]["bound_ms"],
@@ -4837,7 +5256,7 @@ def main() -> int:
                     library_ms=None, checked=True,
                     T=sizes["sim_scan_t"][0],
                     **p10["hawkes_row"])
-    print(f"chip_smoke [{card}]: phases 1-12 in "
+    print(f"chip_smoke [{card}]: phases 1-13 in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [row, scan_row]}))
     print(json.dumps({"ok": True, "device": {

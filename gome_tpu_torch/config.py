@@ -197,9 +197,11 @@ class OpsConfig:
     roofline profiler (profile*), the host-CPU sampling profiler
     (hostprof*) and the placement observatory (placement*). The fields,
     defaults and checks are the reference's, so a config loads into both
-    packages; the port has no obs/ yet, so EngineService refuses an
-    enabled `ops:` section with any of cost, timeline, profile, hostprof
-    or placement on (ROADMAP Queue 1 items 3 and 4). Set them false."""
+    packages. The port arms timeline, hostprof and placement (obs/:
+    /timeline, /hostprof, /placement, and /capacity beside them); it has
+    no cost model or profiler yet, so EngineService refuses an enabled
+    `ops:` section with cost or profile on (ROADMAP Queue 1 item 4). Both
+    default to on: set them false."""
 
     host: str = "127.0.0.1"
     port: int = 9109

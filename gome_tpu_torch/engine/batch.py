@@ -35,9 +35,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..obs.placement import PLACEMENT
 from ..ops import match_step
 from ..types import Action, MatchResult, Order, OrderType, check_kernel
 from ..utils.cache import IdentityCache
+from ..utils.metrics import REGISTRY
+from ..utils.trace import TRACER
 from .book import (
     BUY,
     BookConfig,
@@ -60,6 +63,40 @@ from .step import ACTION_ADD, LOT_MAX32
 #: Element budget of one dense grid's [R, T, K] record tensors: deep dense
 #: grids trade rows for depth under it.
 _REC_ELEM_BUDGET = 1 << 24
+
+#: Dense-dispatch skew telemetry: each dense grid observes dispatched-rows
+#: / live-lanes — the row-padding tax the pow2 bucketing (and, under a
+#: mesh, the per-shard MAX bucketing) makes the device pay. The p50 gauge
+#: is the placement target (<= 2.0); the histogram carries the tail.
+#: Ratio buckets, not seconds. The reference's names and buckets.
+_ROWS_PER_LANE_BUCKETS = (
+    1.0, 1.25, 1.5, 2.0, 2.5, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0, 24.0, 32.0,
+)
+_rows_per_live_lane = REGISTRY.histogram(
+    "gome_dispatched_rows_per_live_lane",
+    "dense-grid dispatched rows per live lane (row-padding/skew tax)",
+    buckets=_ROWS_PER_LANE_BUCKETS,
+)
+REGISTRY.callback_gauge(
+    "gome_dispatched_rows_per_live_lane_p50",
+    "median dispatched-rows/live-lane across dense dispatches "
+    "(ROADMAP open item 2 targets <= 2.0)",
+    lambda: _rows_per_live_lane.quantile(0.5),
+)
+#: Per-shard skew companion: each dense MESH dispatch observes
+#: max-shard-live / mean-shard-live — 1.0 is perfectly balanced; the
+#: per-shard MAX bucketing makes dispatched rows (and so device time)
+#: scale with this ratio, not with total live work.
+_dense_shard_skew = REGISTRY.histogram(
+    "gome_dense_shard_skew",
+    "dense mesh dispatch max/mean live lanes per shard (1.0 = balanced)",
+    buckets=_ROWS_PER_LANE_BUCKETS,
+)
+REGISTRY.callback_gauge(
+    "gome_dense_shard_skew_p50",
+    "median per-shard live-lane skew across dense mesh dispatches",
+    lambda: _dense_shard_skew.quantile(0.5),
+)
 
 
 def _nop_grid(config: BookConfig, n_rows: int, t: int) -> dict[str, np.ndarray]:
@@ -377,6 +414,9 @@ class BatchEngine:
         # fetch-buffer sizes keyed by the frame's pow2 op-count class.
         self._fills_buf_floor: dict[int, int] = {}
         self._cancels_buf_floor: dict[int, int] = {}
+        # Every dispatched frame-path shape combo (record_combo is the one
+        # writer): the shape manifest and the timeline's geometry hash.
+        self._seen_combos: set[tuple] = set()
         if mesh is None:
             self.books = init_books(config, n_slots, self.device)
         else:
@@ -493,6 +533,55 @@ class BatchEngine:
                 drop[i] = True
         return drop
 
+    def geometry_floors(self) -> dict:
+        """The current grow-only shape ratchets: rows_floor/t_floor are
+        {cap class: floor} dicts, the buffer floors {pow2 op-class: slots}
+        dicts; everything is copied (safe to hold across further
+        frames)."""
+        return dict(
+            rows_floor=dict(self._dense_rows_floor),
+            t_floor=dict(self._dense_t_floor),
+            fills_buf=dict(self._fills_buf_floor),
+            cancels_buf=dict(self._cancels_buf_floor),
+            cap=self.config.cap,
+        )
+
+    def shape_manifest(self) -> dict:
+        """The flow's shape geometry: the grow-only floors (so the same
+        shapes are CHOSEN) plus every dispatched shape combo. The
+        timeline hashes it (obs.timeline.geometry_manifest_hash): at
+        steady state it stops changing."""
+        return dict(
+            floors=self.geometry_floors(),
+            combos=self.combos(),
+        )
+
+    # Dispatch-combo chokepoint: the ONLY writer of the recorded shape
+    # set. Everything outside this class — the frame dispatch, the
+    # observability probes — goes through these four accessors.
+    def record_combo(self, combo) -> bool:
+        """Record one dispatched shape combo (tuple-ified). Returns True
+        when the combo is first-seen — i.e. the dispatch that produced it
+        just paid the first launch at its shapes."""
+        combo = tuple(combo)
+        if combo in self._seen_combos:
+            return False
+        self._seen_combos.add(combo)
+        return True
+
+    def combo_seen(self, combo) -> bool:
+        """Whether this shape combo has been dispatched before."""
+        return tuple(combo) in self._seen_combos
+
+    def combo_count(self) -> int:
+        """How many distinct dispatch shape combos this engine ran."""
+        return len(self._seen_combos)
+
+    def combos(self) -> list:
+        """The recorded dispatch combos, sorted (stable across runs for
+        manifests and tests)."""
+        return sorted(self._seen_combos)
+
     def _grid_geometry(self, live: np.ndarray, first: bool = True,
                        cls: int | None = None):
         """When the batch touches few of the provisioned lanes, pack a
@@ -530,6 +619,9 @@ class BatchEngine:
             lane_ids = np.full(n_rows, self.n_slots, np.int64)
             lane_ids[: len(live)] = live
             rows_for_live = np.arange(len(live), dtype=np.int64)
+            # Occupancy ledger (obs.placement): dispatched-vs-live rows
+            # for the unsharded dense grid, values already in hand.
+            PLACEMENT.note_dispatch(n_rows, live)
         else:
             d = self.mesh.size
             local = self.n_slots // d
@@ -547,8 +639,14 @@ class BatchEngine:
             rank = np.arange(len(live), dtype=np.int64) - starts[shard]
             rows_for_live = shard * r_s + rank
             lane_ids[rows_for_live] = live
+            # Per-shard telemetry from values already in hand.
+            _dense_shard_skew.observe(int(counts.max()) * d / len(live))
+            PLACEMENT.note_dispatch(n_rows, live, counts, r_s)
         row_of = np.empty(self.n_slots, np.int64)
         row_of[live] = rows_for_live
+        # Skew telemetry: what row padding (pow2 bucket, grow-only floor,
+        # and per-shard MAX bucketing under a mesh) costs THIS dispatch.
+        _rows_per_live_lane.observe(n_rows / len(live))
         return True, n_rows, lane_ids, row_of
 
     def _admit_lane_range(self, lane: int, l: int, h: int) -> None:
@@ -899,7 +997,10 @@ class BatchEngine:
     def _one_grid_columnar(self, pending, batches):
         from .events import decode_grid_columnar
 
-        ops, meta, leftover, lane_ids = self._pack_grid_vectorized(pending)
+        with TRACER.stage("pad_pack"):
+            ops, meta, leftover, lane_ids = self._pack_grid_vectorized(
+                pending
+            )
         if len(meta["arrival"]) == 0:
             # Everything dropped (unrepresentable DELs): nothing to run.
             return leftover
@@ -909,9 +1010,10 @@ class BatchEngine:
         outs, lane_overrides = self._run_exact(
             self._upload_tree(ops), contexts, lane_ids
         )
-        batches.append(
-            decode_grid_columnar(meta, splice_outs(outs, lane_overrides))
-        )
+        with TRACER.stage("decode"):
+            batches.append(
+                decode_grid_columnar(meta, splice_outs(outs, lane_overrides))
+            )
         return leftover
 
     def _one_grid(self, pending, decoded):
@@ -1017,9 +1119,16 @@ class BatchEngine:
         # new cap targets the host-side bound (resting count plus the ADDs
         # packed into the row) but grows at most 4x per replay.
         while True:
-            new_books, outs = self._step(books_before, ops, lane_ids, cap_g)
-            self.stats.device_calls += 1
-            if not bool(outs.book_overflow.any()):
+            # One stage span per attempt: the step's launches plus the
+            # overflow read, which waits for them, so this is the device
+            # wait (the path's own barrier; the span adds none).
+            with TRACER.stage("device_execute"):
+                new_books, outs = self._step(
+                    books_before, ops, lane_ids, cap_g
+                )
+                self.stats.device_calls += 1
+                overflow = bool(outs.book_overflow.any())
+            if not overflow:
                 break
             counts = self._host_leaf(books_before, "count")  # [S, 2]
             # Fetched only now an overflow tripped: frame grids are built

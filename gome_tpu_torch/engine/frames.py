@@ -41,7 +41,10 @@ import time
 import numpy as np
 import torch
 
+from ..obs.compile_journal import JOURNAL, frame_combo_detail
+from ..obs.timeline import TIMELINE
 from ..types import Action, Order, OrderType, Side
+from ..utils.trace import TRACER
 from . import nativehost
 from .batch import BatchEngine, _cap_ladder, _next_pow2, _next_pow4, splice_outs
 from .book import GRID_I32_FIELDS, DeviceOp, _host, numpy_dtype, to_device
@@ -309,8 +312,7 @@ def _pack_class_train(eng: BatchEngine, a: dict, active_idx, t_sub,
             t_grid = eng.max_t
 
         in_window = t_sub < t_off + t_grid
-        m = int(np.count_nonzero(in_window))
-        m_pad = _next_pow4(max(m, 64))
+        m_pad = _packed_axis(int(np.count_nonzero(in_window)))
         if nativehost.available():
             # Column pack + the 11 meta extractions in ONE native pass.
             cols, flat, meta = nativehost.pack_grid(
@@ -329,6 +331,11 @@ def _pack_class_train(eng: BatchEngine, a: dict, active_idx, t_sub,
         alive = t_sub >= t_off
         active_idx = active_idx[alive]
         t_sub = t_sub[alive]
+
+
+def _packed_axis(m: int) -> int:
+    """A grid's packed-op axis for m ops: pow4 buckets from 64."""
+    return _next_pow4(max(m, 64))
 
 
 def _grid_ops(eng: BatchEngine, cols: np.ndarray, flat: np.ndarray,
@@ -407,6 +414,11 @@ def _tables(eng):
 def _assemble(eng, a, batches):
     """Join a frame's per-grid event columns in arrival order and count
     them (once per applied frame, on either path)."""
+    # Timeline flow counters (obs.timeline): _assemble runs exactly once
+    # per applied frame on BOTH execution paths, so a frame count cannot
+    # double on an exact-path fallback. Disabled sampler = one attribute
+    # check, zero allocations.
+    TIMELINE.note_frame(a["n"])
     eng.stats.orders += a["n"]
     if not batches:
         eng.stats.cancels_missed += a["dels_total"]
@@ -429,8 +441,9 @@ def apply_frame(eng: BatchEngine, cols: dict):
     """Exact synchronous frame application (one _run_exact per grid);
     returns an EventBatch identical to process_columnar on the same
     orders. Caller guarantees admission was already applied."""
-    a = _frame_arrays(eng, cols)
-    grids = pack_frame_grids(eng, a)
+    with TRACER.stage("pad_pack"):
+        a = _frame_arrays(eng, cols)
+        grids = pack_frame_grids(eng, a)
     batches = []
     for ops, meta, lane_ids, cap_g in grids:
         contexts = {
@@ -644,8 +657,11 @@ def submit_frame(eng: BatchEngine, cols: dict) -> PendingFrame:
     host-side errors; device budget trips surface at resolve_frame."""
     cp = eng._checkpoint()
     try:
-        a = _frame_arrays(eng, cols)
-        grids = pack_frame_grids(eng, a)
+        # Packing and the grid scatters' queueing: host work (the scatters
+        # themselves run on the card, asynchronously).
+        with TRACER.stage("pad_pack"):
+            a = _frame_arrays(eng, cols)
+            grids = pack_frame_grids(eng, a)
         books = eng.books
         items = []
         compact = fetched = None
@@ -668,17 +684,51 @@ def submit_frame(eng: BatchEngine, cols: dict) -> PendingFrame:
                 device=dev,
             )
         for g_i, (ops, meta, lane_ids, cap_g) in enumerate(grids):
-            books, outs = eng._step(books, ops, lane_ids, cap_g)
-            eng.stats.device_calls += 1
-            n_rows, t_grid = outs.n_fills.shape
-            compact_accum(outs, fills_acc, cancels_acc, totals_acc, g_i)
+            t_disp = TRACER.clock() if TRACER.enabled else 0.0
+            t_disp_j = JOURNAL.clock() if JOURNAL.enabled else 0.0
+            with TRACER.annotation("grid_dispatch"):
+                books, outs = eng._step(books, ops, lane_ids, cap_g)
+                eng.stats.device_calls += 1
+                n_rows, t_grid = outs.n_fills.shape
+                compact_accum(outs, fills_acc, cancels_acc, totals_acc, g_i)
             meta["_n_rows"] = n_rows
             # The record axis K comes from the ARRAY, never from
             # config.max_fills: with cap < max_fills the step's record axis
             # clamps to the cap, and the decode's flat src arithmetic and
             # the truncation check must use the K the records were emitted
             # with.
-            items.append((meta, (t_grid, int(outs.fill_qty.shape[-1]))))
+            k_rec = int(outs.fill_qty.shape[-1])
+            items.append((meta, (t_grid, k_rec)))
+            # The full dispatch combo (grid geometry x frame buffers; the
+            # buffers' event capacity, their sentinel column aside), as the
+            # reference records it.
+            combo = (
+                n_rows, t_grid, int(cap_g), lane_ids is not None,
+                _packed_axis(len(meta["arrival"])), k_rec,
+                e_fills, e_cancels, int(totals_acc.shape[0]),
+            )
+            if TRACER.enabled:
+                # Dispatch cost split by whether this shape combo ran
+                # before. The launches are asynchronous, so both spans
+                # time the host's queueing; a first-seen combo's also
+                # holds the first launch at its shapes and the caching
+                # allocator's growth for its buffers.
+                TRACER.observe_span(
+                    "compile_hit" if eng.combo_seen(combo)
+                    else "compile_miss",
+                    t_disp, TRACER.clock(),
+                )
+            if JOURNAL.enabled and not eng.combo_seen(combo):
+                # Compile journal: the SAME miss path, recording the combo
+                # itself plus its analytic cost block.
+                JOURNAL.record(
+                    "frame_dispatch", combo,
+                    JOURNAL.clock() - t_disp_j,
+                    detail=frame_combo_detail(
+                        numpy_dtype(eng.config.dtype).name, combo
+                    ),
+                )
+            eng.record_combo(combo)
         eng.books = books
         if grids:
             compact = (totals_acc, fills_acc, cancels_acc)
@@ -734,6 +784,7 @@ def resolve_frame(eng: BatchEngine, pend: PendingFrame):
         return _assemble(eng, pend.arrays, [])
     global FETCH_SECONDS, FETCH_TOTALS_SECONDS
     t0 = time.perf_counter()
+    ts0 = TRACER.clock() if TRACER.enabled else 0.0
     event, totals_host, counts_host = pend.fetched
     if event is not None:
         event.synchronize()
@@ -742,6 +793,11 @@ def resolve_frame(eng: BatchEngine, pend: PendingFrame):
     spent = time.perf_counter() - t0
     FETCH_SECONDS += spent
     FETCH_TOTALS_SECONDS += spent
+    if TRACER.enabled:
+        # The totals fetch is the frame's completion barrier: waiting on
+        # it drains every queued grid, so this IS the device-execute wait.
+        # (Span clock = the tracer's, which tests may script.)
+        TRACER.observe_span("device_execute", ts0, TRACER.clock())
     _, fills_dev, cancels_dev = pend.compact
     e_fills = fills_dev.shape[1] - 1
     e_cancels = cancels_dev.shape[1] - 1
@@ -776,11 +832,14 @@ def resolve_frame(eng: BatchEngine, pend: PendingFrame):
         raise _NeedExact()
     # Phase 2: the used prefixes, now the true counts are known.
     t0 = time.perf_counter()
+    ts0 = TRACER.clock() if TRACER.enabled else 0.0
     f_len = min(_next_pow2(max(total_f, 64)), e_fills)
     c_len = min(_next_pow2(max(total_c, 64)), e_cancels)
     fills_mat = _prefix_slice_fn(fills_dev, f_len)
     cancels_mat = _prefix_slice_fn(cancels_dev, c_len)
     FETCH_SECONDS += time.perf_counter() - t0
+    if TRACER.enabled:
+        TRACER.observe_span("device_execute", ts0, TRACER.clock())
     # Re-anchor count_ub from this frame's true post-frame counts (extra
     # minus THIS frame's increments is the still-in-flight sum).
     if counts_max is not None:
@@ -788,18 +847,21 @@ def resolve_frame(eng: BatchEngine, pend: PendingFrame):
     off_f = np.concatenate(([0], np.cumsum(nf_g)))
     off_c = np.concatenate(([0], np.cumsum(nc_g)))
     batches = []
-    for i, (meta, shape) in enumerate(pend.items):
-        fills = {
-            f: fills_mat[j, off_f[i] : off_f[i + 1]]
-            for j, f in enumerate(_FILL_FIELDS)
-        }
-        cancels = {
-            f: cancels_mat[j, off_c[i] : off_c[i + 1]]
-            for j, f in enumerate(_CANCEL_FIELDS)
-        }
-        batches.append(
-            _decode_compact(eng, meta, shape, (totals[i], fills, cancels))
-        )
+    with TRACER.stage("decode"):
+        for i, (meta, shape) in enumerate(pend.items):
+            fills = {
+                f: fills_mat[j, off_f[i] : off_f[i + 1]]
+                for j, f in enumerate(_FILL_FIELDS)
+            }
+            cancels = {
+                f: cancels_mat[j, off_c[i] : off_c[i + 1]]
+                for j, f in enumerate(_CANCEL_FIELDS)
+            }
+            batches.append(
+                _decode_compact(
+                    eng, meta, shape, (totals[i], fills, cancels)
+                )
+            )
     return _assemble(eng, pend.arrays, batches)
 
 

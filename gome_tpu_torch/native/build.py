@@ -84,6 +84,9 @@ def build(cxx: str) -> str:
             if os.path.exists(tmp):
                 os.remove(tmp)
         build_seconds = time.perf_counter() - t0
+    from ..obs.compile_journal import JOURNAL
+
+    JOURNAL.record("gxx_build", (LIB,), build_seconds)
     return out
 
 

@@ -73,6 +73,9 @@ def build(name: str) -> str:
         )
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     build_info[name] = (time.perf_counter() - t0, proc.stdout + proc.stderr)
+    from ..obs.compile_journal import JOURNAL
+
+    JOURNAL.record("nvcc_build", (name,), build_info[name][0])
     return out
 
 

@@ -30,8 +30,10 @@ from .matchfeed import MatchFeed
 
 log = get_logger("app")
 
-#: ops: flags that arm the reference's obs/ surfaces, which the port has not.
-OBS_FLAGS = ("cost", "timeline", "profile", "hostprof", "placement")
+#: ops: flags that arm the reference's obs/ surfaces the port has not yet:
+#: the compile journal's /cost (with its XLA cost model) and the measured
+#: roofline profiler's /profile.
+OBS_FLAGS = ("cost", "profile")
 
 
 def refuse_unported(config: Config) -> None:
@@ -41,8 +43,9 @@ def refuse_unported(config: Config) -> None:
         armed = [f for f in OBS_FLAGS if getattr(config.ops, f)]
         if armed:
             raise NotImplementedError(
-                f"ops: {', '.join(armed)} on: the port has no obs/ yet "
-                "(ROADMAP Queue 1 items 3 and 4); set them false"
+                f"ops: {', '.join(armed)} on: the port has no cost model "
+                "or profiler yet (/cost, /profile: ROADMAP Queue 1 item 4); "
+                "set them false"
             )
     if config.fleet.enabled:
         raise NotImplementedError(
@@ -203,6 +206,51 @@ class EngineService:
                         slow_threshold_s=self.config.ops.slow_ms / 1e3,
                     )
                 )
+            if self.config.ops.timeline:
+                # Arm the host-side timeline sampler (obs.timeline):
+                # RSS/rusage/live-buffer/journal/queue series behind the
+                # ops /timeline endpoint and gome_timeline_* gauges. The
+                # periodic thread runs only while the service is
+                # start()ed; sample() also works on demand.
+                from ..obs.timeline import TIMELINE, service_timeline
+
+                TIMELINE.install(
+                    interval_s=self.config.ops.timeline_interval_s,
+                    keep_n=self.config.ops.timeline_keep,
+                )
+                service_timeline(self)
+            if self.config.ops.hostprof:
+                # Arm the host-CPU sampling profiler (obs.hostprof):
+                # gateway note_admit hook live, thread-mode wall sampler
+                # behind the ops /hostprof endpoint and the
+                # gome_hostprof_* gauges. The sampler thread runs only
+                # while the service is start()ed.
+                from ..obs.hostprof import HOSTPROF
+
+                HOSTPROF.install(
+                    hz=self.config.ops.hostprof_hz,
+                    keep_n=self.config.ops.hostprof_keep,
+                )
+            if self.config.ops.placement:
+                # Arm the placement observatory (obs.placement): gateway
+                # admit hooks feed the heavy-hitter symbol sketch, the
+                # dense-dispatch hook keeps the occupancy ledger, and
+                # the /placement endpoint serves the skew attribution.
+                import numpy as np
+
+                from ..engine.book import GRID_I32_FIELDS, DeviceOp
+                from ..obs import placement as _placement
+
+                itemsize = np.dtype(e.dtype).itemsize
+                n_i32 = len(GRID_I32_FIELDS)
+                n_val = len(DeviceOp._fields) - n_i32
+                _placement.PLACEMENT.install(
+                    topk=self.config.ops.placement_topk,
+                    ewma_alpha=self.config.ops.placement_alpha,
+                    row_bytes=(n_i32 * 4 + n_val * itemsize) * e.max_t,
+                    partitions=self.config.ops.placement_partitions,
+                    verdict=_placement.default_verdict(),
+                )
             self.ops = OpsServer(
                 self, host=self.config.ops.host, port=self.config.ops.port
             )
@@ -221,6 +269,14 @@ class EngineService:
         self.feed.start()
         if self.ops is not None:
             self.ops.start()
+            if self.config.ops.timeline:
+                from ..obs.timeline import TIMELINE
+
+                TIMELINE.start()
+            if self.config.ops.hostprof:
+                from ..obs.hostprof import HOSTPROF
+
+                HOSTPROF.start()
         return self
 
     def stop(self):
@@ -231,6 +287,14 @@ class EngineService:
         self.feed.stop()
         if self.ops is not None:
             self.ops.stop()
+            if self.config.ops.timeline:
+                from ..obs.timeline import TIMELINE
+
+                TIMELINE.stop()
+            if self.config.ops.hostprof:
+                from ..obs.hostprof import HOSTPROF
+
+                HOSTPROF.stop()
 
     def wait(self):
         if self._server is not None:

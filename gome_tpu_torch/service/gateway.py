@@ -14,9 +14,8 @@ Differences, deliberate:
     reference's downstream is an AMQP stub, rabbitmq.go:169).
 
 The port of ``gome_tpu/service/gateway.py``: the same responses, marks and
-doOrder bodies, byte for byte. The reference's obs/ admit hooks
-(HOSTPROF.note_admit, PLACEMENT.note_admit*) are left out until the port
-has obs/ (ROADMAP Queue 1 item 3); disarmed they are no-ops there too.
+doOrder bodies, byte for byte, and the same obs/ admit hooks
+(HOSTPROF.note_admit, PLACEMENT.note_admit*) at the same points.
 """
 
 from __future__ import annotations
@@ -34,6 +33,8 @@ from ..bus import QueueBus, encode_order
 from ..bus.colwire import encode_order_block, encode_order_frame_blocks
 from ..config import Config
 from ..fixed import scale
+from ..obs.hostprof import HOSTPROF
+from ..obs.placement import PLACEMENT
 from ..types import Action, Order, OrderType, Side
 from ..utils.faults import FAULTS
 from ..utils.logging import get_logger
@@ -307,6 +308,8 @@ class OrderGateway:
                 code=CODE_REJECT, message=f"rejected: {e}"
             )
         # main.go:49: unconditional success; matching outcome arrives async.
+        HOSTPROF.note_admit()  # disabled: one attribute check, no allocs
+        PLACEMENT.note_admit(order.symbol)  # same disabled contract
         return pb.OrderResponse(code=0, message="order accepted")
 
     def DeleteOrder(self, request: pb.OrderRequest, context) -> pb.OrderResponse:
@@ -335,6 +338,8 @@ class OrderGateway:
             return pb.OrderResponse(
                 code=CODE_REJECT, message=f"rejected: {e}"
             )
+        HOSTPROF.note_admit()
+        PLACEMENT.note_admit(order.symbol)  # cancels are symbol flow too
         return pb.OrderResponse(code=0, message="cancel accepted")
 
     def _apply_entries(self, entries) -> pb.OrderBatchResponse:
@@ -383,7 +388,10 @@ class OrderGateway:
                 resp.message = f"batch aborted at entry {i}: {e}"
                 break
             accepted += 1
+            PLACEMENT.note_admit(order.symbol)  # disabled: one attr check
         resp.accepted = accepted
+        if accepted:
+            HOSTPROF.note_admit(accepted)  # one locked add per batch
         return resp
 
     # -- columnar admit core (round 11) ----------------------------------
@@ -565,6 +573,10 @@ class OrderGateway:
             first = base if keep is None else base + int(keep[0])
             resp.message = f"batch aborted at entry {first}: {e}"
             return 0
+        HOSTPROF.note_admit(m)  # one locked add per block
+        # Symbol-flow sketch (obs.placement): the armed hook bincounts
+        # the already-interned columns; disabled it is one attr check.
+        PLACEMENT.note_admit_frame(cols["symbols"], cols["symbol_idx"])
         return m
 
     def DoOrderBatch(

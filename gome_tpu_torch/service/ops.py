@@ -1,9 +1,10 @@
 """Operator HTTP endpoint: /metrics (Prometheus text format from
 utils.metrics.REGISTRY), /healthz (service.health.HealthMonitor JSON),
 /trace (the order-lifecycle flight recorder as Chrome trace-event JSON —
-load the dump in chrome://tracing or https://ui.perfetto.dev) and
+load the dump in chrome://tracing or https://ui.perfetto.dev),
 /durability (queue offsets, the matchfeed exactly-once tracker and the
-fault-injection report).
+fault-injection report), and the host-side observability plane (obs/):
+/timeline, /placement, /capacity and /hostprof.
 
 The reference has no observability surface at all (SURVEY §5.5 — logging
 only); this is the cheap operator-facing extension the service ships: one
@@ -15,11 +16,17 @@ stdlib ThreadingHTTPServer, no dependencies, curl-able:
     curl localhost:9109/durability  # snapshot cadence, recovery state,
                                     # queue offsets, matchfeed exactly-once
                                     # tracker, fault-injection report
+    curl localhost:9109/timeline    # RSS/rusage/live-buffer time series
+    curl localhost:9109/hostprof    # host-CPU stage attribution (?drill=1
+                                    # runs the admit drill; ?format=collapsed
+                                    # dumps flamegraph-ready stacks)
+    curl localhost:9109/capacity    # installed capacity-sweep verdict
+    curl localhost:9109/placement   # symbol-flow heavy hitters, lane/shard
+                                    # occupancy ledger, skew attribution
 
 The port of ``gome_tpu/service/ops.py`` for the parts the port has. The
-reference's obs/ routes (/cost, /timeline, /profile, /hostprof, /fleet,
-/capacity, /placement) answer 404 here, as any unknown path does, until
-the port has obs/ (ROADMAP Queue 1 items 3 and 4). /durability carries the
+reference's /cost and /profile (ROADMAP Queue 1 item 4) and /fleet (item
+5) answer 404 here, as any unknown path does. /durability carries the
 Persister's probe() under "persist" (null when no Persister is attached).
 
 Enabled by an `ops:` section in config.yaml (port, host) or by
@@ -56,10 +63,55 @@ class OpsServer:
         self._httpd: ThreadingHTTPServer | None = None  # single-writer: start()/stop() caller
         self._thread: threading.Thread | None = None  # single-writer: start()/stop() caller
         self.monitor = None
+        self.live_monitor = None
         if service is not None:
             from .health import HealthMonitor
 
             self.monitor = HealthMonitor(service)
+            from ..obs.live import service_monitor
+
+            # Tagged live-buffer residency for the
+            # gome_hbm_resident_bytes{subsystem=...} gauges — all
+            # scrape-time reads, nothing on the hot path.
+            self.live_monitor = service_monitor(service)
+            self.live_monitor.export(self.registry)
+
+    def timeline_payload(self) -> dict:
+        """The /timeline JSON document: the process-global timeline
+        sampler's bounded series (obs.timeline.TIMELINE — {"enabled",
+        "interval_s", "samples": [...]}; empty but valid while the
+        sampler is disabled)."""
+        from ..obs.timeline import TIMELINE
+
+        return TIMELINE.as_dict()
+
+    def capacity_payload(self) -> dict:
+        """The /capacity JSON document: the installed load-sweep verdict
+        (obs.capacity.CAPACITY). ``{"enabled": false}`` while no verdict
+        is installed — always, until a sweep on the card writes one."""
+        from ..obs.capacity import CAPACITY
+
+        return CAPACITY.payload()
+
+    def placement_payload(self) -> dict:
+        """The /placement JSON document: the placement observatory
+        (obs.placement.PLACEMENT) — the heavy-hitter symbol table +
+        mergeable sketch bytes, the dispatch occupancy ledger (rows,
+        padding, per-shard blocks), the hot-lane EWMA table and the skew
+        attribution rows. ``{"enabled": false}`` while disarmed."""
+        from ..obs.placement import PLACEMENT
+
+        return PLACEMENT.payload()
+
+    def hostprof_payload(self, run_drill: bool = False) -> dict:
+        """The /hostprof JSON document: the host-CPU sampling profiler
+        (obs.hostprof.HOSTPROF) — the live wall-profile stage join plus
+        the last admit-drill report. ``?drill=1`` runs the deterministic
+        admit drill on demand — bounded work on the handler thread, never
+        the serving path; disabled it returns ``{"enabled": false}``."""
+        from ..obs.hostprof import HOSTPROF
+
+        return HOSTPROF.payload(run_drill=run_drill)
 
     def durability_payload(self) -> dict:
         """The /durability JSON document: the crash-consistency surface in
@@ -141,9 +193,41 @@ class OpsServer:
                             200 if health.healthy else 503, body,
                             "application/json",
                         )
+                    elif path == "/timeline":
+                        body = json.dumps(
+                            ops.timeline_payload(), default=str
+                        ).encode()
+                        self._send(200, body, "application/json")
+                    elif path == "/hostprof":
+                        query = (self.path.split("?", 1)[1:] or [""])[0]
+                        if "format=collapsed" in query:
+                            from ..obs.hostprof import HOSTPROF
+
+                            self._send(
+                                200, HOSTPROF.collapsed().encode(),
+                                "text/plain",
+                            )
+                            return
+                        body = json.dumps(
+                            ops.hostprof_payload(
+                                run_drill="drill=1" in query
+                            ),
+                            default=str,
+                        ).encode()
+                        self._send(200, body, "application/json")
                     elif path == "/durability":
                         body = json.dumps(
                             ops.durability_payload(), default=str
+                        ).encode()
+                        self._send(200, body, "application/json")
+                    elif path == "/capacity":
+                        body = json.dumps(
+                            ops.capacity_payload(), default=str
+                        ).encode()
+                        self._send(200, body, "application/json")
+                    elif path == "/placement":
+                        body = json.dumps(
+                            ops.placement_payload(), default=str
                         ).encode()
                         self._send(200, body, "application/json")
                     elif path == "/trace":
@@ -182,7 +266,8 @@ class OpsServer:
         )
         self._thread.start()
         log.info("ops endpoint up on %s:%d (/metrics, /healthz, /trace, "
-                 "/durability)", self.host, self.port)
+                 "/timeline, /hostprof, /durability, /capacity, "
+                 "/placement)", self.host, self.port)
         return self
 
     def stop(self) -> None:

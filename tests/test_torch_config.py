@@ -189,16 +189,46 @@ QUIET_OPS = "ops:\n  port: 0\n  trace: false\n" + "".join(
     f"  {f}: false\n" for f in OBS_FLAGS)
 
 
+#: The flags the port still refuses (the cost model and the profiler).
+UNPORTED_OBS = ("cost", "profile")
+#: The flags the port arms (obs/ timeline, hostprof, placement).
+PORTED_OBS = ("timeline", "hostprof", "placement")
+
+
 @pytest.mark.parametrize("text, error, item", [
     *[(QUIET_OPS.replace(f"{f}: false", f"{f}: true"), NotImplementedError,
-       "items 3 and 4") for f in OBS_FLAGS],
-    ("ops:\n  port: 0\n", NotImplementedError, "items 3 and 4"),
+       "item 4") for f in UNPORTED_OBS],
+    # The defaults arm cost and profile, and all three ported flags.
+    ("ops:\n  port: 0\n", NotImplementedError, "item 4"),
+    *[(QUIET_OPS.replace(f"{f}: false", f"{f}: true").replace(
+        "cost: false", "cost: true"), NotImplementedError, "item 4")
+      for f in PORTED_OBS],
     ("fleet:\n  members: [a=http://x:1]\n", NotImplementedError, "item 5"),
 ])
 def test_unported_parts_are_refused(tmp_path, text, error, item):
     cfg = tconfig.load_config(write(tmp_path, text))
     with pytest.raises(error, match=f"ROADMAP Queue 1 {item}\\b"):
         EngineService(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("flag", PORTED_OBS)
+def test_ported_obs_flags_arm(tmp_path, flag):
+    """Each ported flag alone constructs the service and arms its
+    process-wide singleton (disarmed again after)."""
+    from gome_tpu_torch.obs import HOSTPROF, TIMELINE
+    from gome_tpu_torch.obs.placement import PLACEMENT
+
+    single = {"timeline": TIMELINE, "hostprof": HOSTPROF,
+              "placement": PLACEMENT}
+    cfg = tconfig.load_config(write(tmp_path, QUIET_OPS.replace(
+        f"{flag}: false", f"{flag}: true")))
+    try:
+        svc = EngineService(cfg, device="cpu")
+        assert svc.ops is not None
+        assert [f for f, s in single.items() if s.enabled] == [flag]
+    finally:
+        for s in single.values():
+            s.disable()
 
 
 @pytest.mark.parametrize("text", ["rabbitmq:\n  port: {port}\n",

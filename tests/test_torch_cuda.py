@@ -378,3 +378,20 @@ def test_sim_env_on_the_card_equals_the_cpu(cuda):
     assert match_step.batch_step.launches == 20
     assert hawkes_scan.hawkes_scan.launches == 20
     assert int(final.t) == 20 and bool(torch.isfinite(rewards).all())
+
+
+def test_live_array_stats_on_the_card_cover_the_books(cuda):
+    """obs.live on the card: the caching allocator's counters for cuda:0
+    hold at least the engine's books, which pytree_stats counts exactly."""
+    from gome_tpu_torch.obs import live
+
+    eng = MatchEngine(BookConfig(cap=256, max_fills=16), n_slots=1024,
+                      device=cuda)
+    books = live.pytree_stats(eng.batch.books)
+    assert books["bytes"] == sum(a.numel() * a.element_size()
+                                 for a in eng.batch.books)
+    stats = live.live_array_stats()
+    card = stats["devices"][f"cuda:{torch.cuda.current_device()}"]
+    assert card["active_bytes"] >= card["allocated_bytes"] >= books["bytes"]
+    assert card["allocated_count"] >= books["count"]
+    assert stats["bytes"] >= books["bytes"]

@@ -352,8 +352,11 @@ def test_watchdog_thread_starts_and_stops():
 
 # -- the ops endpoint ----------------------------------------------------------
 
-UNPORTED_ROUTES = ("/cost", "/timeline", "/profile", "/hostprof", "/fleet",
-                   "/capacity", "/placement")
+UNPORTED_ROUTES = ("/cost", "/profile", "/fleet")
+#: obs/ routes the port serves; with every obs flag off both packages
+#: answer them alike.
+OBS_ROUTES = ("/timeline", "/placement", "/capacity", "/hostprof",
+              "/hostprof?format=collapsed")
 
 
 def _get(port, path):
@@ -406,8 +409,9 @@ def test_ops_server_matches():
 
 def compare_ops_servers():
     """The OpsServer of each package's EngineService, started with the
-    threads not running: equal /healthz, /durability, /trace and 404s,
-    and no /metrics name in the port's that gome_tpu's lacks."""
+    threads not running: equal /healthz, /durability, /trace, the disarmed
+    obs/ routes and 404s, and no /metrics name in the port's that
+    gome_tpu's lacks."""
     from gome_tpu.bus import encode_order
     from gome_tpu.types import Order, Side
 
@@ -434,6 +438,7 @@ def compare_ops_servers():
                 nope=_get(port, "/nope"),
                 metrics=metric_names(_get(port, "/metrics")[1]),
                 unported=[_get(port, r)[0] for r in UNPORTED_ROUTES],
+                obs=[_get(port, r) for r in OBS_ROUTES],
             )
         finally:
             svc.ops.stop()
@@ -456,6 +461,8 @@ def compare_ops_servers():
     assert t["trace"] == (200, '{"traceEvents": []}')
     assert t["nope"] == j["nope"] == (404, "not found\n")
     assert t["unported"] == [404] * len(UNPORTED_ROUTES)
+    assert t["obs"] == j["obs"]
+    assert [code for code, _ in t["obs"]] == [200] * len(OBS_ROUTES)
     assert t["metrics"] <= j["metrics"]
     assert {"gome_orders_consumed_total", "gome_bus_depth",
             "gome_matchfeed_dupes_total"} <= t["metrics"]
