@@ -180,8 +180,10 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
  12. the RabbitMQ transport (gome_tpu_torch.bus.amqp, the port's
      FakeBroker in this process): (a) phase 8 (c)'s service (depth 0,
      json wire, no subscriber) booted from a config whose rabbitmq:
-     section names the broker: matchOrder bodies, read back through the
-     service's AMQP match queue, byte-equal to phase 8 (c)'s, /healthz
+     section names the broker, over the flow's first 102,400 orders and
+     the unary tail: matchOrder bodies, read back through the service's
+     AMQP match queue, the oracle's, the flow's byte-equal to phase 8
+     (c)'s, /healthz
      listing both supervised queues with closed breakers, K1 at the
      service's inputs; orders/s beside phase 8 (c)'s and the consumer's
      thread split; (b) the reference's split topology across processes:
@@ -207,8 +209,9 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      in any of the armed run's submit_frame calls, K1 held against its
      plain version at the armed run's deepest and widest grids, both
      orders/s and their ratio (the armed run also installs
-     the compile journal, which no ops: flag arms yet, and prints its
-     first-seen dispatch combos); (b) the armed service with ops.trace on
+     the compile journal by hand and prints its first-seen dispatch
+     combos; phase 14 arms it with ops.cost); (b) the armed service with
+     ops.trace on
      over the flow's first 20,000 orders (the gateway's scalar loop):
      events equal to the oracle's and
      nonzero gome_stage_seconds counts for pad_pack, device_execute,
@@ -221,7 +224,35 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      table; ?drill=1 and ?format=collapsed), every route with the
      reference's keys and no TPU artifact's value; (d) the columnar
      gateway admit drill (obs.hostprof.gateway_drill), which must mark
-     through the native pre-pool.
+     through the native pre-pool;
+ 14. the cost model, the profiler, the fleet aggregator and the geometry
+     warm-up: (a) phase 8 (c)'s service with ops cost and profile on
+     (Config's defaults for both; every other obs flag off): matchOrder
+     bodies byte-equal to phase 8 (c)'s, /cost and /profile?refresh=1
+     read once mid-flow (from a thread, a quarter of the requests sent) and
+     once after: every cost-model entry (batch_step, dense_batch_step,
+     lane_scan, compact_accum, scatter_grid) in both, each /profile row
+     timed from CUDA kernels (> 0 us a call, at most 105% of its roofline
+     ceiling), K1 in batch_step's window once a call (the capture counts
+     only its own stream's device events; the consumer's K1 kernels in
+     the same trace are counted apart), K1 held against its plain
+     version at the run's inputs; the calibrated peaks, the
+     armed/disarmed orders/s, and where each /cost read's wall time went
+     (StallProbe: the handler's and the consumer's threads); (b) a fleet
+     of two partitions (scripts/fleet_drill.py's shape): the port's marker server, per
+     partition a gateway process (`python3 chip_smoke.py --fleet-gateway
+     ...`: traced scalar loop, file bus, placement) and a consumer process
+     on the card (`--fleet-consumer`: EngineService with a redis: store,
+     ops.trace on; K1 launches = device calls, K1 at its inputs), the
+     flow's first 20,000 orders routed by fleet.partition_of, this
+     process's obs.fleet.FLEET polling the four ops servers: merged
+     /metrics family totals equal to the members' sums, no unhealthy,
+     degraded or failed poll, an exact fleet-wide seq audit, journeys
+     stitched across each gateway -> consumer pair, each partition's
+     events equal to its oracle's; (c) save_geometry after phase 6's flow,
+     then four fresh engines (cold, after load_geometry, after
+     load_geometry, cold): the first 8 frames' events equal to each
+     other's and the oracle's, their seconds printed.
 
 The last two lines are the kernel table (JSON) and
 {"ok": true, "device": {...}}.
@@ -1666,6 +1697,10 @@ SERVICE_RUNS = (("b", 0, True), ("a", 2, True), ("c", 0, False))
 #: orders/s), send the flow's first 25 DoOrderBatch requests (102,400
 #: orders) and leave load_client to (c): the script's time limit.
 SUBSCRIBED_REQUESTS = 25
+#: Phase 12 (a), the service over AMQP (one confirmed publish an event,
+#: ~2,600-4,900 orders/s), sends the same first requests: the script's
+#: time limit.
+AMQP_REQUESTS = SUBSCRIBED_REQUESTS
 
 
 def wire_request(pb, order):
@@ -1785,12 +1820,14 @@ def metric(text: str, sample: str) -> float:
     raise SystemExit(f"phase 8: /metrics has no sample {sample}")
 
 
-def send_flow(label, stub, pb, requests, tail) -> list[float]:
+def send_flow(label, stub, pb, requests, tail, hook=None) -> list[float]:
     """The flow's DoOrderBatch requests one at a time, each fully
     accepted, then the unary tail (if any); returns the round trips'
-    seconds."""
+    seconds. `hook`, (i, fn), calls fn() before the i-th request."""
     rtt = []
-    for req in requests:
+    for i, req in enumerate(requests):
+        if hook is not None and i == hook[0]:
+            hook[1]()
         t = time.perf_counter()
         resp = stub.DoOrderBatch(req, timeout=120)
         rtt.append(time.perf_counter() - t)
@@ -1840,7 +1877,7 @@ def expected_launches(engine) -> int:
 def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
                 kernel, subscribe: bool = True, mesh_devices: int = 0,
                 bus=None, load_run: bool = True, label: str | None = None,
-                ops_kw: dict | None = None, on_done=None):
+                ops_kw: dict | None = None, on_done=None, mid=None):
     """Phase 8, one run: EngineService from a Config written in code (gRPC
     on port 0, ops on), started on the card; with `subscribe`, a
     SubscribeMatches stream opened through the port's OrderStub first; the
@@ -1860,13 +1897,20 @@ def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
     "bodies"; /healthz's payload under "health". Every obs/ flag is off
     unless `ops_kw` (OpsConfig fields) turns it on; `on_done(svc)` runs
     once the flow is drained and checked, before the service stops, and
-    its result is returned under "scraped"; `label` names the run."""
+    its result is returned under "scraped"; `mid(svc, started)` runs on
+    a thread of its own, started once a quarter of the requests are
+    sent, and the sender waits until it sets `started` (so it begins
+    with messages unconsumed); its result is returned under
+    "mid" (the K1 launches the cost model's and profiler's entries make,
+    costmodel.ENTRY_K1_LAUNCHES, count beside the consumer's device
+    calls: "entry_launches"); `label` names the run."""
     import grpc
 
     from gome_tpu_torch.api import order_pb2 as pb
     from gome_tpu_torch.api.service import OrderStub
     from gome_tpu_torch.bus import decode_match_result
     from gome_tpu_torch.clients import load_client
+    from gome_tpu_torch.obs import costmodel
     from gome_tpu_torch.config import Config, EngineConfig, GrpcConfig, \
         OpsConfig
     from gome_tpu_torch.service import EngineService
@@ -1915,9 +1959,28 @@ def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
             for part in spent:
                 spent[part] = 0.0
             kernel.launches = 0
+            entry0 = costmodel.ENTRY_K1_LAUNCHES
+            mid_out = {}
+            mid_started = threading.Event()
+
+            def run_mid():
+                try:
+                    mid_out["result"] = mid(svc, mid_started)
+                except BaseException as e:  # raised on the caller's thread
+                    mid_out["error"] = e
+                finally:
+                    mid_started.set()
+
+            def start_mid():
+                mid_thread.start()
+                mid_started.wait(120)
+
+            mid_thread = threading.Thread(target=run_mid, name="mid-reads")
             with host_split(svc.engine) as consumer_split:
                 t0 = time.perf_counter()
-                rtt = send_flow(label, stub, pb, requests, tail)
+                rtt = send_flow(label, stub, pb, requests, tail,
+                                hook=None if mid is None
+                                else (len(requests) // 4, start_mid))
                 if subscribe:
                     if not sub.reached.wait(300) or sub.t_done is None:
                         raise SystemExit(
@@ -1927,10 +1990,15 @@ def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
                 else:
                     t_end = wait_drained(label, svc, 300, len(want))
                 secs = t_end - t0
+                if mid is not None:
+                    mid_thread.join()
+                    if "error" in mid_out:
+                        raise mid_out["error"]
                 launches = kernel.launches
+                entry_launches = costmodel.ENTRY_K1_LAUNCHES - entry0
                 split = dict(spent)
                 consumer_split = dict(consumer_split)
-            calls = expected_launches(svc.engine)
+            calls = expected_launches(svc.engine) + entry_launches
             if launches <= 0 or launches != calls:
                 raise SystemExit(f"{label}: {launches} kernel launches for "
                                  f"{calls} expected from the device calls")
@@ -2004,7 +2072,8 @@ def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
                 subscribe=subscribe, counters=counters, load=load,
                 load_secs=load_secs, events=len(want),
                 requests=len(requests), orders=n_orders, health=health,
-                bodies=None if subscribe else bodies, scraped=scraped)
+                bodies=None if subscribe else bodies, scraped=scraped,
+                mid=mid_out.get("result"), entry_launches=entry_launches)
 
 
 def phase8(sizes, zipf):
@@ -4493,7 +4562,11 @@ def phase12(card: str, device, sizes, zipf, flow8, p8c) -> dict:
     from gome_tpu_torch.ops.match_step import batch_step
 
     t_phase = time.perf_counter()
-    requests, tail, want = flow8
+    requests, tail, _ = flow8
+    requests = requests[:AMQP_REQUESTS]
+    n_a = sum(len(r.orders) for r in requests)
+    n_flow = len(oracle_events(list(zipf[:n_a])))
+    want = oracle_events(list(zipf[:n_a]) + tail)
     broker = FakeBroker().start()
     try:
         with tempfile.TemporaryDirectory() as work:
@@ -4506,14 +4579,14 @@ def phase12(card: str, device, sizes, zipf, flow8, p8c) -> dict:
         if bus_cfg.backend != "amqp":
             raise SystemExit(f"phase 12 (a): rabbitmq: loaded as {bus_cfg}")
         with keep_kernel_inputs() as kept:
-            svc = service_run(sizes, 0, requests, tail, want, len(zipf),
+            svc = service_run(sizes, 0, requests, tail, want, n_a,
                               batch_step, subscribe=False, bus=bus_cfg,
                               load_run=False)
         a_worst, a_line = check_kept_inputs("phase 12 (a)", kept)
         del kept
     finally:
         broker.stop()
-    if svc["bodies"] != p8c["bodies"]:
+    if svc["bodies"][:n_flow] != p8c["bodies"][:n_flow]:
         raise SystemExit("phase 12 (a): matchOrder bodies over AMQP differ "
                          "from phase 8 (c)'s")
     conns = svc["health"]["detail"]["connections"]
@@ -4521,14 +4594,16 @@ def phase12(card: str, device, sizes, zipf, flow8, p8c) -> dict:
     if sorted(amqp_conns) != ["amqp:doOrder", "amqp:matchOrder"] or any(
             v["breaker"] != "closed" for v in amqp_conns.values()):
         raise SystemExit(f"phase 12 (a): /healthz connections {conns}")
-    rate, rate8 = len(zipf) / svc["secs"], len(zipf) / p8c["secs"]
+    rate, rate8 = n_a / svc["secs"], len(zipf) / p8c["secs"]
     sp = svc["split"]
     print(f"phase 12 (a): {svc['host']}: EngineService from a rabbitmq: "
           f"section (SupervisedAmqpQueue doOrder and matchOrder on the "
           f"port's FakeBroker; int64, depth 0, json match wire, no "
-          f"subscriber): {len(svc['bodies'])} matchOrder bodies, read back "
-          f"through the service's AMQP match queue, byte-equal to phase 8 "
-          f"(c)'s memory-bus bodies; /healthz 200 with "
+          f"subscriber), the flow's first {n_a:,} orders and the unary "
+          f"tail: {len(svc['bodies'])} matchOrder bodies, read back "
+          f"through the service's AMQP match queue, the oracle's, the "
+          f"flow's {n_flow} byte-equal to phase 8 (c)'s memory-bus "
+          f"bodies; /healthz 200 with "
           + ", ".join(f"{k} breaker {v['breaker']} ({v['connects_total']} "
                       f"connects)" for k, v in sorted(amqp_conns.items()))
           + f"; {svc['launches']} K1 launches = device calls")
@@ -4650,10 +4725,13 @@ def dense_grids():
 def disarm_obs() -> None:
     """Every process-wide obs/ singleton and the tracer back to disarmed."""
     from gome_tpu_torch.obs import HOSTPROF, JOURNAL, TIMELINE
+    from gome_tpu_torch.obs.fleet import FLEET
     from gome_tpu_torch.obs.placement import PLACEMENT
+    from gome_tpu_torch.obs.profiler import PROFILER
     from gome_tpu_torch.utils.trace import TRACER
 
-    for single in (TIMELINE, HOSTPROF, PLACEMENT, JOURNAL, TRACER):
+    for single in (TIMELINE, HOSTPROF, PLACEMENT, JOURNAL, PROFILER, FLEET,
+                   TRACER):
         single.disable()
 
 
@@ -4906,6 +4984,782 @@ def phase13(card: str, sizes, zipf, flow8, p8c) -> dict:
         ratio=rate_on / rate_off, p50=c["p50"], stages=stages)
 
 
+# -- phase 14 ----------------------------------------------------------------
+
+#: (a)'s armed run: the compile journal (cost) and the measured-roofline
+#: profiler (profile); the other obs/ flags stay off.
+COST_ARMED = dict(cost=True, profile=True)
+FLEET_ORDERS = 20_000  # (b): the flow's first orders over the partitions
+FLEET_PARTITIONS = 2
+FLEET_WAIT_S = 240  # (b): boot, drive and drain of the whole fleet
+GEOMETRY_FRAMES = 8  # (c): the first frames timed cold and warm
+
+
+class StallProbe:
+    """Where the threads of this process spend one request's wall time:
+    every 1/`hz` s each thread's Python stack (sys._current_frames) and
+    its CPU seconds (utime + stime in /proc/self/task/<tid>/stat). A
+    thread whose CPU seconds fall far below its sampled span was waiting
+    (for the GIL, a lock or the device), not running."""
+
+    TICK_S = os.sysconf("SC_CLK_TCK")
+
+    def __init__(self, hz: float = 50.0):
+        self.hz = hz
+        self.threads: dict = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="chip-smoke-stall-probe")
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.wall = time.perf_counter() - self.t0
+        return False
+
+    @classmethod
+    def _cpu(cls, tid) -> float | None:
+        try:
+            with open(f"/proc/self/task/{tid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            return None
+        return (int(fields[11]) + int(fields[12])) / cls.TICK_S
+
+    def _loop(self) -> None:
+        me = threading.get_ident()
+        while not self._stop.wait(1.0 / self.hz):
+            live = {t.ident: t for t in threading.enumerate()}
+            for ident, frame in sys._current_frames().items():
+                t = live.get(ident)
+                if ident == me or t is None:
+                    continue
+                nodes = []
+                while frame is not None:
+                    code = frame.f_code
+                    nodes.append(f"{frame.f_globals.get('__name__', '?')}:"
+                                 f"{code.co_qualname}")
+                    frame = frame.f_back
+                cpu = self._cpu(t.native_id)
+                rec = self.threads.setdefault(ident, dict(
+                    name=t.name, samples=0, cpu0=cpu, cpu1=cpu, nodes=set(),
+                    where=collections.Counter()))
+                rec["samples"] += 1
+                rec["cpu1"] = cpu if cpu is not None else rec["cpu1"]
+                rec["nodes"].update(nodes)
+                own = next((n for n in nodes
+                            if n.startswith("gome_tpu_torch")), "-")
+                rec["where"][own if own == nodes[0]
+                             else f"{own} < {nodes[0]}"] += 1
+
+    def thread(self, node: str) -> dict | None:
+        """The sampled thread whose stacks held `node` (the longest such)."""
+        hits = [r for r in self.threads.values()
+                if any(node in n for n in r["nodes"])]
+        return max(hits, key=lambda r: r["samples"]) if hits else None
+
+    def summary(self, node: str, top: int = 4) -> dict | None:
+        rec = self.thread(node)
+        if rec is None:
+            return None
+        cpu = (rec["cpu1"] - rec["cpu0"]) if rec["cpu0"] is not None else None
+        return dict(name=rec["name"], samples=rec["samples"],
+                    span_s=rec["samples"] / self.hz, cpu_s=cpu,
+                    where=[(w, c / rec["samples"])
+                           for w, c in rec["where"].most_common(top)])
+
+
+def stall_line(probe: StallProbe) -> str:
+    """The /cost handler's and the consumer's threads over one read."""
+    parts = []
+    for tag, node in (("handler", "cost_payload"),
+                      ("consumer", "gome_tpu_torch.service.consumer:")):
+        sm = probe.summary(node)
+        if sm is None:
+            parts.append(f"{tag}: not sampled")
+            continue
+        cpu = "n/a" if sm["cpu_s"] is None else f"{sm['cpu_s']:.2f}"
+        parts.append(
+            f"{tag} ({sm['name']}) {sm['samples']} samples over "
+            f"{sm['span_s']:.2f} s, CPU {cpu} s, at "
+            + ", ".join(f"{w} {share:.0%}" for w, share in sm["where"]))
+    return (f"wall {probe.wall:.2f} s, {len(probe.threads)} threads; "
+            + "; ".join(parts))
+
+
+def cost_profile_reads(label, svc, started=None) -> dict:
+    """/cost, then /profile?refresh=1, of a running service; the
+    consumer's committed doOrder offset (one message a DoOrderBatch
+    request) is read before and after (mid-flow: messages were still
+    unconsumed when the reads began), and `started` is set once it was
+    read. The /cost read runs under a StallProbe."""
+    q = svc.bus.order_queue
+    out = {"committed_before": q.committed(), "seconds": {}}
+    if started is not None:
+        started.set()
+    for route in ("cost", "profile?refresh=1"):
+        t0 = time.perf_counter()
+        with (StallProbe() if route == "cost"
+              else contextlib.nullcontext()) as probe:
+            code, body = http_get(svc.ops.port, f"/{route}")
+        if probe is not None:
+            out["stall"] = stall_line(probe)
+        if code != 200:
+            raise SystemExit(f"{label}: /{route} answered {code}")
+        key = route.split("?")[0]
+        out[key] = json.loads(body)
+        out["seconds"][key] = time.perf_counter() - t0
+    out["committed_after"] = q.committed()
+    return out
+
+
+def check_cost_profile(label, reads: dict) -> dict:
+    """Phase 14 (a)'s checks on one pair of reads: every RATCHET_ENTRIES
+    row in /cost without an error, and in /profile with device time from
+    CUDA kernels (> 0) and an efficiency of at most 105% of its
+    roofline ceiling; K1 among batch_step's kernels once per call. The
+    capture counts only the device events of its own stream (marked by
+    profiler.STREAM_MARKER): the trace's K1 events outside that count are
+    the consumer's.
+    Returns the numbers it prints."""
+    from gome_tpu_torch.obs import costmodel, profiler
+
+    cost, prof = reads["cost"], reads["profile"]
+    want = list(costmodel.RATCHET_ENTRIES)
+    got = [e["entry"] for e in cost["cost_model"].get("entries", ())
+           if "error" not in e]
+    if got != want or not cost["compile_journal"]["enabled"]:
+        raise SystemExit(f"{label}: /cost entries {got} "
+                         f"({cost['cost_model']}), journal "
+                         f"{cost['compile_journal']['enabled']}")
+    rep = prof.get("report")
+    if not prof.get("enabled") or rep is None or prof.get("error"):
+        raise SystemExit(f"{label}: /profile {prof}")
+    rows = rep["entries"]
+    bad = {e: rows.get(e) for e in want
+           if e not in rows or "error" in rows[e]
+           or rows[e]["device_time_source"] != "cuda_kernels"
+           or not rows[e]["device_us_per_call"] > 0
+           or rows[e].get("efficiency_pct") is None
+           or not rows[e]["efficiency_pct"] <= 105}
+    if bad or rep["platform"] != "cuda":
+        raise SystemExit(f"{label}: /profile rows {bad} on "
+                         f"{rep['platform']}")
+    events = profiler.load_trace_events(rep["run_dir"])
+    names = profiler.window_event_names(events, "batch_step",
+                                        streams=rep["streams"])
+    k1_own = sum("match_step" in n for n in names)
+    k1_all = sum(1 for e in events if e.get("cat") == "kernel"
+                 and "match_step" in e.get("name", ""))
+    if k1_own != rep["repeats"]:
+        raise SystemExit(f"{label}: {k1_own} K1 kernels in batch_step's "
+                         f"window for {rep['repeats']} calls: {names}")
+    return dict(rows=rows, peaks=rep["peaks"], k1_own=k1_own,
+                k1_all=k1_all, repeats=rep["repeats"], stall=reads["stall"],
+                streams=rep["streams"],
+                cost={e["entry"]: e for e in cost["cost_model"]["entries"]},
+                seconds=reads["seconds"],
+                committed=(reads["committed_before"],
+                           reads["committed_after"]))
+
+
+def phase14a(card: str, sizes, zipf, flow8, p8c) -> dict:
+    """Phase 14 (a): phase 8 (c)'s service with cost and profile armed
+    (Config's own defaults for both) and every other obs/ flag off;
+    /cost and /profile?refresh=1 read once mid-flow (on a thread that
+    the sender starts once a quarter of the requests are sent) and once
+    after; bodies
+    byte-equal to phase 8 (c)'s; K1 at the run's inputs."""
+    from gome_tpu_torch.obs import costmodel, profiler
+    from gome_tpu_torch.ops.match_step import batch_step
+
+    requests, tail, want = flow8
+    n = len(zipf)
+    label = "phase 14 (a) cost and profile armed"
+    disarm_obs()
+    try:
+        with keep_kernel_inputs() as kept:
+            on = service_run(
+                sizes, 0, requests, tail, want, n, batch_step,
+                subscribe=False, load_run=False, label=label,
+                ops_kw=COST_ARMED,
+                mid=lambda svc, started: cost_profile_reads(
+                    label + " mid-flow", svc, started),
+                on_done=lambda svc: cost_profile_reads(label + " after", svc))
+    finally:
+        disarm_obs()
+    worst, kept_line = check_kept_inputs("phase 14 (a)", kept)
+    del kept
+    torch.cuda.empty_cache()
+    if on["bodies"] != p8c["bodies"]:
+        bad = next((i for i, (x, y) in enumerate(
+            zip(on["bodies"], p8c["bodies"])) if x != y),
+            min(len(on["bodies"]), len(p8c["bodies"])))
+        raise SystemExit(f"phase 14 (a): matchOrder bodies differ from "
+                         f"phase 8 (c)'s at {bad}")
+    mid = check_cost_profile("phase 14 (a) mid-flow", on["mid"])
+    after = check_cost_profile("phase 14 (a) after", on["scraped"])
+    n_msgs = len(requests) + len(tail)
+    if not mid["committed"][0] < n_msgs:
+        raise SystemExit(f"phase 14 (a): the mid-flow reads began with "
+                         f"{mid['committed'][0]} of {n_msgs} doOrder "
+                         "messages committed")
+    rate_off, rate_on = n / p8c["secs"], n / on["secs"]
+    print(f"phase 14 (a): {on['host']}: phase 8 (c)'s service (int64, depth "
+          f"0, json wire, no subscriber) with ops cost and profile on "
+          f"(the compile journal, the cost model, the profiler; every other "
+          f"obs flag off): {len(on['bodies'])} matchOrder bodies byte-equal "
+          f"to phase 8 (c)'s; {on['launches']} K1 launches = the consumer's "
+          f"device calls + {on['entry_launches']} by the cost model's and "
+          f"profiler's entries; /cost and /profile?refresh=1 read mid-flow "
+          f"(/cost {mid['seconds']['cost']:.3f} s, /profile "
+          f"{mid['seconds']['profile']:.3f} s; consumer at "
+          f"{mid['committed'][0]} -> {mid['committed'][1]} of {n_msgs} "
+          f"doOrder messages) and after (/cost "
+          f"{after['seconds']['cost']:.3f} s, /profile "
+          f"{after['seconds']['profile']:.3f} s): every entry of "
+          f"{', '.join(mid['rows'])} on cuda_kernels, device time > 0, "
+          f"efficiency <= 105%; K1 in batch_step's window {mid['k1_own']} "
+          f"/ {after['k1_own']} times for {mid['repeats']} calls, the "
+          f"consumer's {mid['k1_all'] - mid['k1_own']} / "
+          f"{after['k1_all'] - after['k1_own']} K1 kernels in the same "
+          f"traces left out (the capture's own stream, {mid['streams']})")
+    print(kept_line)
+    pk = after["peaks"]
+    quiet = profiler.machine_peaks(refresh=True, device=torch.device("cuda"))
+    print(f"phase 14 (a) [{card}]: calibrated peaks (the service's, taken "
+          f"mid-flow) {pk['peak_gflops']:,.1f} GFLOP/s (float32 512^3 "
+          f"matmul, TF32 {pk.get('tf32')}), {pk['peak_gbps']:,.1f} GB/s (one "
+          f"elementwise pass over 4M float32); again on the quiet card "
+          f"{quiet['peak_gflops']:,.1f} GFLOP/s, {quiet['peak_gbps']:,.1f} "
+          f"GB/s; orders/s "
+          f"armed {rate_on:,.0f} ({on['secs']:.3f} s), phase 8 (c) disarmed "
+          f"{rate_off:,.0f} ({p8c['secs']:.3f} s), armed / disarmed "
+          f"{rate_on / rate_off:.4f}")
+    for tag, r in (("mid-flow", mid), ("after", after)):
+        print(f"phase 14 (a) [{card}]: /profile {tag}: "
+              + "; ".join(
+                  f"{e} {row['device_us_per_call']:.3f} us/call "
+                  f"(wall {row['wall_us_per_call']:.3f}), "
+                  f"{row['achieved_gbps']:.4f} GB/s, "
+                  f"{row['efficiency_pct']:.4f}% of "
+                  f"{row['roofline_ceiling_gflops']:.1f} G/s"
+                  for e, row in r["rows"].items()))
+    c = after["cost"]
+    print(f"phase 14 (a) [{card}]: /cost (int64, cap 8, K 4, S 2, T 4): "
+          + "; ".join(
+              f"{e} {row['argument_bytes']} + {row['output_bytes']} B, "
+              f"{row['flops']:.0f} ops, peak {row['peak_hbm_bytes']} B, "
+              f"{row['jaxpr_eqns']} launches" for e, row in c.items()))
+    for tag, r in (("mid-flow", mid), ("after", after)):
+        print(f"phase 14 (a) [{card}]: /cost {tag} under the stall probe: "
+              f"{r['stall']}")
+    return dict(worst=worst, launches=on["launches"],
+                entry_launches=on["entry_launches"], rate_on=rate_on,
+                rate_off=rate_off, peaks=pk, quiet_peaks=quiet,
+                mid={e: r["device_us_per_call"] for e, r in mid["rows"].items()},
+                after={e: r["device_us_per_call"]
+                       for e, r in after["rows"].items()},
+                k1_total=costmodel.ENTRY_K1_LAUNCHES)
+
+
+def fleet_gateway(args) -> dict:
+    """Phase 14 (b)'s gateway process for one partition: OrderGateway over
+    the partition's file bus, marks in the marker server, the tracer
+    armed (the scalar loop: one doOrder document an order, with its trace
+    context), the timeline and the placement observatory, gRPC, and an
+    ops server of its own for the aggregator. No engine."""
+    from gome_tpu_torch.bus import make_bus
+    from gome_tpu_torch.bus.base import export_queue_metrics
+    from gome_tpu_torch.config import BusConfig, Config, EngineConfig, \
+        GrpcConfig
+    from gome_tpu_torch.engine.prepool import RespPrePool, make_marker
+    from gome_tpu_torch.obs.placement import PLACEMENT
+    from gome_tpu_torch.obs.timeline import TIMELINE
+    from gome_tpu_torch.persist.resp import RespClient
+    from gome_tpu_torch.service.gateway import OrderGateway, serve_gateway
+    from gome_tpu_torch.service.ops import OpsServer
+    from gome_tpu_torch.utils.trace import TRACER, FlightRecorder
+
+    bus = make_bus(BusConfig(backend="file", dir=args.bus_dir))
+    export_queue_metrics(bus.order_queue)
+    export_queue_metrics(bus.match_queue)
+    # Gateway-side journeys never complete here (the consumer closes
+    # them): a deep open ring keeps the whole run joinable.
+    TRACER.install(FlightRecorder(keep_n=512, max_open=2 * FLEET_ORDERS))
+    TIMELINE.install(interval_s=0.25, keep_n=256)
+    PLACEMENT.install(partitions=FLEET_PARTITIONS)
+    pool = RespPrePool(RespClient(port=args.resp_port))
+    gateway = OrderGateway(bus, accuracy=EngineConfig().accuracy,
+                           mark=make_marker(pool), mark_frame=pool.mark_frame)
+    server = serve_gateway(gateway, Config(grpc=GrpcConfig(host="127.0.0.1",
+                                                           port=0)))
+    ops = OpsServer(service=None, host="127.0.0.1", port=0).start()
+    TIMELINE.start()
+    print(f"READY ops={ops.port} grpc={server.bound_port}", flush=True)
+    sys.stdin.readline()
+    result = dict(published=bus.order_queue.end_offset())
+    server.stop(grace=1).wait()
+    TIMELINE.stop()
+    ops.stop()
+    bus.order_queue.close()
+    bus.match_queue.close()
+    return result
+
+
+def fleet_consumer(args) -> dict:
+    """Phase 14 (b)'s consumer process for one partition: EngineService on
+    the card (Config's engine: int64, cap 256, K 16, depth 0, json wire)
+    over the partition's file bus, its pre-pool in the marker server, the
+    tracer and the timeline armed (cost, profile, hostprof, placement
+    off); K1 counted, held against its plain version at the run's inputs,
+    books verified."""
+    import logging
+
+    from gome_tpu_torch.config import BusConfig, Config, EngineConfig, \
+        GrpcConfig, OpsConfig, StoreConfig
+    from gome_tpu_torch.engine import nativehost
+    from gome_tpu_torch.ops.match_step import batch_step
+    from gome_tpu_torch.service import EngineService
+
+    label = f"phase 14 (b) consumer p{args.partition}"
+    logging.getLogger("gome_tpu_torch.matchfeed").setLevel(logging.WARNING)
+    cfg = Config(
+        grpc=GrpcConfig(host="127.0.0.1", port=0),
+        bus=BusConfig(backend="file", dir=args.bus_dir),
+        engine=EngineConfig(cap=256, max_fills=16, n_slots=args.symbols,
+                            max_t=32),
+        store=StoreConfig(enabled=True, host="127.0.0.1",
+                          port=args.resp_port),
+        ops=OpsConfig(enabled=True, host="127.0.0.1", port=0, trace=True,
+                      trace_keep=2 * FLEET_ORDERS, timeline_interval_s=0.25,
+                      cost=False, profile=False, hostprof=False,
+                      placement=False))
+    with keep_kernel_inputs() as kept:
+        svc = EngineService(cfg, device=None if args.device == "cuda"
+                            else args.device)
+        # The store section puts the pre-pool in the marker server.
+        names = (nativehost.available(), type(svc.engine.pre_pool).__name__)
+        if names != (True, "RespPrePool"):
+            raise SystemExit(f"{label}: host layer (available, pre-pool) "
+                             f"{names}, expected (True, 'RespPrePool')")
+        host = f"host=native, RespPrePool ({host_line()})"
+        batch_step.launches = 0
+        svc.start()
+        print(f"READY ops={svc.ops.port} grpc=0", flush=True)
+        sys.stdin.readline()
+        launches = batch_step.launches
+        oq = svc.bus.order_queue
+        result = dict(host=host, launches=launches,
+                      expected=expected_launches(svc.engine),
+                      orders=svc.engine.stats.orders,
+                      feed=svc.feed.seq_state(), consumed=oq.committed())
+        svc.stop()
+    result["worst"], result["kept_line"] = check_kept_inputs(label, kept)
+    svc.engine.batch.verify_books()
+    return result
+
+
+def fleet_worker(argv) -> int:
+    """`python3 chip_smoke.py --fleet-gateway|--fleet-consumer ...`: one
+    member of phase 14 (b)'s fleet; prints READY with its ports, serves
+    until a line arrives on stdin, then writes its result JSON."""
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--bus-dir", required=True)
+    ap.add_argument("--device", default="cuda")
+    for name in ("--resp-port", "--symbols", "--partition"):
+        ap.add_argument(name, type=int, default=0)
+    args = ap.parse_args(argv[1:])
+    run = fleet_consumer if argv[0] == "--fleet-consumer" else fleet_gateway
+    result = run(args)
+    with open(args.out, "w") as f:
+        json.dump(result, f, sort_keys=True)
+    return 0
+
+
+def fleet_members(work, resp_port, symbols, device, procs, errs) -> dict:
+    """Start each partition's consumer and gateway process; returns
+    {name: (ops port, grpc port)} once every member said READY."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    started = {}
+    for p in range(FLEET_PARTITIONS):
+        bus_dir = os.path.join(work, f"p{p}")
+        os.makedirs(bus_dir, exist_ok=True)
+        for role, name in (("consumer", f"c{p}"), ("gateway", f"gw{p}")):
+            errs[name] = open(os.path.join(work, f"{name}.err"), "w+")
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), f"--fleet-{role}",
+                 "--out", os.path.join(work, f"{name}.json"),
+                 "--bus-dir", bus_dir, "--resp-port", str(resp_port),
+                 "--symbols", str(symbols), "--partition", str(p),
+                 "--device", device],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=errs[name], text=True, cwd=here)
+            procs[name] = proc
+            started[name] = proc
+    ports = {}
+    for name, proc in started.items():
+        line = proc.stdout.readline().split()
+        if not line or line[0] != "READY":
+            proc.wait(30)
+            raise SystemExit(f"phase 14 (b): {name} said {line}: "
+                             f"{tail_of(errs[name])}")
+        kv = dict(tok.split("=") for tok in line[1:])
+        ports[name] = (int(kv["ops"]), int(kv["grpc"]))
+    return ports
+
+
+def drive_partition(label, grpc_port, requests, out) -> None:
+    """One partition's DoOrderBatch requests through its gateway, on its
+    own thread; the seconds and any error land in `out`."""
+    import grpc
+
+    from gome_tpu_torch.api import order_pb2 as pb
+    from gome_tpu_torch.api.service import OrderStub
+
+    t0 = time.perf_counter()
+    try:
+        with grpc.insecure_channel(f"127.0.0.1:{grpc_port}") as channel:
+            send_flow(label, OrderStub(channel), pb, requests, [])
+    except BaseException as e:  # reported by the caller
+        out["error"] = repr(e)
+    out["secs"] = time.perf_counter() - t0
+
+
+def fleet_drained(ops_port: int, n_orders: int, n_events: int) -> bool:
+    """A consumer has committed every order and its feed every event."""
+    try:
+        doc = json.loads(http_get(ops_port, "/durability")[1])
+    except Exception:
+        return False
+    q = doc.get("queues") or {}
+    return (q.get("order_queue", {}).get("committed", -1) >= n_orders
+            and q.get("match_queue", {}).get("committed", -1) >= n_events)
+
+
+def phase14b(card: str, sizes, zipf, device: str = "cuda",
+             n_orders: int = FLEET_ORDERS) -> dict:
+    """Phase 14 (b): a fleet of two partitions (scripts/fleet_drill.py's
+    shape): the port's marker server; per partition a gateway process
+    and a consumer process on the card over a file bus, orders routed by
+    fleet.partition_of; this process's FLEET polls the four ops servers.
+    Merged /metrics totals equal the members' sums, the rollup stays
+    green, the fleet-wide seq audit is exact, journeys stitch across the
+    gateway -> consumer boundary, and each partition's events equal the
+    oracle's. `device` names the consumers' device ("cpu" in tests)."""
+    from gome_tpu_torch.api import order_pb2 as pb
+    from gome_tpu_torch.bus import decode_match_result
+    from gome_tpu_torch.bus.filelog import FileQueue
+    from gome_tpu_torch.fleet.router import partition_of
+    from gome_tpu_torch.obs.fleet import FLEET
+    from gome_tpu_torch.utils.metrics import family_total
+
+    t_phase = time.perf_counter()
+    orders = list(zipf[:n_orders])
+    parts = [[o for o in orders if partition_of(o.symbol, FLEET_PARTITIONS)
+              == p] for p in range(FLEET_PARTITIONS)]
+    wants = [oracle_events(part) for part in parts]
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, errs = {}, {}
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="phase14b-") as work:
+        try:
+            srv = subprocess.Popen(
+                [sys.executable, "-m", "gome_tpu_torch.persist.respserver",
+                 "--port", "0"], stdout=subprocess.PIPE, text=True, cwd=here)
+            procs["respserver"] = srv
+            ready = srv.stdout.readline().split()
+            if not ready or ready[0] != "READY":
+                raise SystemExit(f"phase 14 (b): marker server said {ready}")
+            t_boot = time.perf_counter()
+            ports = fleet_members(work, int(ready[1]), sizes["symbols"],
+                                  device, procs, errs)
+            boot = time.perf_counter() - t_boot
+            members = {name: f"http://127.0.0.1:{ops}"
+                       for name, (ops, _) in ports.items()}
+            FLEET.install(members, interval_s=0.25, timeout_s=5.0,
+                          stale_after_s=10.0)
+            FLEET.start()
+            drives = [{} for _ in range(FLEET_PARTITIONS)]
+            threads = [threading.Thread(
+                target=drive_partition,
+                args=(f"phase 14 (b) gw{p}", ports[f"gw{p}"][1],
+                      wire_batches(pb, parts[p]), drives[p]))
+                for p in range(FLEET_PARTITIONS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(FLEET_WAIT_S)
+            if any("error" in d or "secs" not in d for d in drives):
+                raise SystemExit(f"phase 14 (b): drives {drives}")
+            deadline = time.monotonic() + FLEET_WAIT_S
+            while not all(fleet_drained(ports[f"c{p}"][0], len(parts[p]),
+                                        len(wants[p]))
+                          for p in range(FLEET_PARTITIONS)):
+                if time.monotonic() > deadline:
+                    raise SystemExit("phase 14 (b): the fleet did not drain "
+                                     f"in {FLEET_WAIT_S} s")
+                for name, proc in procs.items():
+                    if proc.poll() is not None:
+                        why = tail_of(errs[name]) if name in errs else ""
+                        raise SystemExit(f"phase 14 (b): {name} exited "
+                                         f"{proc.returncode}: {why}")
+                time.sleep(0.02)
+            secs = time.perf_counter() - t0
+            FLEET.stop()
+            FLEET.poll()
+            payload = FLEET.payload()
+            snap = dict(FLEET._last)
+            stitch = FLEET.stitch()
+            rollup = FLEET.rollup()
+        finally:
+            FLEET.disable()
+            for name, proc in procs.items():
+                if name != "respserver" and proc.poll() is None:
+                    try:
+                        proc.stdin.write("stop\n")
+                        proc.stdin.flush()
+                    except OSError:
+                        pass
+            for name, proc in procs.items():
+                if name == "respserver":
+                    continue
+                try:
+                    proc.wait(120)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(10)
+            srv_proc = procs.get("respserver")
+            if srv_proc is not None:
+                srv_proc.kill()
+                srv_proc.wait(10)
+        for name, proc in procs.items():
+            if name == "respserver":
+                continue
+            if proc.returncode != 0:
+                raise SystemExit(f"phase 14 (b): {name} exited "
+                                 f"{proc.returncode}: {tail_of(errs[name])}")
+            with open(os.path.join(work, f"{name}.json")) as f:
+                results[name] = json.load(f)
+        events = []
+        for p in range(FLEET_PARTITIONS):
+            q = FileQueue("matchOrder", os.path.join(work, f"p{p}",
+                                                     "matchOrder"))
+            got = [decode_match_result(m.body)
+                   for m in q.read_from(0, q.end_offset())]
+            q.close()
+            events.append(got)
+        for f in errs.values():
+            f.close()
+    for p in range(FLEET_PARTITIONS):
+        check_events(f"phase 14 (b) partition {p}", unstamped(events[p]),
+                     wants[p])
+        if [e.seq for e in events[p]] != list(range(len(wants[p]))):
+            raise SystemExit(f"phase 14 (b): partition {p}'s seqs not "
+                             f"0..{len(wants[p]) - 1}")
+        c = results[f"c{p}"]
+        if device == "cuda" and (c["launches"] <= 0
+                                 or c["launches"] != c["expected"]):
+            raise SystemExit(f"phase 14 (b): c{p} launched K1 "
+                             f"{c['launches']} times for {c['expected']} "
+                             "expected from its device calls")
+    # Merged /metrics: every family's total equals the members' sum over
+    # the same scrape.
+    fams = payload["metrics"].get("families")
+    if not fams:
+        raise SystemExit(f"phase 14 (b): /fleet metrics {payload['metrics']}")
+    off = {}
+    for name, fam in fams.items():
+        total = sum(family_total(st["families"][name])
+                    for st in snap.values()
+                    if st["families"] and name in st["families"])
+        if not math.isclose(total, fam["total"], rel_tol=1e-9, abs_tol=1e-9):
+            off[name] = (fam["total"], total)
+    consumed = fams.get("gome_orders_consumed_total", {}).get("total")
+    if off or consumed != len(orders):
+        raise SystemExit(f"phase 14 (b): merged totals off the members' "
+                         f"sums {off}; orders consumed {consumed}")
+    if rollup["polls"] < 4 or rollup["unhealthy_polls"] or \
+            rollup["degraded_polls"] or rollup["fetch_errors"] or \
+            payload["unreachable"]:
+        raise SystemExit(f"phase 14 (b): rollup {rollup}, unreachable "
+                         f"{payload['unreachable']}")
+    seq = payload["seq"]["fleet"]
+    if seq != {"observed": sum(map(len, wants)), "dupes": 0, "gaps": 0}:
+        raise SystemExit(f"phase 14 (b): fleet seq audit {seq}")
+    pairs = [sum(1 for j in stitch["journeys"]
+                 if {f"gw{p}", f"c{p}"} <= set(j["procs"]))
+             for p in range(FLEET_PARTITIONS)]
+    if not all(pairs):
+        raise SystemExit(f"phase 14 (b): journeys stitched per partition "
+                         f"{pairs} of {stitch['traces']} traces")
+    durations = sorted(j["duration_s"] for j in stitch["journeys"])
+    flow = (payload.get("placement") or {}).get("flow") or {}
+    print(f"phase 14 (b): {results['c0']['host']}: a fleet of "
+          f"{FLEET_PARTITIONS} partitions ({len(orders):,} orders by "
+          f"fleet.partition_of: {[len(p) for p in parts]}): the port's "
+          f"marker server, per partition a gateway process (traced scalar "
+          f"loop, file bus) and a consumer process on {device} "
+          f"(EngineService, int64, json wire, ops.trace on); events equal "
+          f"to each partition's oracle, seqs 0..n-1; K1 launches = device "
+          f"calls in each consumer "
+          f"({', '.join(str(results[f'c{p}']['launches']) for p in range(FLEET_PARTITIONS))}); "
+          f"FLEET over the 4 ops servers: {rollup['polls']} polls, 0 "
+          f"unhealthy, 0 degraded, 0 fetch errors; merged /metrics: "
+          f"{len(fams)} families, every total = the members' sum, "
+          f"gome_orders_consumed_total {consumed:,.0f}; fleet seq audit "
+          f"{seq}; {stitch['joined']:,} journeys stitched of "
+          f"{stitch['traces']:,} traces (per partition {pairs}), offsets "
+          + ", ".join(f"{k} {v * 1e3:.3f} ms"
+                      for k, v in stitch["offsets"].items())
+          + f"; placement rollup top {flow.get('top', [{}])[0]}, imbalance "
+          f"{payload['placement']['partition_imbalance_max_over_mean']:.4f}")
+    for p in range(FLEET_PARTITIONS):
+        print(results[f"c{p}"]["kept_line"])
+    drive_secs = ", ".join(f"{d['secs']:.3f}" for d in drives)
+    p50 = durations[len(durations) // 2]
+    p99 = durations[min(len(durations) - 1, int(0.99 * len(durations)))]
+    print(f"phase 14 (b) [{card}]: members ready in {boot:.1f} s; "
+          f"{len(orders):,} orders driven and drained in {secs:.3f} s "
+          f"({len(orders) / secs:,.0f} orders/s over the fleet; gateway "
+          f"drives {drive_secs} s); stitched "
+          f"gateway -> consumer journeys p50 {p50 * 1e3:.2f} ms, p99 "
+          f"{p99 * 1e3:.2f} ms")
+    return dict(worst=max(results[f"c{p}"]["worst"]
+                          for p in range(FLEET_PARTITIONS)),
+                launches=[results[f"c{p}"]["launches"]
+                          for p in range(FLEET_PARTITIONS)],
+                secs=secs, boot=boot, joined=stitch["joined"],
+                p50=p50, p99=p99, seconds=time.perf_counter() - t_phase)
+
+
+def first_frames(eng, frame_list) -> tuple[list, list[float]]:
+    """The frames through process_frame(fast) one by one after marking
+    them all: each frame's events and seconds (synchronous: each frame
+    resolves before the next)."""
+    for cols in frame_list:
+        eng.mark_frame(cols)
+    events, secs = [], []
+    for cols in frame_list:
+        t0 = time.perf_counter()
+        batch = eng.process_frame(cols, fast=True)
+        secs.append(time.perf_counter() - t0)
+        events.append(batch.to_results())
+    return events, secs
+
+
+def phase14c(card: str, device, sizes, zipf, want_zipf) -> dict:
+    """Phase 14 (c), the geometry warm-up: phase 6's engine (cap 256,
+    K 16, int32) over the whole flow in frames of 8,192, its manifest
+    saved (save_geometry); then fresh engines, each after empty_cache,
+    cold or after load_geometry (ensure_cap, the floors, every combo
+    replayed: one K1 launch each), in the order cold, warm, warm, cold:
+    the first GEOMETRY_FRAMES frames' events equal across all four and to
+    the oracle's prefix, their seconds printed."""
+    from gome_tpu_torch.engine import frames
+    from gome_tpu_torch.ops.match_step import batch_step
+
+    frame_list = [frame_columns(zipf[i:i + sizes["batch"]])
+                  for i in range(0, len(zipf), sizes["batch"])]
+    with tempfile.TemporaryDirectory(prefix="phase14c-") as work:
+        path = os.path.join(work, "geometry.json")
+        eng, _, _ = consumer_stack(device, sizes["symbols"], 0)
+        got, _ = run_frames(eng, frame_list)
+        check_events("phase 14 (c) manifest flow", got, want_zipf)
+        eng.save_geometry(path)
+        manifest = eng.batch.shape_manifest()
+        del eng
+        runs = []
+        for tag in ("cold", "warm", "warm", "cold"):
+            torch.cuda.empty_cache()
+            eng, _, _ = consumer_stack(device, sizes["symbols"], 0)
+            load_s, replayed, replay_launches = 0.0, 0, 0
+            if tag == "warm":
+                batch_step.launches = 0
+                t0 = time.perf_counter()
+                replayed = eng.load_geometry(path)
+                load_s = time.perf_counter() - t0
+                replay_launches = batch_step.launches
+                if replayed != len(manifest["combos"]) or (
+                        device.type == "cuda"
+                        and replay_launches != replayed):
+                    raise SystemExit(f"phase 14 (c): {replayed} of "
+                                     f"{len(manifest['combos'])} combos "
+                                     f"replayed, {replay_launches} K1 "
+                                     "launches")
+            batch_step.launches = 0
+            frames.FETCH_SECONDS = 0.0
+            events, secs = first_frames(eng, frame_list[:GEOMETRY_FRAMES])
+            runs.append(dict(tag=tag, events=events, secs=secs,
+                             load_s=load_s, replayed=replayed,
+                             replay_launches=replay_launches,
+                             launches=batch_step.launches,
+                             calls=eng.stats.device_calls,
+                             fallbacks=eng.stats.frame_fallbacks,
+                             escalations=eng.stats.cap_escalations,
+                             cap=eng.config.cap))
+            if device.type == "cuda" and \
+                    batch_step.launches != eng.stats.device_calls:
+                raise SystemExit(f"phase 14 (c) {tag}: {batch_step.launches}"
+                                 f" K1 launches for {eng.stats.device_calls}"
+                                 " device calls")
+            eng.batch.verify_books()
+            del eng
+    n_first = sum(cols["n"] for cols in frame_list[:GEOMETRY_FRAMES])
+    want = oracle_events(zipf[:n_first])
+    for r in runs:
+        check_events(f"phase 14 (c) {r['tag']}",
+                     [e for b in r["events"] for e in b], want)
+    print(f"phase 14 (c): save_geometry after phase 6's flow (cap 256 -> "
+          f"{manifest['floors']['cap']}, {len(manifest['combos'])} combos, "
+          f"floors {manifest['floors']}); four fresh engines (cold, warm, "
+          f"warm, cold; warm = load_geometry: ensure_cap, the floors, every "
+          f"combo replayed with one K1 launch): the first {GEOMETRY_FRAMES} "
+          f"frames' {len(want):,} events equal across all four and to the "
+          f"oracle; launches = device calls in each")
+    for r in runs:
+        print(f"phase 14 (c) [{card}]: {r['tag']}: "
+              + (f"load_geometry {r['load_s']:.3f} s ({r['replayed']} "
+                 f"combos, {r['replay_launches']} K1 launches); "
+                 if r["tag"] == "warm" else "")
+              + f"first {GEOMETRY_FRAMES} frames {sum(r['secs']):.4f} s ("
+              + ", ".join(f"{s * 1e3:.1f}" for s in r["secs"])
+              + f" ms); cap {r['cap']}, {r['escalations']} storage "
+              f"escalations, {r['fallbacks']} exact fallbacks, "
+              f"{r['launches']} K1 launches")
+    return dict(runs=[{k: v for k, v in r.items() if k != "events"}
+                      for r in runs],
+                combos=len(manifest["combos"]))
+
+
+def phase14(card: str, device, sizes, zipf, want_zipf, flow8, p8c) -> dict:
+    """Phase 14: the cost model, the profiler and the fleet aggregator,
+    and the geometry warm-up. Returns the numbers; each part prints as it
+    ends."""
+    t_phase = time.perf_counter()
+    a = phase14a(card, sizes, zipf, flow8, p8c)
+    b = phase14b(card, sizes, zipf)
+    c = phase14c(card, device, sizes, zipf, want_zipf)
+    secs = time.perf_counter() - t_phase
+    print(f"phase 14 [{card}]: cost, profile, fleet and geometry in "
+          f"{secs:.1f} s ((b) {b['seconds']:.1f} s)")
+    return dict(worst=max(a["worst"], b["worst"]), seconds=secs, a=a, b=b,
+                c=c, launches=dict(
+                    armed_service=a["launches"],
+                    cost_profile_entries=a["entry_launches"],
+                    fleet_consumers=b["launches"],
+                    geometry_replay=c["runs"][1]["replay_launches"]))
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 def time_ms(fn, runs: int, warmup: int = 3) -> float:
@@ -4949,19 +5803,13 @@ def device_ms(fn, runs: int, warmup: int = 3) -> float:
 def bound_ms(config, books, ops) -> tuple[float, str]:
     """Least time for the grid on this card: bytes (each input read once,
     each output written once) over HBM bandwidth, or integer operations
-    over the INT32 rate, whichever is larger. Operations follow the data:
-    an ADD does a log-depth scan plus ~20 elementwise passes over cap
-    slots, a DEL ~10, a NOP none."""
-    s, t = ops.action.shape
-    cap, k = config.cap, config.max_fills
-    item = books.price.element_size()
-    book_bytes = s * 2 * cap * (4 * item + 4) + s * 2 * 4 + s * 4
-    op_bytes = s * t * (3 * 4 + 4 * item)
-    out_bytes = s * t * (7 * k * item + 5 * 4 + 2 * item)
-    nbytes = 2 * book_bytes + op_bytes + out_bytes
-    n_add = int((ops.action == 1).sum())
-    n_del = int((ops.action == 2).sum())
-    n_ops = n_add * cap * (math.log2(cap) + 20) + n_del * cap * 10
+    over the INT32 rate, whichever is larger. Bytes and operations are
+    the cost model's data mode (obs.costmodel.k1_work): operations follow
+    the data, an ADD a log-depth scan plus ~20 elementwise passes over
+    cap slots, a DEL ~10, a NOP none."""
+    from gome_tpu_torch.obs.costmodel import k1_work
+
+    nbytes, n_ops = k1_work(config, books, ops, "data")
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     by_ops = n_ops / PEAK_INT_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
@@ -5102,6 +5950,8 @@ def main() -> int:
         return sim_worker(sys.argv[1:])
     if sys.argv[1:2] in (["--amqp-consumer"], ["--amqp-gateway"]):
         return amqp_worker(sys.argv[1:])
+    if sys.argv[1:2] in (["--fleet-consumer"], ["--fleet-gateway"]):
+        return fleet_worker(sys.argv[1:])
     if sys.argv[1:2] == ["--obs-ab"]:
         return obs_ab()
     if sys.argv[1:2] == ["--k5-times"]:
@@ -5221,6 +6071,7 @@ def main() -> int:
                   f_orders_per_s, flow8, s_runs["c"])
     p12 = phase12(card, device, sizes, zipf, flow8, s_runs["c"])
     p13 = phase13(card, sizes, zipf, flow8, s_runs["c"])
+    p14 = phase14(card, device, sizes, zipf, want_zipf, flow8, s_runs["c"])
     h_launches = ab_runs[0][2]["launches"]
     row = dict(name="match_step", **KERNEL_ROWS["match_step"],
                launches=launches, frame_path_launches=f_launches,
@@ -5242,10 +6093,12 @@ def main() -> int:
                    restores=p11["e"]["launches"]),
                amqp_path_launches=p12["launches"],
                obs_path_launches=p13["launches"],
+               cost_profile_fleet_geometry_path_launches=p14["launches"],
                max_abs_err=max(worst, f_worst, c_worst, s_worst,
                                p9["drill"]["final"]["kernel_worst"],
                                p9["svc"]["worst"], p10["worst"],
-                               p11["worst"], p12["worst"], p13["worst"]),
+                               p11["worst"], p12["worst"], p13["worst"],
+                               p14["worst"]),
                ms=results["a"]["ms"],
                device_ms=results["a"]["device_ms"], plain_ms=results["a"]["plain_ms"],
                bound_ms=results["a"]["bound_ms"],
@@ -5256,7 +6109,7 @@ def main() -> int:
                     library_ms=None, checked=True,
                     T=sizes["sim_scan_t"][0],
                     **p10["hawkes_row"])
-    print(f"chip_smoke [{card}]: phases 1-13 in "
+    print(f"chip_smoke [{card}]: phases 1-14 in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [row, scan_row]}))
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,8 @@ The port of ``gome_tpu/config.py``: every section keeps its fields, its
 defaults and its checks, so one YAML file loads into both packages. What
 differs: `EngineConfig.book_config()` and `SimConfig.env_config()` return
 the port's BookConfig and EnvConfig (torch dtypes); `yaml` is imported only
-when there is a file to read, so the port imports without it. Sections the
-port does not run yet load here and are refused by EngineService at
-construction, each naming its ROADMAP item (service/app.py).
+when there is a file to read, so the port imports without it. EngineService
+(service/app.py) runs every section.
 
 Reference parity: the same four YAML sections are accepted with the same keys
 (`grpc`, `redis`, `rabbitmq`, `gomengine.accuracy` — conf.go:3-30; the dead
@@ -197,11 +196,8 @@ class OpsConfig:
     roofline profiler (profile*), the host-CPU sampling profiler
     (hostprof*) and the placement observatory (placement*). The fields,
     defaults and checks are the reference's, so a config loads into both
-    packages. The port arms timeline, hostprof and placement (obs/:
-    /timeline, /hostprof, /placement, and /capacity beside them); it has
-    no cost model or profiler yet, so EngineService refuses an enabled
-    `ops:` section with cost or profile on (ROADMAP Queue 1 item 4). Both
-    default to on: set them false."""
+    packages, and EngineService arms each (obs/: /cost, /timeline,
+    /profile, /hostprof, /placement, and /capacity beside them)."""
 
     host: str = "127.0.0.1"
     port: int = 9109
@@ -281,8 +277,7 @@ class OpsConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FleetConfig:
-    """Fleet aggregation (the reference's obs/fleet.py; the port refuses an
-    enabled section, ROADMAP Queue 1 item 5) — this process polls the
+    """Fleet aggregation (obs/fleet.py) — this process polls the
     listed member processes' ops endpoints and serves the merged view
     under its own ops server's /fleet. Disabled unless a `fleet:`
     section appears in config.yaml (requires `ops:` too — the merged

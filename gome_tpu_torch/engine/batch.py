@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..obs.placement import PLACEMENT
+from ..obs.profiler import PROFILER
 from ..ops import match_step
 from ..types import Action, MatchResult, Order, OrderType, check_kernel
 from ..utils.cache import IdentityCache
@@ -251,6 +252,18 @@ def dense_grid_step(cfg: BookConfig, books: BookState, ids: torch.Tensor,
     new_sub, outs = match_step.batch_step(cfg, sub, ops)
     outs = _guard_capped(outs, sub.count, cap, ops)
     return _scatter_books_cap(books, ids, n_live, new_sub, cap), outs
+
+
+def _merge_buf_floor(dst: dict, src) -> None:
+    """Raise per-class buffer floors: src is {pow2 class: slots} or an
+    int (a floor for its own pow2 class)."""
+    items = (
+        src.items() if isinstance(src, dict)
+        else [(_next_pow2(max(int(src), 64)), int(src))]
+    )
+    for b, v in items:
+        v = _next_pow2(max(int(v), 64))
+        dst[b] = max(dst.get(b, 0), v)
 
 
 def splice_outs(outs: StepOutput, overrides: dict):
@@ -533,6 +546,81 @@ class BatchEngine:
                 drop[i] = True
         return drop
 
+    def prewarm_geometry(
+        self,
+        rows_floor: int | dict | None = None,
+        t_floor: int | dict | None = None,
+        fills_buf: int | dict | None = None,
+        cancels_buf: int | dict | None = None,
+    ) -> None:
+        """Pre-set the grow-only shape ratchets to known steady-state
+        values (each rounds up to a power of two; existing floors never
+        shrink). rows_floor/t_floor take an int (a floor for the storage
+        cap class) or a {cap class: floor} dict, fills_buf/cancels_buf an
+        int (a floor for its own pow2 op-class) or a {pow2 op-class:
+        slots} dict, as geometry_floors() returns them. A deployment that
+        knows its flow's geometry (a saved manifest) starts with the grid
+        and buffer shapes the flow settles on, so the first frames run at
+        them. Performance only: untouched ratchets grow on demand."""
+
+        def merge(dst: dict, src, cap: int) -> None:
+            """Merge grow-only, clamped to `cap`: a floor beyond the usable
+            range (rows past n_slots, depth past the dense ceiling) only
+            forces every grid to the full-grid fallback, and persisting it
+            would let a compounding margin poison the geometry."""
+            items = (
+                src.items() if isinstance(src, dict)
+                else [(self.config.cap, src)]
+            )
+            for c, v in items:
+                v = min(_next_pow2(max(int(v), 8)), cap)
+                dst[c] = max(dst.get(c, 8), v)
+
+        if rows_floor is not None:
+            merge(
+                self._dense_rows_floor, rows_floor, _next_pow2(self.n_slots)
+            )
+        if t_floor is not None:
+            merge(
+                self._dense_t_floor, t_floor,
+                _next_pow2(max(self.dense_t_max, self.max_t)),
+            )
+        if fills_buf is not None:
+            _merge_buf_floor(self._fills_buf_floor, fills_buf)
+        if cancels_buf is not None:
+            _merge_buf_floor(self._cancels_buf_floor, cancels_buf)
+
+    def reset_geometry_floors(self, combos: bool = False) -> None:
+        """Forget every grow-only geometry ratchet (rows/depth floors,
+        compaction-buffer floors). Correctness-neutral; a warmup loop
+        calls it once the flow reaches steady state, so floors latched
+        during the transient (books filling from empty) do not pin a
+        wide-and-deep grid for the life of the process. combos=True also
+        forgets the recorded shape combos, so the transient's shapes stay
+        out of a saved manifest."""
+        self._dense_rows_floor.clear()
+        self._dense_t_floor.clear()
+        self._fills_buf_floor.clear()
+        self._cancels_buf_floor.clear()
+        if combos:
+            self._seen_combos.clear()
+
+    def ensure_cap(self, cap: int) -> None:
+        """Pre-size book storage to `cap` slots a side (pow2-snapped,
+        grow-only, bounded by max_cap): a deployment that knows its flow's
+        stationary depth (a saved manifest) grows once at boot instead of
+        paying a mid-traffic grow and replay, and its deep-cap combos
+        become replayable by frames.precompile_combos."""
+        cap = _next_pow2(max(int(cap), self.config.cap))
+        if cap == self.config.cap:
+            return
+        if cap > self.max_cap:
+            raise CapacityError(
+                f"ensure_cap({cap}) exceeds max_cap={self.max_cap}"
+            )
+        self.books = self._per_block(lambda b: grow_books(b, cap), self.books)
+        self.config = dataclasses.replace(self.config, cap=cap)
+
     def geometry_floors(self) -> dict:
         """The current grow-only shape ratchets: rows_floor/t_floor are
         {cap class: floor} dicts, the buffer floors {pow2 op-class: slots}
@@ -639,8 +727,10 @@ class BatchEngine:
             rank = np.arange(len(live), dtype=np.int64) - starts[shard]
             rows_for_live = shard * r_s + rank
             lane_ids[rows_for_live] = live
-            # Per-shard telemetry from values already in hand.
+            # Per-shard telemetry (always-on histogram + the armed
+            # profiler's dispatch ring) from values already in hand.
             _dense_shard_skew.observe(int(counts.max()) * d / len(live))
+            PROFILER.note_shard_dispatch(d, r_s, counts)
             PLACEMENT.note_dispatch(n_rows, live, counts, r_s)
         row_of = np.empty(self.n_slots, np.int64)
         row_of[live] = rows_for_live

@@ -905,6 +905,88 @@ def _compact_sizes(eng, n_ops: int, n_dels: int) -> tuple[int, int]:
     return fills, cancels
 
 
+def precompile_combos(eng: BatchEngine, combos) -> int:
+    """Replay recorded fast-path shape combos (BatchEngine.shape_manifest
+    "combos") with ALL-PADDING inputs through the frame path's own device
+    work — the grid scatter, the step (dense or full, at the combo's cap
+    class: one K1 launch), and the frame-level compaction — before real
+    traffic arrives.
+
+    All-padding: scatter positions at the drop sentinel (R*T), so the
+    DeviceOp grid is all NOPs; dense lane ids at the n_slots sentinel
+    (gathered as zero books, scattered nowhere). The step's new books are
+    discarded: replay never mutates the engine. PyTorch has no trace
+    cache, so a replay warms the caching allocator's pools at the frame's
+    shapes and the pinned host blocks of the fetch; prewarm_geometry
+    first makes the live flow CHOOSE these shapes.
+
+    Returns the number of combos replayed. A stale combo (another tuple
+    layout, a full grid whose n_rows no longer equals n_slots, a cap class
+    above the storage cap) is skipped on its own."""
+    dt = numpy_dtype(eng.config.dtype)
+    wide = torch.promote_types(torch.int32, eng.config.dtype)
+    combos = sorted(set(map(tuple, combos)))
+    replayed = 0
+    failed = 0
+    for combo in combos:
+        try:
+            (
+                n_rows, t_grid, cap_g, dense, m_pad, k_rec,
+                e_fills, e_cancels, totals_len,
+            ) = combo
+            if cap_g > eng.config.cap:
+                # Recorded after a storage-cap escalation this engine has
+                # not done (load_geometry runs ensure_cap first).
+                continue
+            cols = np.zeros((len(DeviceOp._fields), m_pad), dt)
+            flat = np.full(m_pad, n_rows * t_grid, np.int64)
+            ops = _grid_ops(eng, cols, flat, n_rows, t_grid)
+            lane_ids = (
+                np.full(n_rows, eng.n_slots, np.int64) if dense else None
+            )
+            if lane_ids is None and n_rows != eng.n_slots:
+                raise ValueError(f"full-grid combo {combo} at "
+                                 f"{eng.n_slots} lanes")
+            _books, outs = eng._step(eng.books, ops, lane_ids, cap_g)
+            dev = eng.device
+            compact_accum(
+                outs,
+                torch.zeros((len(_FILL_FIELDS), e_fills + 1), dtype=wide,
+                            device=dev),
+                torch.zeros((len(_CANCEL_FIELDS), e_cancels + 1),
+                            dtype=wide, device=dev),
+                torch.zeros((totals_len, 4), dtype=torch.int32, device=dev),
+                0,
+            )
+            # Serialise: each replay holds a transient books-sized
+            # output; waiting frees it before the next combo allocates.
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        except Exception:
+            failed += 1
+            continue
+        eng.record_combo(combo)
+        replayed += 1
+    if failed:
+        from ..utils.logging import get_logger
+
+        get_logger("frames").warning(
+            "precompile_combos: %d stale combo(s) skipped, %d replayed",
+            failed, replayed,
+        )
+    # The pinned host blocks of the phase-1 fetch: the count_ub
+    # re-anchor (multi-class engines) and the totals at each recorded
+    # length. (Phase 2 copies into pageable memory: nothing to warm.)
+    if len(_cap_ladder(eng.config.cap)) > 1:
+        _fetch_async(_counts_max(eng, eng.books))
+    for totals_len in {c[8] for c in combos if len(c) == 9}:
+        _fetch_async(torch.zeros((totals_len, 4), dtype=torch.int32,
+                                 device=eng.device))
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
+    return replayed
+
+
 class _NeedExact(Exception):
     """Internal: a device budget tripped on the fast path — roll back and
     re-run the frame on the exact escalating path."""

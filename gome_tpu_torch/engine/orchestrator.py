@@ -229,6 +229,65 @@ class MatchEngine:
             admitted.append(item)
         return admitted, consumed
 
+    # -- geometry persistence ----------------------------------------------
+    def save_geometry(self, path: str) -> None:
+        """Persist the flow's shape manifest (grow-only geometry floors +
+        every dispatched fast-path shape combo) as JSON, the reference's
+        layout: either package loads the other's. A later process
+        load_geometry()s it so its first frames run at the shapes this
+        flow settled on."""
+        import json
+        import os
+
+        m = self.batch.shape_manifest()
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(m, f)
+        os.replace(tmp, path)  # atomic: readers never see a torn file
+
+    def load_geometry(self, path: str, presize_cap: bool = True) -> int:
+        """Load a persisted shape manifest: presize storage to its cap
+        (clamped to max_cap; presize_cap=False keeps the boot storage, and
+        combos above it are skipped), prewarm the grow-only floors (so
+        this process CHOOSES the recorded shapes) and replay the recorded
+        combos with all-padding inputs (frames.precompile_combos: the
+        caching allocator and the fetch's pinned blocks warm at those
+        shapes). Returns the number of combos replayed (0 for an absent or
+        invalid file: geometry is a performance hint, never state, and a
+        bad manifest only logs)."""
+        import json
+
+        from . import frames
+
+        try:
+            try:
+                f = open(path)
+            except FileNotFoundError:
+                return 0  # no manifest yet: the first boot
+            with f:
+                m = json.load(f)
+            floors = m["floors"]
+            combos = m["combos"]
+            as_int = lambda d: {int(k): int(v) for k, v in d.items()}
+            if presize_cap and floors.get("cap"):
+                self.batch.ensure_cap(
+                    min(int(floors["cap"]), self.batch.max_cap)
+                )
+            self.batch.prewarm_geometry(
+                rows_floor=as_int(floors.get("rows_floor", {})),
+                t_floor=as_int(floors.get("t_floor", {})),
+                fills_buf=as_int(floors.get("fills_buf", {})),
+                cancels_buf=as_int(floors.get("cancels_buf", {})),
+            )
+            return frames.precompile_combos(self.batch, combos)
+        except Exception as e:
+            from ..utils.logging import get_logger
+
+            get_logger("engine").warning(
+                "geometry manifest %s not applied: %s", path, e
+            )
+            return 0
+
     # -- views -------------------------------------------------------------
     @property
     def stats(self) -> EngineStats:

@@ -22,17 +22,25 @@ has.
   * ``placement`` — symbol flow (a Space-Saving sketch), the dense
     dispatch occupancy ledger and the skew attribution; the ops
     ``/placement`` endpoint + ``gome_placement_*`` gauges.
+  * ``costmodel`` — the analytic cost of each engine entry (bytes,
+    integer operations, peak bytes) at the reference's canonical
+    geometry; the ops ``/cost`` endpoint beside the journal.
+  * ``profiler`` — the measured roofline: a ``torch.profiler`` capture of
+    the cost model's entries joined with their analytic rows; the ops
+    ``/profile`` endpoint + ``gome_profile_*`` gauges.
+  * ``fleet`` — the N-process view: merged expositions, health and seq
+    audit, stitched cross-process journeys; the ops ``/fleet`` endpoint.
 
 Every singleton is disabled by default: its hot-path hooks cost one
-attribute check and allocate nothing. The reference's ``costmodel``,
-``profiler`` (``/cost``, ``/profile``: ROADMAP Queue 1 item 4) and
-``fleet`` (item 5) are not ported yet.
+attribute check and allocate nothing.
 
 Import discipline: this ``__init__`` pulls in only ``compile_journal``,
 ``timeline``, ``hostprof`` and ``capacity`` (none imports torch or the
 engine), so ``engine.frames`` / ``service.gateway`` import the
-singletons without a cycle; ``live`` (torch) and ``placement`` load
-lazily on first attribute access.
+singletons without a cycle; ``costmodel`` (the engine), ``fleet``,
+``live`` (torch), ``placement`` and ``profiler`` load lazily on first
+attribute access (engine.batch imports ``obs.profiler`` directly: it
+keeps torch out of its module scope).
 """
 
 from __future__ import annotations
@@ -55,14 +63,17 @@ __all__ = [
     "LogHistogram",
     "OpenLoopSchedule",
     "capacity",
+    "costmodel",
+    "fleet",
     "hostprof",
     "live",
     "placement",
+    "profiler",
 ]
 
 
 def __getattr__(name):
-    if name in ("live", "placement"):
+    if name in ("costmodel", "fleet", "live", "placement", "profiler"):
         import importlib
 
         mod = importlib.import_module(f".{name}", __name__)

@@ -89,10 +89,14 @@ class CompileJournal:
         return self
 
     def disable(self) -> None:
-        """Back to the zero-overhead state (hooks become no-ops again)."""
+        """Back to the zero-overhead state (hooks become no-ops again),
+        bound to the process REGISTRY again: a test's private registry
+        must not stick to the singleton that a later EngineService arms
+        with ``ops.cost``."""
         with self._lock:
             self._entries = None
             self._totals = {}
+        self._registry = REGISTRY
 
     def record(
         self, entry: str, key, seconds: float, detail: dict | None = None
@@ -140,8 +144,7 @@ class CompileJournal:
             }
 
     def as_dict(self) -> dict:
-        """The reference's /cost wire form (the port's /cost is ROADMAP
-        Queue 1 item 4)."""
+        """The /cost wire form (the reference's)."""
         return {
             "enabled": self.enabled,
             "entries": self.entries(),

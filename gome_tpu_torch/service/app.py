@@ -12,9 +12,7 @@ own trade (nodepool.go:14-28); a Persister (a `persist:` section) takes
 consistent-cut snapshots and restores the last one at start().
 
 The port of ``gome_tpu/service/app.py``. The engine runs on the CUDA card
-(`device=None`); only tests pass `device="cpu"`. What the port does not
-have yet is refused at construction with the ROADMAP item that will port
-it, never replaced by a fallback (refuse_unported).
+(`device=None`); only tests pass `device="cpu"`.
 
     python -m gome_tpu_torch.service.app [config.yaml]
 """
@@ -30,37 +28,12 @@ from .matchfeed import MatchFeed
 
 log = get_logger("app")
 
-#: ops: flags that arm the reference's obs/ surfaces the port has not yet:
-#: the compile journal's /cost (with its XLA cost model) and the measured
-#: roofline profiler's /profile.
-OBS_FLAGS = ("cost", "profile")
-
-
-def refuse_unported(config: Config) -> None:
-    """Raise for every part of `config` the port cannot run yet, naming
-    the ROADMAP item that will port it."""
-    if config.ops.enabled:
-        armed = [f for f in OBS_FLAGS if getattr(config.ops, f)]
-        if armed:
-            raise NotImplementedError(
-                f"ops: {', '.join(armed)} on: the port has no cost model "
-                "or profiler yet (/cost, /profile: ROADMAP Queue 1 item 4); "
-                "set them false"
-            )
-    if config.fleet.enabled:
-        raise NotImplementedError(
-            "a fleet: section: the port has no fleet aggregator yet "
-            "(ROADMAP Queue 1 item 5)"
-        )
-
-
 class EngineService:
     def __init__(self, config: Config | None = None, persist=None,
                  device=None):
         """device: the CUDA card by default (raises if there is none);
         "cpu" runs the engine's plain PyTorch version (tests)."""
         self.config = config or Config()
-        refuse_unported(self.config)
         configure_logging()
         if self.config.faults.enabled:
             # Arm the deterministic fault-injection registry (utils.faults)
@@ -206,6 +179,17 @@ class EngineService:
                         slow_threshold_s=self.config.ops.slow_ms / 1e3,
                     )
                 )
+            if self.config.ops.cost:
+                # Arm the compile journal (obs.compile_journal): first-seen
+                # frame-dispatch combos and the nvcc / g++ builds land in
+                # gome_compile_seconds and the ops /cost endpoint; the
+                # cost model's launch counter takes its one-time import
+                # here, not on the first /cost under traffic.
+                from ..obs import costmodel
+                from ..obs.compile_journal import JOURNAL
+
+                JOURNAL.install(keep_n=self.config.ops.cost_keep)
+                costmodel.warm()
             if self.config.ops.timeline:
                 # Arm the host-side timeline sampler (obs.timeline):
                 # RSS/rusage/live-buffer/journal/queue series behind the
@@ -219,6 +203,14 @@ class EngineService:
                     keep_n=self.config.ops.timeline_keep,
                 )
                 service_timeline(self)
+            if self.config.ops.profile:
+                # Arm the measured-roofline profiler (obs.profiler):
+                # per-shard dispatch telemetry on the dense mesh path,
+                # bounded torch.profiler captures behind the ops /profile
+                # endpoint, gome_profile_* gauges.
+                from ..obs.profiler import PROFILER
+
+                PROFILER.install(keep_n=self.config.ops.profile_keep)
             if self.config.ops.hostprof:
                 # Arm the host-CPU sampling profiler (obs.hostprof):
                 # gateway note_admit hook live, thread-mode wall sampler
@@ -251,9 +243,25 @@ class EngineService:
                     partitions=self.config.ops.placement_partitions,
                     verdict=_placement.default_verdict(),
                 )
+            if self.config.fleet.enabled:
+                # Arm the fleet aggregator (obs.fleet): this process polls
+                # the listed members' ops endpoints and serves the merged
+                # view under its own /fleet. The polling thread runs only
+                # while the service is start()ed.
+                from ..obs.fleet import FLEET
+
+                FLEET.install(
+                    self.config.fleet.member_map(),
+                    interval_s=self.config.fleet.interval_s,
+                    timeout_s=self.config.fleet.timeout_s,
+                )
             self.ops = OpsServer(
                 self, host=self.config.ops.host, port=self.config.ops.port
             )
+            # The consumer loop beats the health monitor: a stall is a
+            # wedged loop (HealthMonitor.stall_after_s without a step),
+            # never merely a service older than stall_after_s with backlog.
+            self.consumer.heartbeat = self.ops.monitor.heartbeat
         # The reference's GOME_RACECHECK=1 hook (analysis.racecheck) comes
         # with the port of analysis/ (ROADMAP Queue 1 item 6).
 
@@ -277,6 +285,10 @@ class EngineService:
                 from ..obs.hostprof import HOSTPROF
 
                 HOSTPROF.start()
+            if self.config.fleet.enabled:
+                from ..obs.fleet import FLEET
+
+                FLEET.start()
         return self
 
     def stop(self):
@@ -295,6 +307,10 @@ class EngineService:
                 from ..obs.hostprof import HOSTPROF
 
                 HOSTPROF.stop()
+            if self.config.fleet.enabled:
+                from ..obs.fleet import FLEET
+
+                FLEET.stop()
 
     def wait(self):
         if self._server is not None:

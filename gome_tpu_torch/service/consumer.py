@@ -110,6 +110,10 @@ class OrderConsumer:
         self._hook_orders = 0  # single-writer: the consuming thread
         self._hook_events = 0  # single-writer: the consuming thread
         self.on_batch = on_batch  # callback(n_orders, n_events): persist hook
+        # Liveness beat of the background loop: called after every step that
+        # did not fail (EngineService wires its HealthMonitor's heartbeat),
+        # so /healthz reads a wedged loop as stalled, not a long-lived one.
+        self.heartbeat = lambda: None
         # Poison-batch policy: a deterministic per-batch error (e.g. a lane
         # CapacityError) would otherwise replay the same uncommitted offset
         # forever and halt matching engine-wide. After `poison_threshold`
@@ -454,6 +458,8 @@ class OrderConsumer:
         delays = None
         while not self._stop.is_set():
             self.step_with_policy()
+            if not self._last_step_failed:
+                self.heartbeat()
             if self._last_step_failed:
                 if delays is None:
                     delays = backoff_delays(FAULT_BACKOFF)

@@ -3,8 +3,10 @@ utils.metrics.REGISTRY), /healthz (service.health.HealthMonitor JSON),
 /trace (the order-lifecycle flight recorder as Chrome trace-event JSON —
 load the dump in chrome://tracing or https://ui.perfetto.dev),
 /durability (queue offsets, the matchfeed exactly-once tracker and the
-fault-injection report), and the host-side observability plane (obs/):
-/timeline, /placement, /capacity and /hostprof.
+fault-injection report), /cost (the compile journal, live-buffer
+residency and the analytic cost model), /profile (the measured roofline),
+/fleet (the merged N-process view), and the host-side observability plane
+(obs/): /timeline, /placement, /capacity and /hostprof.
 
 The reference has no observability surface at all (SURVEY §5.5 — logging
 only); this is the cheap operator-facing extension the service ships: one
@@ -13,6 +15,9 @@ stdlib ThreadingHTTPServer, no dependencies, curl-able:
     curl localhost:9109/metrics
     curl localhost:9109/healthz     # 200 healthy / 503 unhealthy
     curl localhost:9109/trace > trace.json   # open in Perfetto
+    curl localhost:9109/cost        # builds + live buffers + per-entry cost
+    curl localhost:9109/profile     # measured roofline (capture on demand;
+                                    # ?refresh=1 takes a new one)
     curl localhost:9109/durability  # snapshot cadence, recovery state,
                                     # queue offsets, matchfeed exactly-once
                                     # tracker, fault-injection report
@@ -23,11 +28,14 @@ stdlib ThreadingHTTPServer, no dependencies, curl-able:
     curl localhost:9109/capacity    # installed capacity-sweep verdict
     curl localhost:9109/placement   # symbol-flow heavy hitters, lane/shard
                                     # occupancy ledger, skew attribution
+    curl localhost:9109/fleet       # merged N-process view (obs.fleet):
+                                    # per-member health, summed counters,
+                                    # fleet-wide seq audit
 
-The port of ``gome_tpu/service/ops.py`` for the parts the port has. The
-reference's /cost and /profile (ROADMAP Queue 1 item 4) and /fleet (item
-5) answer 404 here, as any unknown path does. /durability carries the
-Persister's probe() under "persist" (null when no Persister is attached).
+The port of ``gome_tpu/service/ops.py``. /cost and /profile measure on
+the engine's device (the card; the CPU for a ``device="cpu"`` service).
+/durability carries the Persister's probe() under "persist" (null when no
+Persister is attached).
 
 Enabled by an `ops:` section in config.yaml (port, host) or by
 constructing OpsServer directly around any EngineService.
@@ -70,11 +78,71 @@ class OpsServer:
             self.monitor = HealthMonitor(service)
             from ..obs.live import service_monitor
 
-            # Tagged live-buffer residency for the
+            # Tagged live-buffer residency for /cost and the
             # gome_hbm_resident_bytes{subsystem=...} gauges — all
             # scrape-time reads, nothing on the hot path.
             self.live_monitor = service_monitor(service)
             self.live_monitor.export(self.registry)
+
+    def _engine_target(self) -> tuple[str, object]:
+        """(dtype name, device) of the attached service's engine; int32 on
+        the card without one."""
+        svc = self.service
+        engine = getattr(svc, "engine", None) if svc is not None else None
+        if engine is None:
+            return "int32", None
+        from ..engine.book import numpy_dtype
+
+        return numpy_dtype(engine.config.dtype).name, engine.batch.device
+
+    def cost_payload(self) -> dict:
+        """The /cost JSON document: the compile journal
+        (obs.compile_journal.JOURNAL), live-buffer residency, and the
+        memoized analytic cost model + donation report on the engine's
+        device (obs.costmodel). A cost-model failure degrades to an
+        ``error`` field rather than a 500."""
+        from ..obs.compile_journal import JOURNAL
+        from ..obs.live import LiveBufferMonitor
+
+        payload: dict = {"compile_journal": JOURNAL.as_dict()}
+        mon = self.live_monitor or LiveBufferMonitor()
+        payload["live_buffers"] = mon.snapshot()
+        try:
+            from ..obs import costmodel
+
+            dtype, device = self._engine_target()
+            payload["cost_model"] = {
+                "dtype": dtype,
+                "entries": costmodel.entry_report(dtype, device),
+                "donation": costmodel.donation_report(dtype, device),
+            }
+        except Exception as exc:  # never 500 the whole surface
+            log.exception("cost model unavailable")
+            payload["cost_model"] = {"error": str(exc)}
+        return payload
+
+    def profile_payload(self, refresh: bool = False) -> dict:
+        """The /profile JSON document: the measured roofline
+        (obs.profiler.PROFILER) — per-entry device time, achieved GFLOP/s
+        / GB/s, efficiency against the analytic ceiling, the trace
+        artifact's path, and the per-shard dispatch telemetry. Armed with
+        no capture yet (or ``?refresh=1``) this captures on demand on the
+        engine's device — bounded work on the handler thread, never the
+        dispatch path; disabled it returns ``{"enabled": false}``."""
+        from ..obs.profiler import PROFILER
+
+        dtype, device = self._engine_target()
+        return PROFILER.payload(dtype=dtype, refresh=refresh, device=device)
+
+    def fleet_payload(self) -> dict:
+        """The /fleet JSON document: the fleet aggregator's merged view
+        (obs.fleet.FLEET) — per-member health + degraded rollup, the
+        merged metric exposition with per-family totals, the fleet-wide
+        matchfeed seq audit, member timeline tails and the placement
+        rollup. ``{"enabled": false}`` while no member map is installed."""
+        from ..obs.fleet import FLEET
+
+        return FLEET.payload()
 
     def timeline_payload(self) -> dict:
         """The /timeline JSON document: the process-global timeline
@@ -193,6 +261,23 @@ class OpsServer:
                             200 if health.healthy else 503, body,
                             "application/json",
                         )
+                    elif path == "/cost":
+                        body = json.dumps(
+                            ops.cost_payload(), default=str
+                        ).encode()
+                        self._send(200, body, "application/json")
+                    elif path == "/profile":
+                        query = (self.path.split("?", 1)[1:] or [""])[0]
+                        body = json.dumps(
+                            ops.profile_payload(refresh="refresh=1" in query),
+                            default=str,
+                        ).encode()
+                        self._send(200, body, "application/json")
+                    elif path == "/fleet":
+                        body = json.dumps(
+                            ops.fleet_payload(), default=str
+                        ).encode()
+                        self._send(200, body, "application/json")
                     elif path == "/timeline":
                         body = json.dumps(
                             ops.timeline_payload(), default=str
@@ -266,8 +351,8 @@ class OpsServer:
         )
         self._thread.start()
         log.info("ops endpoint up on %s:%d (/metrics, /healthz, /trace, "
-                 "/timeline, /hostprof, /durability, /capacity, "
-                 "/placement)", self.host, self.port)
+                 "/cost, /timeline, /profile, /hostprof, /durability, "
+                 "/fleet, /capacity, /placement)", self.host, self.port)
         return self
 
     def stop(self) -> None:

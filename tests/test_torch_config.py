@@ -1,10 +1,10 @@
 """The port's config (gome_tpu_torch.config) against gome_tpu.config: one
 YAML file with every section loads into both packages with equal sections
 (dataclasses.asdict), the same checks reject the same bad values with the
-same messages, EngineService refuses every section and flag the port
-cannot run yet, naming the ROADMAP item that will port it, and the
-rabbitmq:, persist: and redis: sections boot (an unusable store keeps the
-in-process pool, as in gome_tpu)."""
+same messages, every obs/ flag and a fleet: section boot and arm the same
+singletons in both packages, and the rabbitmq:, persist: and redis:
+sections boot (an unusable store keeps the in-process pool, as in
+gome_tpu)."""
 
 import dataclasses
 
@@ -180,7 +180,7 @@ def test_fault_plan_file(tmp_path):
     assert t.faults.fault_plan() == plan
 
 
-# -- what the port refuses ---------------------------------------------------
+# -- the obs/ flags and the fleet: section -----------------------------------
 
 OBS_FLAGS = ("cost", "timeline", "profile", "hostprof", "placement")
 # trace off too: an armed tracer is process-wide and would pin later
@@ -188,27 +188,84 @@ OBS_FLAGS = ("cost", "timeline", "profile", "hostprof", "placement")
 QUIET_OPS = "ops:\n  port: 0\n  trace: false\n" + "".join(
     f"  {f}: false\n" for f in OBS_FLAGS)
 
-
-#: The flags the port still refuses (the cost model and the profiler).
-UNPORTED_OBS = ("cost", "profile")
-#: The flags the port arms (obs/ timeline, hostprof, placement).
+#: The flags the port armed before the cost model (obs/ timeline, hostprof,
+#: placement).
 PORTED_OBS = ("timeline", "hostprof", "placement")
 
 
-@pytest.mark.parametrize("text, error, item", [
-    *[(QUIET_OPS.replace(f"{f}: false", f"{f}: true"), NotImplementedError,
-       "item 4") for f in UNPORTED_OBS],
-    # The defaults arm cost and profile, and all three ported flags.
-    ("ops:\n  port: 0\n", NotImplementedError, "item 4"),
-    *[(QUIET_OPS.replace(f"{f}: false", f"{f}: true").replace(
-        "cost: false", "cost: true"), NotImplementedError, "item 4")
-      for f in PORTED_OBS],
-    ("fleet:\n  members: [a=http://x:1]\n", NotImplementedError, "item 5"),
+def obs_singletons(side):
+    """{name: process-wide singleton} of one package: the five flags',
+    the fleet aggregator and the tracer."""
+    if side == "j":
+        from gome_tpu.obs import HOSTPROF, JOURNAL, TIMELINE
+        from gome_tpu.obs.fleet import FLEET
+        from gome_tpu.obs.placement import PLACEMENT
+        from gome_tpu.obs.profiler import PROFILER
+        from gome_tpu.utils.trace import TRACER
+    else:
+        from gome_tpu_torch.obs import HOSTPROF, JOURNAL, TIMELINE
+        from gome_tpu_torch.obs.fleet import FLEET
+        from gome_tpu_torch.obs.placement import PLACEMENT
+        from gome_tpu_torch.obs.profiler import PROFILER
+        from gome_tpu_torch.utils.trace import TRACER
+    return {"cost": JOURNAL, "timeline": TIMELINE, "profile": PROFILER,
+            "hostprof": HOSTPROF, "placement": PLACEMENT, "fleet": FLEET,
+            "trace": TRACER}
+
+
+FLEET_SECTION = "fleet:\n  members: [a=http://127.0.0.1:1]\n"
+
+
+@pytest.mark.parametrize("text, armed", [
+    *[(QUIET_OPS.replace(f"{f}: false", f"{f}: true"), {f})
+      for f in OBS_FLAGS],
+    # The ops: defaults arm every flag and the tracer.
+    ("ops:\n  port: 0\n", {*OBS_FLAGS, "trace"}),
+    (QUIET_OPS + FLEET_SECTION, {"fleet"}),
+    (QUIET_OPS.replace("cost: false", "cost: true") + FLEET_SECTION,
+     {"cost", "fleet"}),
 ])
-def test_unported_parts_are_refused(tmp_path, text, error, item):
-    cfg = tconfig.load_config(write(tmp_path, text))
-    with pytest.raises(error, match=f"ROADMAP Queue 1 {item}\\b"):
+def test_obs_flags_and_fleet_arm_in_both_packages(tmp_path, text, armed):
+    """Each section boots EngineService in both packages (the port on the
+    CPU) and arms exactly the singletons it names, the same in both;
+    disarmed again after."""
+    from gome_tpu.service.app import EngineService as JService
+
+    path = write(tmp_path, "grpc:\n  port: 0\nengine:\n  n_slots: 8\n"
+                 + text)
+    for side, config, service, kw in (
+            ("j", jconfig, JService, {}),
+            ("t", tconfig, EngineService, {"device": "cpu"})):
+        single = obs_singletons(side)
+        for s in single.values():  # process-wide: start disarmed
+            s.disable()
+        cfg = config.load_config(path)
+        try:
+            svc = service(cfg, **kw)
+            assert svc.ops is not None
+            got = {n for n, s in single.items()
+                   if (s.recorder is not None if n == "trace" else s.enabled)}
+            assert got == armed, side
+        finally:
+            for s in single.values():
+                s.disable()
+
+
+@pytest.mark.parametrize("cost", [True, False])
+def test_cost_flag_warms_the_launch_counter(tmp_path, monkeypatch, cost):
+    """Arming ``cost`` runs costmodel.warm() at boot (the launch counter's
+    one-time import off the first /cost); not arming it does not."""
+    from gome_tpu_torch.obs import JOURNAL, costmodel
+
+    calls = []
+    monkeypatch.setattr(costmodel, "warm", lambda: calls.append(1))
+    cfg = tconfig.load_config(write(tmp_path, QUIET_OPS.replace(
+        "cost: false", f"cost: {str(cost).lower()}")))
+    try:
         EngineService(cfg, device="cpu")
+        assert calls == ([1] if cost else [])
+    finally:
+        JOURNAL.disable()
 
 
 @pytest.mark.parametrize("flag", PORTED_OBS)

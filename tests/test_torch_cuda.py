@@ -395,3 +395,42 @@ def test_live_array_stats_on_the_card_cover_the_books(cuda):
     assert card["active_bytes"] >= card["allocated_bytes"] >= books["bytes"]
     assert card["allocated_count"] >= books["count"]
     assert stats["bytes"] >= books["bytes"]
+
+
+def test_measured_entry_report_on_the_card(cuda, tmp_path):
+    """obs.profiler on the card: one capture of the cost model's entries
+    gives a cuda_kernels row for each, K1 among batch_step's kernels,
+    within the calibrated roofline."""
+    from gome_tpu_torch.obs import costmodel, profiler
+
+    rep = profiler.measured_entry_report("int64", repeats=3,
+                                         log_dir=str(tmp_path), device=cuda)
+    assert rep["platform"] == "cuda"
+    assert list(rep["entries"]) == list(costmodel.RATCHET_ENTRIES)
+    for row in rep["entries"].values():
+        assert row["device_time_source"] == "cuda_kernels", row
+        assert row["device_us_per_call"] > 0
+        assert 0 < row["efficiency_pct"] <= 105
+    events = profiler.load_trace_events(rep["run_dir"])
+    assert len(rep["streams"]) == 1
+    names = profiler.window_event_names(events, "batch_step",
+                                        streams=rep["streams"])
+    assert sum("match_step" in n for n in names) == 3
+    for row in costmodel.entry_report("int64", cuda):
+        assert row["argument_bytes"] > 0
+        assert row["peak_hbm_bytes"] == (row["argument_bytes"]
+                                         + row["output_bytes"]
+                                         - row["alias_bytes"])
+
+
+def test_capture_with_no_device_records_kernels(cuda, tmp_path):
+    """``profiler.capture()`` with no arguments traces the card: a
+    matmul run inside it lands as ``kernel`` events."""
+    from gome_tpu_torch.obs import profiler
+
+    a = torch.ones((256, 256), device=cuda)
+    with profiler.capture(str(tmp_path)) as cap:
+        (a @ a).sum().item()
+    events = profiler.load_trace_events(cap.run_dir)
+    assert any(e.get("cat") == "kernel" for e in events)
+    assert profiler.machine_peaks()["peak_gflops"] > 0

@@ -47,8 +47,9 @@ def test_port_files_were_found():
         assert f"gome_tpu_torch/parallel/{name}.py" in PORT_FILES
     for name in ("amqp", "fakebroker"):
         assert f"gome_tpu_torch/bus/{name}.py" in PORT_FILES
-    for name in ("__init__", "capacity", "compile_journal", "hostprof",
-                 "live", "placement", "timeline"):
+    for name in ("__init__", "capacity", "compile_journal", "costmodel",
+                 "fleet", "hostprof", "live", "placement", "profiler",
+                 "timeline"):
         assert f"gome_tpu_torch/obs/{name}.py" in PORT_FILES
     for name in ("__init__", "router"):
         assert f"gome_tpu_torch/fleet/{name}.py" in PORT_FILES
@@ -82,7 +83,9 @@ def test_importing_the_port_loads_neither():
         "gome_tpu_torch.parallel.mesh, gome_tpu_torch.parallel.router, "
         "gome_tpu_torch.bus.amqp, gome_tpu_torch.bus.fakebroker, "
         "gome_tpu_torch.obs, gome_tpu_torch.obs.live, "
-        "gome_tpu_torch.obs.placement, gome_tpu_torch.fleet\n"
+        "gome_tpu_torch.obs.placement, gome_tpu_torch.fleet, "
+        "gome_tpu_torch.obs.costmodel, gome_tpu_torch.obs.profiler, "
+        "gome_tpu_torch.obs.fleet\n"
         "bad = [m for m in sys.modules if m in ('jax', 'gome_tpu') or "
         "m.startswith(('jax.', 'gome_tpu.'))]\n"
         "print(bad)\n"

@@ -125,8 +125,9 @@ def test_zipf_frames_feed_the_same_telemetry(monkeypatch):
 
 
 def service_config(side_config):
-    """The `ops:` defaults, cost and profile off (not ported), gRPC and
-    the ops endpoint on ephemeral ports."""
+    """The `ops:` defaults, cost and profile off (their routes are held by
+    test_torch_service_parts), gRPC and the ops endpoint on ephemeral
+    ports."""
     c = side_config
     return c.Config(
         grpc=c.GrpcConfig(host="127.0.0.1", port=0),

@@ -2,8 +2,9 @@
 the memory, file and native file backends, MatchEngine.process_one,
 AdmissionController decisions (an injected clock), HealthMonitor and
 Watchdog verdicts, and the OpsServer (/healthz, /metrics, /durability,
-/trace, and 404 on the reference's obs/ routes the port has not yet).
-Exact equality across the two packages."""
+/trace, the disarmed obs/ routes, /fleet over the same scripted members,
+and /cost and /profile with the keys gome_tpu's own tests assert).
+Exact equality across the two packages where both run here."""
 
 import contextlib
 import functools
@@ -352,7 +353,6 @@ def test_watchdog_thread_starts_and_stops():
 
 # -- the ops endpoint ----------------------------------------------------------
 
-UNPORTED_ROUTES = ("/cost", "/profile", "/fleet")
 #: obs/ routes the port serves; with every obs flag off both packages
 #: answer them alike.
 OBS_ROUTES = ("/timeline", "/placement", "/capacity", "/hostprof",
@@ -410,8 +410,8 @@ def test_ops_server_matches():
 def compare_ops_servers():
     """The OpsServer of each package's EngineService, started with the
     threads not running: equal /healthz, /durability, /trace, the disarmed
-    obs/ routes and 404s, and no /metrics name in the port's that
-    gome_tpu's lacks."""
+    obs/ routes and /fleet, and 404s, and no /metrics name in the port's
+    that gome_tpu's lacks."""
     from gome_tpu.bus import encode_order
     from gome_tpu.types import Order, Side
 
@@ -437,7 +437,7 @@ def compare_ops_servers():
                 trace=_get(port, "/trace"),
                 nope=_get(port, "/nope"),
                 metrics=metric_names(_get(port, "/metrics")[1]),
-                unported=[_get(port, r)[0] for r in UNPORTED_ROUTES],
+                fleet=_get(port, "/fleet"),
                 obs=[_get(port, r) for r in OBS_ROUTES],
             )
         finally:
@@ -460,12 +460,143 @@ def compare_ops_servers():
             rec.chrome_trace() if rec is not None else {"traceEvents": []}))
     assert t["trace"] == (200, '{"traceEvents": []}')
     assert t["nope"] == j["nope"] == (404, "not found\n")
-    assert t["unported"] == [404] * len(UNPORTED_ROUTES)
+    assert t["fleet"] == j["fleet"] == (200, '{"enabled": false}')
     assert t["obs"] == j["obs"]
     assert [code for code, _ in t["obs"]] == [200] * len(OBS_ROUTES)
     assert t["metrics"] <= j["metrics"]
     assert {"gome_orders_consumed_total", "gome_bus_depth",
             "gome_matchfeed_dupes_total"} <= t["metrics"]
+
+
+def test_fleet_route_matches():
+    """/fleet over HTTP from each package's service, its FLEET armed over
+    the same scripted members (test_torch_fleet.scripted_fetch) on a
+    scripted clock: equal JSON documents."""
+    import gome_tpu.obs.fleet as jfleet
+    import gome_tpu_torch.obs.fleet as tfleet
+    from test_torch_fleet import scripted_fetch
+
+    docs = {}
+    for side, fleet in ((J, jfleet), (T, tfleet)):
+        svc = (JService(quiet_ops_config(J)) if side == J else
+               TService(quiet_ops_config(T), device="cpu"))
+        fleet.FLEET.install({"a": "inproc://a", "b": "inproc://b"},
+                            fetch=scripted_fetch(set()), clock=lambda: 7.0,
+                            registry=PKG[side]["registry"]())
+        svc.ops.start()
+        try:
+            fleet.FLEET.poll()
+            code, body = _get(svc.ops.port, "/fleet")
+            assert code == 200
+            docs[side] = json.loads(body)
+        finally:
+            svc.ops.stop()
+            fleet.FLEET.disable()
+    assert docs[T] == docs[J]
+    assert docs[T]["enabled"] and set(docs[T]["members"]) == {"a", "b"}
+    assert docs[T]["seq"]["fleet"] == {"observed": 14, "dupes": 0, "gaps": 0}
+
+
+@limited(300)
+def test_cost_and_profile_routes_answer():
+    """/cost and /profile of a port service with cost and profile armed
+    (on the CPU) answer 200 with every key tests/test_obs.py and
+    tests/test_profiler.py assert of gome_tpu's (which cannot serve them
+    on this JAX: its cost model needs the x64 switch JAX removed)."""
+    import numpy as np
+
+    from gome_tpu_torch.engine import frames
+    from gome_tpu_torch.obs.compile_journal import JOURNAL
+    from gome_tpu_torch.obs.profiler import PROFILER
+
+    c = PKG[T]["config"]
+    cfg = c.Config(engine=c.EngineConfig(cap=16, max_fills=4, n_slots=4,
+                                         max_t=4, dtype="int32"),
+                   ops=c.OpsConfig(port=0, enabled=True, trace=False,
+                                   timeline=False, hostprof=False,
+                                   placement=False))
+    svc = TService(cfg, device="cpu")
+    assert JOURNAL.enabled and PROFILER.enabled
+    rng = np.random.default_rng(3)
+    n = 16
+    frames.apply_frame_fast(svc.engine.batch, dict(
+        n=n, action=np.ones(n, np.int64),
+        side=rng.integers(0, 2, n).astype(np.int64),
+        kind=np.zeros(n, np.int64),
+        price=rng.integers(99_000, 101_000, n).astype(np.int64),
+        volume=rng.integers(1, 10, n).astype(np.int64),
+        symbols=[f"s{i}" for i in range(4)],
+        symbol_idx=rng.integers(0, 4, n).astype(np.int64),
+        uuids=["u0"], uuid_idx=np.zeros(n, np.int64),
+        oids=np.char.add("p", np.arange(n).astype("U6")).astype("S")))
+    svc.ops.start()
+    try:
+        code, body = _get(svc.ops.port, "/cost")
+        assert code == 200
+        doc = json.loads(body)
+        assert doc["compile_journal"]["enabled"] is True
+        assert doc["compile_journal"]["entries"]
+        assert doc["live_buffers"]["total"]["count"] > 0
+        assert doc["live_buffers"]["subsystems"]["engine_books"]["bytes"] > 0
+        assert doc["cost_model"]["dtype"] == "int32"
+        entries = {e["entry"] for e in doc["cost_model"]["entries"]
+                   if "error" not in e}
+        assert entries == set(("batch_step", "dense_batch_step", "lane_scan",
+                               "compact_accum", "scatter_grid"))
+        assert "batch_step" in {d["entry"] for d in
+                                doc["cost_model"]["donation"]}
+        metrics = _get(svc.ops.port, "/metrics")[1]
+        assert "gome_compile_seconds" in metrics
+        assert 'gome_hbm_resident_bytes{subsystem="engine_books"}' in metrics
+        assert "gome_live_arrays" in metrics
+        captures = []
+        for path in ("/profile", "/profile?refresh=1"):
+            code, body = _get(svc.ops.port, path)
+            assert code == 200
+            doc = json.loads(body)
+            assert doc["enabled"] is True and doc["captures"] >= 1
+            captures.append(doc["captures"])
+            rep = doc["report"]
+            assert rep and rep["platform"] == "cpu" and rep["entries"]
+            measured = [row for row in rep["entries"].values()
+                        if "error" not in row
+                        and row["device_us_per_call"] > 0]
+            assert len(measured) == 5
+            for row in measured:
+                assert row["achieved_gflops"] > 0
+                assert row["device_time_source"] == "cpu_ops"
+            assert doc["shards"] == {"enabled": True, "dispatches": 0}
+        # ?refresh=1 took a capture of its own (the count is the
+        # process-wide PROFILER's, so earlier tests' captures count too).
+        assert captures[1] == captures[0] + 1
+    finally:
+        svc.ops.stop()
+        JOURNAL.disable()
+        PROFILER.disable()
+
+
+@limited(120)
+def test_running_consumer_beats_the_health_monitor():
+    """The port's consumer loop beats its HealthMonitor after every step:
+    a monitor built a minute ago reads a fresh heartbeat once the loop
+    runs, so a long-lived service with a backlog is not taken for a
+    stalled one (nothing beats gome_tpu's: its heartbeat age is the
+    monitor's age, stalled after 30 s whenever doOrder has a backlog)."""
+    svc = TService(quiet_ops_config(T), device="cpu")
+    mon = svc.ops.monitor
+    mon._beat -= 60.0
+    assert mon.check().heartbeat_age_s >= 60.0
+    svc.consumer.start()
+    svc.feed.start()
+    try:
+        deadline = time.monotonic() + 30
+        while mon.check().heartbeat_age_s > 1.0:
+            assert time.monotonic() < deadline, "the loop never beat"
+            time.sleep(0.01)
+        health = mon.check()
+        assert health.healthy and not health.detail["stalled"]
+    finally:
+        svc.stop()
 
 
 @limited(120)
