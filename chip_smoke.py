@@ -90,11 +90,12 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      DoOrderBatch round trip p50/p99, K1's launches, the split between
      gateway admission, consumer (and its parts) and feed, and (c)'s
      load_client orders/s;
-  9. durability: (a) the crash drill: the flow as ORDER frames of 8,192 in
-     a file queue, consumed by workers that are fresh interpreters
-     (`python3 chip_smoke.py --persist-worker ...`: the engine on the
-     card, int32, a Persister every 8 batches, OrderConsumer(batch_n=1,
-     match_wire="frame") at depths alternating 2 and 0, restore_latest()
+  9. durability: (a) the crash drill: the flow's first 102,400 orders as
+     13 ORDER frames of 8,192 in a file queue, consumed by workers that
+     are fresh interpreters (`python3 chip_smoke.py --persist-worker
+     ...`: the engine on the card, int32, a Persister every 4 batches,
+     OrderConsumer(batch_n=1, match_wire="frame") at depths alternating
+     2 and 0, restore_latest()
      before the cycle's FaultPlan is armed): four kills (consumer.commit
      at offset 0, consumer.frame, a torn filelog.offset, a torn
      snapshot.rename) each exiting with EXIT_CODE, then a clean final
@@ -108,10 +109,11 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      np.savez and the fsyncs, one restore into a fresh engine split into
      the load, import_state and the mark rebuild, the restored state
      equal leaf by leaf; (c) phase 8 (c)'s service with a persist:
-     section (every 16 batches, one request per consumer batch, file
+     section (every 4 batches, one request per consumer batch, file
      bus) and a redis: section naming a FakeRedisServer (marks through
-     RespPrePool): the flow over the wire, stopped, and a second service
-     over the same directories and store whose start() restores: books equal, /durability reports the
+     RespPrePool): the flow's first 53,248 orders over the wire, stopped,
+     and a second service over the same directories and store whose
+     start() restores: books equal, /durability reports the
      restore, the match queue's documents equal the oracle's with seqs
      0..n-1; orders/s beside phase 8 (c)'s; (d) that engine through
      book_redis_commands into a DictRedis and restore_from_redis into a
@@ -252,7 +254,23 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      events equal to its oracle's; (c) save_geometry after phase 6's flow,
      then four fresh engines (cold, after load_geometry, after
      load_geometry, cold): the first 8 frames' events equal to each
-     other's and the oracle's, their seconds printed.
+     other's and the oracle's, their seconds printed;
+ 15. race drill, mesh across processes, gomelint: (a) an EngineService
+     built with GOME_RACECHECK=1 (the lockset detector of
+     gome_tpu_torch.analysis.racecheck armed over the feed, its
+     SeqTracker and the consumer), four gateway threads through the real
+     DoOrder/DeleteOrder handlers, the consumer and feed live, one
+     SubscribeMatches drain: orders flowed, no race reported, events equal
+     to the oracle's over the order queue; (b) phase 11 (b)'s flow on a
+     mesh of two processes (`python3 chip_smoke.py --mesh-rank r ...`,
+     fresh interpreters, parallel.multihost_mesh with two shards a rank,
+     D = 4): on cuda:0 both (gloo, host staging), and on a card each
+     (NCCL) when there are two or more; every rank's events equal to the
+     oracle's, its books equal to phase 11 (b)'s single-process D = 4
+     engine's, K1 launches = one per local shard per grid, K1 equal to
+     its plain version at the rank's inputs; orders/s and the cross-rank
+     joins' seconds beside 11 (b)'s; (c) `python -m
+     gome_tpu_torch.analysis gome_tpu_torch` exits 0.
 
 The last two lines are the kernel table (JSON) and
 {"ok": true, "device": {...}}.
@@ -264,6 +282,11 @@ plain version at phase 10 (a)'s draws (T 32 and 1,024) and edge inputs,
 times it at T 32, 1,024 and 65,536 and times phase 10 (d)'s generator on
 it, and prints one JSON line. Run it on two checkouts in turns (A, B, B,
 A, ...) to compare them on one card.
+
+    python3 chip_smoke.py --phase15
+
+runs phase 11 (b)'s one-process D=4 run and then phase 15 alone (about two
+minutes on one card; under four cards (b) runs a card a rank too).
 
     python3 chip_smoke.py --obs-ab
 
@@ -1693,9 +1716,9 @@ SERVICE_PARTS = ("gateway", "consumer", "consumer_wait", "publish", "feed",
                  "feed_wait")
 # (label, pipeline depth, whether a SubscribeMatches stream takes the events)
 SERVICE_RUNS = (("b", 0, True), ("a", 2, True), ("c", 0, False))
-#: (b) and (a), the runs with a subscriber (one gRPC message an event, ~3,000
-#: orders/s), send the flow's first 25 DoOrderBatch requests (102,400
-#: orders) and leave load_client to (c): the script's time limit.
+#: (b) and (a), the runs with a subscriber (one gRPC message an event,
+#: ~2,000-4,500 orders/s), send the flow's first 25 DoOrderBatch requests
+#: (102,400 orders) and leave load_client to (c): the script's time limit.
 SUBSCRIBED_REQUESTS = 25
 #: Phase 12 (a), the service over AMQP (one confirmed publish an event,
 #: ~2,600-4,900 orders/s), sends the same first requests: the script's
@@ -1866,12 +1889,13 @@ def wait_drained(label, svc, limit_s: float, n_events: int = 0) -> float:
 
 
 def expected_launches(engine) -> int:
-    """K1 launches an engine's device calls make: one per shard for each
-    grid step (one shard without a mesh), one for each per-row
-    fill-record re-run."""
+    """K1 launches an engine's device calls make: one per shard this
+    process holds for each grid step (one shard without a mesh), one for
+    each per-row fill-record re-run."""
     st, mesh = engine.stats, engine.batch.mesh
     per_row = st.fill_record_escalations
-    return (mesh.size if mesh else 1) * (st.device_calls - per_row) + per_row
+    return (len(mesh.local) if mesh else 1) * (st.device_calls - per_row) \
+        + per_row
 
 
 def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
@@ -2167,23 +2191,29 @@ def print_phase8(card: str, sizes, s_runs, p6_runs) -> None:
 
 # -- phase 9 -----------------------------------------------------------------
 
-PERSIST_EVERY = 8  # the drill's snapshot cadence, in committed batches
+PERSIST_EVERY = 4  # the drill's snapshot cadence, in committed batches
+DRILL_ORDERS = 102_400  # (a): the flow's first orders, 13 ORDER frames
 PERSIST_KEEP = 8
-SERVICE_PERSIST_EVERY = 16  # (c)'s cadence
+SERVICE_PERSIST_EVERY = 4  # (c)'s cadence
+#: (c) sends the flow's first 13 DoOrderBatch requests (53,248 orders):
+#: snapshots at 4, 8 and 12, one request for the restored service to
+#: replay. The file bus fsyncs every event, so the flow's length is the
+#: script's time limit.
+DURABLE_REQUESTS = 13
 
 
 def kill_plan(cycle: int):
-    """scripts/chaos.py's kill rotation, with hits placed for a 25-frame
-    log at a cadence of 8 (depths alternate 2, 0, 2, 0: snapshots are
+    """scripts/chaos.py's kill rotation, with hits placed for a 13-frame
+    log at a cadence of 4 (depths alternate 2, 0, 2, 0: snapshots are
     taken only at depth 0, where every commit is a consistent cut):
     1. consumer.commit exit at hit 1 — inside the at-least-once window at
        offset 0 (events published, nothing committed, no snapshot);
-    2. consumer.frame exit at hit 11 — after the first snapshot (cut 8);
+    2. consumer.frame exit at hit 7 — after the first snapshot (cut 4);
     3. filelog.offset torn at hit 5 — a torn commit sidecar in the replay
        from that cut, frames in flight, no newer snapshot;
     4. snapshot.rename torn at hit 2 — the second snapshot of the replay
-       from cut 8 (cut 24) published torn, then death: the next restore
-       skips it and uses cut 16."""
+       from cut 4 (cut 12) published torn, then death: the next restore
+       skips it and uses cut 8."""
     from gome_tpu_torch.utils.faults import FaultPlan, FaultSpec
 
     spec = {
@@ -2451,8 +2481,9 @@ def persist_drill(work: str, device: str = "cuda", n_orders: int = 200_000,
                   cap: int = 256, max_fills: int = 16,
                   cost: bool = False) -> dict:
     """Phase 9 (a): phase 3's Zipf flow as ORDER frames in two file
-    queues; an uninterrupted worker on one, the kill cycles (kill_plan)
-    and a final clean worker on the other, depths alternating 2 and 0.
+    queues; an uninterrupted worker on one, beside the kill cycles
+    (kill_plan) and a final clean worker on the other, depths alternating
+    2 and 0.
     Fails (SystemExit) unless every kill exits with EXIT_CODE, the final
     run completes, its match-queue bodies equal the uninterrupted run's
     byte for byte, its events equal the oracle's with seqs 0..n-1 once
@@ -2475,15 +2506,19 @@ def persist_drill(work: str, device: str = "cuda", n_orders: int = 200_000,
             q.publish(p)
         q.close()
     geometry = dict(symbols=n_symbols, cap=cap, max_fills=max_fills)
-    clean = run_worker(work, "clean", dirs["clean"], 0, device, geometry,
-                       timeout_s)
-    runs = []
-    for c in range(1, cycles + 1):
-        runs.append(run_worker(work, f"cycle{c}", dirs["crash"],
-                               2 if c % 2 else 0, device, geometry,
-                               timeout_s, plan=kill_plan(c)))
-    final = run_worker(work, "final", dirs["crash"], 2 if cycles % 2 == 0
-                       else 0, device, geometry, timeout_s, cost=cost)
+    # The uninterrupted worker runs beside the kill cycles: its own queue
+    # and snapshot directory, a fresh interpreter of its own.
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        clean_run = pool.submit(run_worker, work, "clean", dirs["clean"], 0,
+                                device, geometry, timeout_s)
+        runs = []
+        for c in range(1, cycles + 1):
+            runs.append(run_worker(work, f"cycle{c}", dirs["crash"],
+                                   2 if c % 2 else 0, device, geometry,
+                                   timeout_s, plan=kill_plan(c)))
+        final = run_worker(work, "final", dirs["crash"], 2 if cycles % 2 == 0
+                           else 0, device, geometry, timeout_s, cost=cost)
+        clean = clean_run.result()
     for label, r in (("uninterrupted", clean), ("final", final)):
         if r["rc"] != 0 or not r.get("completed"):
             raise SystemExit(f"phase 9 (a): the {label} worker exited "
@@ -2577,7 +2612,7 @@ def durable_service(cfg):
     # The cadence counts consumer batches. The service's batch_n (32 x
     # 10,240 / 8 messages) lets one batch take every request waiting, so
     # the count would follow the host's timing; one request per batch
-    # makes "every 16" every 16 requests (65,536 orders), as in (a).
+    # makes "every 4" every 4 requests (16,384 orders).
     svc.consumer.batch_n = 1
     return svc, snaps
 
@@ -2670,7 +2705,7 @@ def durable_service_check(sizes, zipf, want, work: str):
         split=split,
         restore=persist, replay_s=replay_s, replay_launches=replay_launches,
         events=len(want), requests=len(requests), cap=first["cap"],
-        worst=worst, kept_line=kept_line)
+        orders=len(zipf), worst=worst, kept_line=kept_line)
 
 
 def continuation(sizes, n: int):
@@ -2781,15 +2816,18 @@ def phase9(card: str, device, sizes, zipf, want_zipf, p8c_secs: float):
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="phase9a-") as work:
         drill = persist_drill(work, device=device.type,
-                              n_orders=sizes["zipf_n"],
+                              n_orders=DRILL_ORDERS,
                               n_symbols=sizes["symbols"],
                               frame_n=sizes["batch"], cycles=4, cost=True)
     print_drill(card, sizes, drill, time.perf_counter() - t_phase)
+    durable = zipf[:DURABLE_REQUESTS * WIRE_BATCH]
+    want_durable = oracle_events(durable)
     with tempfile.TemporaryDirectory(prefix="phase9c-") as work:
-        engine, store, svc = durable_service_check(sizes, zipf, want_zipf,
-                                                   work)
+        engine, store, svc = durable_service_check(sizes, durable,
+                                                   want_durable, work)
     print_service(card, sizes, svc, p8c_secs)
-    migration = redis_migration_check(sizes, zipf, want_zipf, engine, store)
+    migration = redis_migration_check(sizes, durable, want_durable, engine,
+                                      store)
     del engine
     torch.cuda.empty_cache()
     print(f"phase 9 (d): Redis migration of (c)'s engine: "
@@ -2816,7 +2854,8 @@ def snapshots_text(snaps) -> str:
 def print_drill(card: str, sizes, drill, seconds: float) -> None:
     final, clean = drill["final"], drill["clean"]
     cost = final["cost"]
-    print(f"phase 9 (a): crash drill: {sizes['zipf_n']} orders over "
+    print(f"phase 9 (a): crash drill: the flow's first {DRILL_ORDERS:,} "
+          f"orders over "
           f"{sizes['symbols']} symbols as {drill['n_frames']} ORDER frames of "
           f"{sizes['batch']} in a file queue; workers are fresh interpreters "
           f"(OrderConsumer(batch_n=1, match_wire=frame), Persister every "
@@ -2868,7 +2907,8 @@ def print_service(card: str, sizes, svc, p8c_secs: float) -> None:
     print(f"phase 9 (c): EngineService with persist: (every "
           f"{SERVICE_PERSIST_EVERY} batches) and redis: (FakeRedisServer, "
           f"RespPrePool) over a file bus, int64, json match wire, depth 0, "
-          f"one request per consumer batch: {sizes['zipf_n']} orders as "
+          f"one request per consumer batch: the flow's first "
+          f"{svc['orders']:,} orders as "
           f"{svc['requests']} DoOrderBatch requests; a second EngineService "
           f"over the same directories and store restored "
           f"({svc['restore']['last_restore']}, "
@@ -2879,7 +2919,7 @@ def print_service(card: str, sizes, svc, p8c_secs: float) -> None:
           f"{svc['events'] - 1}; K1 launches = device calls "
           f"({svc['launches']})")
     print(svc["kept_line"])
-    rate = sizes["zipf_n"] / svc["secs"]
+    rate = svc["orders"] / svc["secs"]
     p8 = sizes["zipf_n"] / p8c_secs
     rtt50, rtt99 = np.percentile(np.array(svc["rtt"]) * 1e3, [50, 99])
     print(f"phase 9 [{card}]: (c) durable service {rate:,.0f} orders/s over "
@@ -4154,6 +4194,7 @@ def phase11(card: str, device, sizes, zipf, want_zipf, timing, p5_rate,
               + f"); shard_execution_report on the widest dense grid (cap "
               f"{r['grid_cap']}, best of 5): {report_text(r['report'])}")
     d4 = runs[meshes[0][0]]["engine"]
+    d4_digest = book_digest(d4)  # phase 15 (b) holds its ranks to it
     for name in list(runs)[1:]:
         del runs[name]["engine"]
     torch.cuda.empty_cache()
@@ -4204,7 +4245,7 @@ def phase11(card: str, device, sizes, zipf, want_zipf, timing, p5_rate,
     print(f"phase 11 [{card}]: the mesh in {secs:.1f} s")
     return dict(worst=worst, runs=runs, step_counts=step_counts,
                 c_launches=c["launches"], svc_launches=svc_launches, e=e,
-                seconds=secs)
+                seconds=secs, d4_name=meshes[0][0], d4_digest=d4_digest)
 
 
 # -- phase 12 ----------------------------------------------------------------
@@ -5762,6 +5803,481 @@ def phase14(card: str, device, sizes, zipf, want_zipf, flow8, p8c) -> dict:
 
 # -- phase 4 -----------------------------------------------------------------
 
+# -- phase 15 ----------------------------------------------------------------
+
+RACE_SYMBOL = "eth2usdt"
+RACE_SECONDS = 1.0  # (a)'s traffic window; the armed consumer drains after
+MESH_RANKS = 2  # (b): two ranks ...
+MESH_LOCAL = 2  # ... of two shards each: D = 4, phase 11 (b)'s mesh size
+MESH_WAIT_S = 300  # (b): both ranks' whole run
+
+
+def race_drill(device, seconds: float = 3.0, threads: int = 4,
+               engine=None) -> dict:
+    """Phase 15 (a), the port of scripts/race_drill.py: an EngineService
+    built with GOME_RACECHECK=1 (the app's hook arms analysis.racecheck's
+    lockset detector over the feed, its SeqTracker, the consumer's seq
+    frontier and the batcher and persister when present), `threads`
+    gateway threads sending mixed add/cancel flow through the real
+    DoOrder/DeleteOrder handlers for `seconds`, the consumer and feed
+    loops live, one SubscribeMatches drain. `engine` (an EngineConfig)
+    replaces the config's engine section. Fails (SystemExit) unless orders
+    flowed, no unsuppressed race was reported and the match queue's events
+    equal the oracle's over the order queue's messages in their order,
+    and, on the card, unless K1 equals its plain version at the inputs
+    the service gave it (check_kept_inputs). Returns the verdict."""
+    import logging
+    import random
+
+    from gome_tpu_torch.analysis.racecheck import RACECHECK
+    from gome_tpu_torch.api import order_pb2 as pb
+    from gome_tpu_torch.bus import decode_match_result, decode_message_orders
+    from gome_tpu_torch.config import Config, OpsConfig
+    from gome_tpu_torch.ops import match_step
+    from gome_tpu_torch.oracle import OracleEngine
+    from gome_tpu_torch.service import EngineService
+
+    saved = os.environ.get("GOME_RACECHECK")
+    os.environ["GOME_RACECHECK"] = "1"
+    RACECHECK.reset()
+    try:
+        cfg = Config(ops=OpsConfig(enabled=False),
+                     **({} if engine is None else {"engine": engine}))
+        svc = EngineService(cfg, device=device)
+    finally:
+        if saved is None:
+            del os.environ["GOME_RACECHECK"]
+        else:
+            os.environ["GOME_RACECHECK"] = saved
+    if not RACECHECK.enabled:
+        raise SystemExit("phase 15 (a): the GOME_RACECHECK hook did not arm")
+    # Thousands of per-fill INFO lines would bury the verdict.
+    feed_log = logging.getLogger("gome_tpu_torch.matchfeed")
+    feed_level = feed_log.level
+    feed_log.setLevel(logging.WARNING)
+    stop = threading.Event()
+    accepted = [0] * threads
+    rejected = [0] * threads
+    sub_events = [0]
+
+    def gateway_worker(i: int) -> None:
+        rng = random.Random(0xACE + i)
+        n = 0
+        resting: list[str] = []
+        while not stop.is_set():
+            n += 1
+            oid = f"o{i}-{n}"
+            if resting and rng.random() < 0.3:
+                dead = resting.pop(rng.randrange(len(resting)))
+                svc.gateway.DeleteOrder(
+                    pb.OrderRequest(uuid=f"u{i}", oid=dead, symbol=RACE_SYMBOL,
+                                    transaction=pb.BUY, price=1.0,
+                                    volume=1.0), None)
+                continue
+            side = pb.BUY if rng.random() < 0.5 else pb.SALE
+            r = svc.gateway.DoOrder(
+                pb.OrderRequest(uuid=f"u{i}", oid=oid, symbol=RACE_SYMBOL,
+                                transaction=side,
+                                price=round(rng.uniform(0.90, 1.10), 2),
+                                volume=float(rng.randint(1, 5))), None)
+            if r.code == 0:
+                accepted[i] += 1
+                resting.append(oid)
+            else:
+                rejected[i] += 1
+
+    def subscriber() -> None:
+        for _ in svc.feed.subscribe():
+            sub_events[0] += 1
+
+    q = svc.bus.order_queue
+    # The service's K1 inputs are kept from the consumer's start to its
+    # drain, and held against the plain version after the count is read.
+    k1 = match_step.batch_step  # the wrapper, not keep_kernel_inputs' keeper
+    with keep_kernel_inputs() as kept:
+        k1.launches = 0
+        svc.consumer.start()
+        svc.feed.start()
+        sub = threading.Thread(target=subscriber, name="drill-subscriber")
+        sub.start()
+        workers = [threading.Thread(target=gateway_worker, args=(i,),
+                                    name=f"drill-gateway-{i}")
+                   for i in range(threads)]
+        t0 = time.perf_counter()
+        for w in workers:
+            w.start()
+        time.sleep(seconds)
+        stop.set()
+        for w in workers:
+            w.join(timeout=30)
+        deadline = time.monotonic() + 180
+        while q.committed() < q.end_offset() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        svc.consumer.stop()
+        svc.feed.stop()
+        sub.join(timeout=10)
+        RACECHECK.disable()
+        feed_log.setLevel(feed_level)
+        launches = k1.launches
+        drill_s = time.perf_counter() - t0
+    on_card = torch.device(device).type == "cuda"
+    worst, kept_line = (check_kept_inputs("phase 15 (a) race drill", kept)
+                        if on_card else (0, ""))
+    kept_grids = len(distinct_kept(kept, "batch_step"))
+    del kept
+    reports = RACECHECK.reports()
+    all_reports = RACECHECK.reports(include_suppressed=True)
+    RACECHECK.reset()
+    if q.committed() != q.end_offset():
+        raise SystemExit(f"phase 15 (a): {q.committed()} of "
+                         f"{q.end_offset()} doOrder messages committed")
+    queued = [o for m in q.read_from(0, q.end_offset())
+              for o in decode_message_orders(m.body)]
+    oracle = OracleEngine()
+    for o in queued:
+        oracle.submit(o)
+    want = oracle.drain()
+    mq = svc.bus.match_queue
+    got = [decode_match_result(m.body)
+           for m in mq.read_from(0, mq.end_offset())]
+    check_events("phase 15 (a) race drill", unstamped(got), unstamped(want))
+    verdict = dict(
+        seconds=drill_s, gateway_threads=threads,
+        orders_accepted=sum(accepted), orders_rejected=sum(rejected),
+        orders_queued=len(queued), events=len(got),
+        events_fanned_out=svc.feed.events_seen,
+        subscriber_events=sub_events[0], matchfeed_seq=svc.feed.seq.state(),
+        race_reports_total=len(all_reports),
+        race_reports_suppressed=len(all_reports) - len(reports),
+        race_reports=[r.format() for r in reports], launches=launches,
+        device_calls=svc.engine.stats.device_calls, worst=worst,
+        kept_line=kept_line, kept_grids=kept_grids)
+    if not (verdict["orders_accepted"] > 0 and verdict["events"] > 0) \
+            or reports:
+        raise SystemExit(f"phase 15 (a): race drill failed: {verdict}")
+    if on_card and (
+            launches <= 0 or launches != expected_launches(svc.engine)):
+        raise SystemExit(f"phase 15 (a): {launches} K1 launches for "
+                         f"{svc.engine.stats.device_calls} device calls")
+    return verdict
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def events_sha(events) -> str:
+    import hashlib
+
+    return hashlib.sha256(repr(unstamped(events)).encode()).hexdigest()
+
+
+def mesh_rank(args) -> dict:
+    """One rank of phase 15 (b)'s mesh across processes: a process group
+    on 127.0.0.1 (gloo when the ranks share a card or run on the CPU,
+    NCCL when each owns one: parallel.mesh_backend), multihost_mesh with
+    `n_local` shards on this rank's device, phase 3's Zipf flow through
+    MatchEngine.process_frame(fast) in frames, and, with `grid`, one grid
+    through sharded_batch_step. Every rank runs the same program; the
+    result is this rank's."""
+    import torch.distributed as dist
+
+    from gome_tpu_torch.engine import BookConfig, BookState, DeviceOp, \
+        MatchEngine
+    from gome_tpu_torch.ops.match_step import batch_step
+    from gome_tpu_torch.parallel import Sharded, mesh_backend, \
+        multihost_mesh, shard_batch, sharded_batch_step
+    from gome_tpu_torch.parallel import mesh as mesh_mod
+    from gome_tpu_torch.utils.streams import multi_symbol_stream
+
+    t_boot = time.perf_counter()
+    dev = torch.device(args.device)
+    devices = [dev] * args.n_local
+    backend = mesh_backend(devices, shared_card=bool(args.shared))
+    dist.init_process_group(
+        backend, init_method=f"tcp://127.0.0.1:{args.port}",
+        rank=args.mesh_rank, world_size=args.world)
+    try:
+        mesh = multihost_mesh(args.n_local, devices=devices)
+        cfg = BookConfig(cap=args.cap, max_fills=args.max_fills,
+                         dtype=getattr(torch, args.dtype))
+        orders = multi_symbol_stream(n=args.orders, n_symbols=args.symbols,
+                                     zipf_a=1.2, cancel_prob=0.3, seed=7)
+        frames = [frame_columns(orders[i:i + args.frame_n])
+                  for i in range(0, len(orders), args.frame_n)]
+        eng = MatchEngine(cfg, n_slots=args.symbols, max_t=args.max_t,
+                          mesh=mesh)
+        boot_s = time.perf_counter() - t_boot
+        joins = [0.0, 0, 0]  # seconds, collectives, bytes this rank sent
+        saved = mesh_mod.gather_ranks, Sharded.row
+
+        def timed(fn):  # the host clock: gloo's collectives block it
+            def run(*a, **kw):
+                if fn is saved[0]:
+                    joins[2] += sum(t.numel() * t.element_size()
+                                    for t in a[1])
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    joins[0] += time.perf_counter() - t0
+                    joins[1] += 1
+            return run
+
+        mesh_mod.gather_ranks, Sharded.row = map(timed, saved)
+        batch_step.launches = 0
+        try:
+            with keep_kernel_inputs() as kept:
+                got, secs = run_frames(eng, frames)
+            launches = batch_step.launches
+        finally:
+            mesh_mod.gather_ranks, Sharded.row = saved
+        label = f"phase 15 (b) rank {args.mesh_rank}"
+        worst, kept_line = (check_kept_inputs(label, kept)
+                            if dev.type == "cuda" else (0, ""))
+        del kept
+        eng.batch.verify_books()
+        state = eng.batch.export_state()
+        out = dict(
+            rank=args.mesh_rank, backend=backend, mesh=repr(mesh),
+            boot_s=boot_s, secs=secs, joins_s=joins[0], joins=joins[1],
+            join_bytes=joins[2], frames=len(frames),
+            n_events=len(got), events_sha=events_sha(got),
+            digest=book_digest(eng), launches=launches,
+            expected=expected_launches(eng), worst=worst,
+            kept_line=kept_line,
+            stats=dataclasses.asdict(eng.stats))
+        if args.keep:
+            out.update(events=got, state=state)
+        if args.grid:
+            with np.load(args.grid) as z:
+                books = BookState(*(z[f"books_{f}"]
+                                    for f in BookState._fields))
+                ops = DeviceOp(*(z[f"ops_{f}"] for f in DeviceOp._fields))
+            gcfg = dataclasses.replace(cfg, max_fills=min(cfg.max_fills,
+                                                          cfg.cap))
+            nb, no = sharded_batch_step(gcfg, mesh)(
+                shard_batch(mesh, books), shard_batch(mesh, ops))
+            out.update(grid_books=nb.host(), grid_outs=no.host())
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_rank_worker(argv) -> int:
+    """`--mesh-rank R ...`: one rank of phase 15 (b) (mesh_rank), its
+    result pickled to --out."""
+    import argparse
+    import pickle
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --mesh-rank")
+    ap.add_argument("--mesh-rank", type=int, required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--device", default="cuda:0")
+    ap.add_argument("--grid", default="")
+    ap.add_argument("--dtype", default="int32")
+    for name, default in (("--world", MESH_RANKS), ("--port", 0),
+                          ("--shared", 1), ("--n-local", MESH_LOCAL),
+                          ("--symbols", 10240), ("--orders", 200_000),
+                          ("--frame-n", 8192), ("--cap", 256),
+                          ("--max-fills", 16), ("--max-t", 32),
+                          ("--keep", 0)):
+        ap.add_argument(name, type=int, default=default)
+    args = ap.parse_args(argv)
+    out = mesh_rank(args)
+    with open(args.out, "wb") as fh:
+        pickle.dump(out, fh)
+    return 0
+
+
+def mesh_ranks(work: str, devices, timeout_s: float = MESH_WAIT_S,
+               **kw) -> list[dict]:
+    """Phase 15 (b)'s ranks as fresh interpreters (`python3 chip_smoke.py
+    --mesh-rank r ...`), rank r on devices[r]; the ranks share a card when
+    two name the same one. kw: mesh_rank_worker's other options (symbols,
+    orders, frame_n, cap, max_fills, max_t, dtype, grid, keep). Returns
+    the ranks' results; fails (SystemExit) when a rank fails or the run
+    outlasts timeout_s."""
+    import pickle
+
+    port = free_port()
+    shared = int(len(set(map(str, devices))) < len(devices))
+    procs, outs = [], []
+    for r, dev in enumerate(devices):
+        out = os.path.join(work, f"rank{r}.pkl")
+        outs.append(out)
+        cmd = [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+               str(r), "--out", out, "--device", str(dev), "--world",
+               str(len(devices)), "--port", str(port), "--shared",
+               str(shared)]
+        for k, v in kw.items():
+            cmd += [f"--{k.replace('_', '-')}", str(v)]
+        log = open(out + ".log", "w")
+        procs.append((subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=dict(os.environ, GLOO_SOCKET_IFNAME="lo")), log))
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"phase 15 (b): the ranks outlasted {timeout_s} s")
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    results = []
+    for r, ((p, _), out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            with open(out + ".log") as fh:
+                raise SystemExit(f"phase 15 (b): rank {r} exited "
+                                 f"{p.returncode}: {fh.read()[-2000:]}")
+        with open(out, "rb") as fh:
+            results.append(pickle.load(fh))
+    return results
+
+
+def lint_gate() -> tuple[float, str]:
+    """Phase 15 (c): `python -m gome_tpu_torch.analysis gome_tpu_torch`
+    must exit 0 (no finding outside the committed baseline). Returns
+    (seconds, its summary line)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "gome_tpu_torch.analysis", "gome_tpu_torch"],
+        capture_output=True, text=True, cwd=here, timeout=300)
+    secs = time.perf_counter() - t0
+    lines = r.stdout.strip().splitlines()
+    if r.returncode != 0:
+        raise SystemExit(f"phase 15 (c): gomelint exited {r.returncode}: "
+                         + "\n".join(lines[-20:]) + r.stderr[-2000:])
+    return secs, lines[-1] if lines else ""
+
+
+def phase15(card: str, device, sizes, want_zipf, p11) -> dict:
+    """Phase 15: (a) the race drill on the card, (b) phase 11 (b)'s flow
+    on a mesh of two processes (D = 4: two cuda:0 shards each, gloo;
+    then, with two or more cards, one card each, NCCL), every rank's
+    events equal to the oracle's, its books (state digest) equal to phase
+    11 (b)'s single-process D = 4 engine's and K1 equal to its plain
+    version at its inputs, (c) the port's gomelint. Returns the numbers;
+    each part prints as it ends."""
+    t_phase = time.perf_counter()
+    v = race_drill(device, seconds=RACE_SECONDS, threads=4)
+    print(f"phase 15 (a): race drill: EngineService with GOME_RACECHECK=1 "
+          f"(lockset detector armed over MatchFeed, SeqTracker, "
+          f"OrderConsumer), {v['gateway_threads']} gateway threads through "
+          f"DoOrder/DeleteOrder for {RACE_SECONDS} s: "
+          f"{v['orders_accepted']} orders "
+          f"accepted, {v['orders_queued']} queued, {v['events']} events on "
+          f"matchOrder equal to the oracle's over doOrder in its order; "
+          f"{v['events_fanned_out']} fanned out, {v['subscriber_events']} "
+          f"to the subscriber; {v['race_reports_total']} race reports "
+          f"({v['race_reports_suppressed']} suppressed); {v['launches']} "
+          f"K1 launches = device calls")
+    print(v["kept_line"])
+    print(f"phase 15 (a) [{card}]: {v['seconds']:.2f} s, "
+          f"{v['orders_accepted'] / v['seconds']:,.0f} orders/s accepted")
+    want_sha = events_sha(want_zipf)
+    want_digest = p11["d4_digest"]
+    p11b = p11["runs"][p11["d4_name"]]
+    layouts = [("two ranks on cuda:0, gloo", ["cuda:0"] * MESH_RANKS)]
+    if torch.cuda.device_count() >= MESH_RANKS:
+        layouts.append(("a card per rank, NCCL",
+                        [f"cuda:{r}" for r in range(MESH_RANKS)]))
+    runs, worst, launches = {}, v["worst"], {}
+    for name, devs in layouts:
+        with tempfile.TemporaryDirectory(prefix="phase15b-") as work:
+            ranks = mesh_ranks(work, devs, symbols=sizes["symbols"],
+                               orders=sizes["zipf_n"],
+                               frame_n=sizes["batch"])
+        label = f"phase 15 (b) {name}"
+        for r in ranks:
+            if r["n_events"] != len(want_zipf) or r["events_sha"] != want_sha:
+                raise SystemExit(f"{label}: rank {r['rank']}'s "
+                                 f"{r['n_events']} events differ from the "
+                                 f"oracle's {len(want_zipf)}")
+            if r["digest"] != want_digest:
+                raise SystemExit(f"{label}: rank {r['rank']}'s books differ "
+                                 "from phase 11 (b)'s D=4 engine's")
+            if r["launches"] <= 0 or r["launches"] != r["expected"]:
+                raise SystemExit(f"{label}: rank {r['rank']}: "
+                                 f"{r['launches']} K1 launches, "
+                                 f"{r['expected']} expected")
+            worst = max(worst, r["worst"])
+            launches[f"{name} rank {r['rank']}"] = r["launches"]
+            print(r["kept_line"])
+        runs[name] = ranks
+        print(f"{label}: {MESH_RANKS} fresh interpreters ({ranks[0]['mesh']}"
+              f"): process_frame(fast) {sizes['zipf_n']} orders in frames "
+              f"of {sizes['batch']} on every rank -> {ranks[0]['n_events']} "
+              f"events equal to the oracle's, books verified and equal to "
+              f"phase 11 (b)'s single-process D=4 engine's (state digest "
+              f"{want_digest[:16]}); K1 launches "
+              + ", ".join(str(r["launches"]) for r in ranks)
+              + " (one per local shard per grid, = expected)")
+        print(f"phase 15 (b) [{card}] {name}: "
+              + "; ".join(f"rank {r['rank']} "
+                          f"{sizes['zipf_n'] / r['secs']:,.0f} orders/s "
+                          f"({r['secs']:.3f} s), cross-rank joins "
+                          f"{r['joins_s']:.4f} s over {r['joins']} "
+                          f"collectives ({r['join_bytes']:,} B sent, "
+                          f"{r['frames']} frames, "
+                          f"{r['stats']['frame_fallbacks']} run exactly; "
+                          f"host clock), boot "
+                          f"{r['boot_s']:.2f} s" for r in ranks)
+              + f"; phase 11 (b) D=4 in one process "
+              f"{sizes['zipf_n'] / p11b['secs']:,.0f} orders/s, output "
+              f"gathers {p11b['gather_s']:.4f} s (CUDA-event span)")
+    lint_s, lint_line = lint_gate()
+    print(f"phase 15 (c) [{card}]: python -m gome_tpu_torch.analysis "
+          f"gome_tpu_torch exited 0 in {lint_s:.2f} s ({lint_line})")
+    secs = time.perf_counter() - t_phase
+    print(f"phase 15 [{card}]: race drill, mesh across processes and "
+          f"gomelint in {secs:.1f} s")
+    return dict(race=v, runs=runs, worst=worst, launches=launches,
+                race_launches=v["launches"], seconds=secs)
+
+
+def phase15_alone() -> int:
+    """`--phase15`: phase 11 (b)'s one-process D=4 run on cuda:0 (the
+    books phase 15 (b) holds its ranks to), then phase 15; with two or
+    more cards (b) runs a card a rank too. Exits 1 without a card."""
+    from gome_tpu_torch.utils.streams import multi_symbol_stream
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --phase15: no CUDA card", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    device = torch.device("cuda")
+    card = card_line()
+    print(card)
+    load_kernel(card)
+    sizes = dict(symbols=10240, zipf_n=200_000, batch=8192)
+    zipf = multi_symbol_stream(n=sizes["zipf_n"], n_symbols=sizes["symbols"],
+                               zipf_a=1.2, cancel_prob=0.3, seed=7)
+    want = oracle_events(zipf)
+    frames = [frame_columns(zipf[i:i + sizes["batch"]])
+              for i in range(0, len(zipf), sizes["batch"])]
+    name = "D=4 on cuda:0"
+    r = mesh_frame_run(f"phase 11 (b) {name}", device, sizes, frames, want,
+                       one_card_mesh(device, 4))
+    print(f"phase 11 (b) [{card}] {name}: {len(zipf) / r['secs']:,.0f} "
+          f"orders/s ({r['secs']:.3f} s), output gathers "
+          f"{r['gather_s']:.4f} s")
+    phase15(card, device, sizes, want, dict(
+        runs={name: r}, d4_name=name, d4_digest=book_digest(r["engine"])))
+    print(f"chip_smoke --phase15 [{card}]: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def time_ms(fn, runs: int, warmup: int = 3) -> float:
     """Median per-call milliseconds with CUDA events (one call between each
     pair, so the wrapper's host work between the events counts)."""
@@ -5952,6 +6468,10 @@ def main() -> int:
         return amqp_worker(sys.argv[1:])
     if sys.argv[1:2] in (["--fleet-consumer"], ["--fleet-gateway"]):
         return fleet_worker(sys.argv[1:])
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank_worker(sys.argv[1:])
+    if sys.argv[1:2] == ["--phase15"]:
+        return phase15_alone()
     if sys.argv[1:2] == ["--obs-ab"]:
         return obs_ab()
     if sys.argv[1:2] == ["--k5-times"]:
@@ -6072,6 +6592,7 @@ def main() -> int:
     p12 = phase12(card, device, sizes, zipf, flow8, s_runs["c"])
     p13 = phase13(card, sizes, zipf, flow8, s_runs["c"])
     p14 = phase14(card, device, sizes, zipf, want_zipf, flow8, s_runs["c"])
+    p15 = phase15(card, device, sizes, want_zipf, p11)
     h_launches = ab_runs[0][2]["launches"]
     row = dict(name="match_step", **KERNEL_ROWS["match_step"],
                launches=launches, frame_path_launches=f_launches,
@@ -6094,11 +6615,13 @@ def main() -> int:
                amqp_path_launches=p12["launches"],
                obs_path_launches=p13["launches"],
                cost_profile_fleet_geometry_path_launches=p14["launches"],
+               race_drill_path_launches=p15["race_launches"],
+               process_mesh_path_launches=p15["launches"],
                max_abs_err=max(worst, f_worst, c_worst, s_worst,
                                p9["drill"]["final"]["kernel_worst"],
                                p9["svc"]["worst"], p10["worst"],
                                p11["worst"], p12["worst"], p13["worst"],
-                               p14["worst"]),
+                               p14["worst"], p15["worst"]),
                ms=results["a"]["ms"],
                device_ms=results["a"]["device_ms"], plain_ms=results["a"]["plain_ms"],
                bound_ms=results["a"]["bound_ms"],
@@ -6109,7 +6632,7 @@ def main() -> int:
                     library_ms=None, checked=True,
                     T=sizes["sim_scan_t"][0],
                     **p10["hawkes_row"])
-    print(f"chip_smoke [{card}]: phases 1-14 in "
+    print(f"chip_smoke [{card}]: phases 1-15 in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [row, scan_row]}))
     print(json.dumps({"ok": True, "device": {

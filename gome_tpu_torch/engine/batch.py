@@ -715,7 +715,11 @@ class BatchEngine:
             local = self.n_slots // d
             shard = live // local  # live is sorted (np.unique upstream)
             counts = np.bincount(shard, minlength=d)
-            r_s = max(8, bucket(int(counts.max())), floor)
+            # Uniform R_s = the bucketed max over all shards, as the
+            # reference's shard_map split needs: one hot shard pads every
+            # shard. Per-shard row counts are ROADMAP "Mesh costs to size
+            # and cut" (per-shard geometry).
+            r_s = max(8, bucket(int(counts.max())), floor)  # gomelint: disable=GL802 — owning workstream: ROADMAP "Mesh costs to size and cut" (per-shard geometry)
             if r_s * d >= self.n_slots:
                 return False, self.n_slots, None, None
             if first:
@@ -1293,7 +1297,7 @@ class BatchEngine:
         return outs, lane_overrides
 
     def _step(self, books: BookState, ops: DeviceOp, lane_ids=None,
-              cap_g: int | None = None):
+              cap_g: int | None = None, join: bool = True):
         """Run one [R, T] grid through the match step at cap class `cap_g`
         (None = the storage cap): a full grid (row == lane) on the leading
         cap_g slots of every lane, written back into a copy of the stack;
@@ -1309,7 +1313,9 @@ class BatchEngine:
         sharded_dense_step, dense ids localized as lane % local with the
         sentinel mapped to local); the per-shard outputs come together in
         row order on the home device (Sharded.gather), so the returned
-        outs are the whole [R, T] StepOutput either way."""
+        outs are the whole [R, T] StepOutput either way. With join False
+        a mesh across processes returns the Sharded outs unjoined (the
+        frame path compacts each rank's rows before it joins them)."""
         cap = self.config.cap if cap_g is None else cap_g
         cfg = dataclasses.replace(
             self.config, cap=cap, max_fills=min(self.config.max_fills, cap)
@@ -1329,6 +1335,8 @@ class BatchEngine:
                 books, outs = pm.sharded_dense_step(cfg, self.mesh)(
                     books, ids_local, ops
                 )
+            if not join and self.mesh.multiprocess:
+                return books, outs
             return books, outs.gather()
         if lane_ids is None:
             return full_grid_step(cfg, books, ops)

@@ -345,7 +345,7 @@ def _grid_ops(eng: BatchEngine, cols: np.ndarray, flat: np.ndarray,
     splits the ops by shard (flat // (R/D * T): each shard's rows are a
     contiguous block; padding columns fall past the last shard), and each
     shard's ops go up to its own device and build its [R/D, T] block there
-    (a Sharded DeviceOp)."""
+    (a Sharded DeviceOp; across processes only this process's blocks)."""
     if eng.mesh is None:
         return _scatter_grid_fn(
             eng._upload(cols), eng._upload(flat), n_rows, t_grid
@@ -357,6 +357,9 @@ def _grid_ops(eng: BatchEngine, cols: np.ndarray, flat: np.ndarray,
     shard = flat // block
     blocks = []
     for d, dev in enumerate(eng.mesh.devices):
+        if not eng.mesh.is_local(d):
+            blocks.append(None)
+            continue
         sel = shard == d
         blocks.append(_scatter_grid_fn(
             to_device(cols[:, sel], dev), to_device(flat[sel] - d * block, dev),
@@ -553,7 +556,8 @@ def _decode_compact(eng, meta, shape, fetched) -> dict:
     return {name: v[order] for name, v in columns.items()}
 
 
-def compact_accum(outs, fills_acc, cancels_acc, totals_acc, g: int):
+def compact_accum(outs, fills_acc, cancels_acc, totals_acc, g: int,
+                  row0: int = 0):
     """Append one grid's compacted events into the FRAME-level buffers, in
     place, with no host sync.
 
@@ -564,7 +568,10 @@ def compact_accum(outs, fills_acc, cancels_acc, totals_acc, g: int):
     fill, and appends past the buffer), so the events are the [:, :e]
     prefix. totals_acc[g] records this grid's TRUE fill and cancel counts
     (the whole mask sums, even when appends dropped), the sum of its
-    book_overflow flags and its largest n_fills."""
+    book_overflow flags and its largest n_fills. ``outs`` may be a run of
+    the grid's rows starting at row ``row0`` (one rank's rows of a mesh
+    across processes): the events' src indexes count from the grid's
+    first row."""
     e_fills = fills_acc.shape[1] - 1
     e_cancels = cancels_acc.shape[1] - 1
     wide = fills_acc.dtype
@@ -579,7 +586,8 @@ def compact_accum(outs, fills_acc, cancels_acc, totals_acc, g: int):
         outs.maker_remaining == 0, outs.maker_prefill, outs.maker_remaining
     )
     fill_src = dict(
-        src=torch.arange(r * t_len * k, dtype=torch.int32, device=fq.device),
+        src=torch.arange(row0 * t_len * k, (row0 + r) * t_len * k,
+                         dtype=torch.int32, device=fq.device),
         fill_price=outs.fill_price,
         fill_qty=fq,
         maker_oid=outs.maker_oid,
@@ -596,7 +604,8 @@ def compact_accum(outs, fills_acc, cancels_acc, totals_acc, g: int):
     cidx = torch.cumsum(cmask, 0) - 1
     ctgt = torch.where(cmask, (off_c + cidx).clamp(max=e_cancels), e_cancels)
     cancel_src = dict(
-        src=torch.arange(r * t_len, dtype=torch.int32, device=fq.device),
+        src=torch.arange(row0 * t_len, (row0 + r) * t_len,
+                         dtype=torch.int32, device=fq.device),
         volume=outs.cancel_volume,
     )
     cvals = torch.stack(
@@ -612,6 +621,54 @@ def compact_accum(outs, fills_acc, cancels_acc, totals_acc, g: int):
         ]
     ).to(torch.int32)
     return fills_acc, cancels_acc, totals_acc
+
+
+def _merge_rank_events(counts, bufs, cap: int) -> torch.Tensor:
+    """One event buffer [F, cap + 1] from every rank's: ``bufs[r]`` holds
+    rank r's events grid after grid (``counts[r, g]`` of grid g, true
+    counts: past ``cap`` they were dropped), and the result holds grid
+    g's events of rank 0, then rank 1's, ..., then grid g + 1's (the
+    grid's row order, since ranks hold contiguous runs of rows). Events
+    past ``cap`` land on the sentinel column ``cap``, as compact_accum's
+    do. No host read: the counts stay on their device."""
+    w, g_n = counts.shape
+    dev = counts.device
+    incl = counts.cumsum(1)  # [W, G]
+    src_off = incl - counts
+    grid_off = counts.sum(0).cumsum(0) - counts.sum(0)  # [G]
+    dest_base = grid_off[None, :] + counts.cumsum(0) - counts  # [W, G]
+    j = torch.arange(cap, device=dev).repeat(w, 1)
+    g_of = torch.searchsorted(incl, j, right=True).clamp(max=g_n - 1)
+    dest = (dest_base.gather(1, g_of) + j - src_off.gather(1, g_of))
+    dest = torch.where(j < incl[:, -1:], dest.clamp(max=cap), cap)
+    merged = torch.zeros((bufs[0].shape[0], cap + 1), dtype=bufs[0].dtype,
+                         device=dev)
+    merged[:, dest.reshape(-1)] = torch.cat([b[:, :cap] for b in bufs], 1)
+    return merged
+
+
+def join_rank_events(mesh, totals_acc, fills_acc, cancels_acc):
+    """The frame-level buffers of a mesh across processes, joined: each
+    rank compacted only its own rows' events (compact_accum with its
+    row0), and one all-gather of the three buffers (events, not record
+    slots) gives every rank the buffers one process would have made, on
+    the home device: per-grid counts and overflow flags summed, the
+    largest n_fills the max, the events merged in the grid's row order
+    (_merge_rank_events). A collective: every rank calls it."""
+    from ..parallel.mesh import gather_ranks
+
+    got = gather_ranks(mesh, [totals_acc, fills_acc, cancels_acc])
+    tot = torch.stack([r[0] for r in got]).to(torch.int64)  # [W, G, 4]
+    totals = torch.stack([
+        tot[:, :, 0].sum(0), tot[:, :, 1].sum(0), tot[:, :, 2].sum(0),
+        tot[:, :, 3].max(0).values,
+    ], 1).to(torch.int32)
+    fills = _merge_rank_events(tot[:, :, 0], [r[1] for r in got],
+                               fills_acc.shape[1] - 1)
+    cancels = _merge_rank_events(tot[:, :, 1], [r[2] for r in got],
+                                 cancels_acc.shape[1] - 1)
+    home = mesh.home
+    return (totals.to(home), fills.to(home), cancels.to(home))
 
 
 class PendingFrame:
@@ -687,10 +744,20 @@ def submit_frame(eng: BatchEngine, cols: dict) -> PendingFrame:
             t_disp = TRACER.clock() if TRACER.enabled else 0.0
             t_disp_j = JOURNAL.clock() if JOURNAL.enabled else 0.0
             with TRACER.annotation("grid_dispatch"):
-                books, outs = eng._step(books, ops, lane_ids, cap_g)
+                if eng.mesh is not None and eng.mesh.multiprocess:
+                    # A mesh across processes: this rank compacts its own
+                    # rows; the frame's buffers join once, after the loop.
+                    books, outs = eng._step(books, ops, lane_ids, cap_g,
+                                            join=False)
+                    n_rows = outs.rows
+                    outs, row0 = outs.gather_local()
+                else:
+                    books, outs = eng._step(books, ops, lane_ids, cap_g)
+                    n_rows, row0 = int(outs.n_fills.shape[0]), 0
                 eng.stats.device_calls += 1
-                n_rows, t_grid = outs.n_fills.shape
-                compact_accum(outs, fills_acc, cancels_acc, totals_acc, g_i)
+                t_grid = int(outs.n_fills.shape[1])
+                compact_accum(outs, fills_acc, cancels_acc, totals_acc, g_i,
+                              row0)
             meta["_n_rows"] = n_rows
             # The record axis K comes from the ARRAY, never from
             # config.max_fills: with cap < max_fills the step's record axis
@@ -731,6 +798,9 @@ def submit_frame(eng: BatchEngine, cols: dict) -> PendingFrame:
             eng.record_combo(combo)
         eng.books = books
         if grids:
+            if eng.mesh is not None and eng.mesh.multiprocess:
+                totals_acc, fills_acc, cancels_acc = join_rank_events(
+                    eng.mesh, totals_acc, fills_acc, cancels_acc)
             compact = (totals_acc, fills_acc, cancels_acc)
             # Phase-1 fetch starts now: totals (+ counts_max) are tiny and
             # resolve needs them first. Only multi-class engines read

@@ -65,7 +65,7 @@ class CompileJournal:
         # Off-lock read is the hot-path fast check: the reference read is
         # atomic and mutators re-check under the lock (same benign-race
         # contract as Tracer.recorder).
-        return self._entries is not None
+        return self._entries is not None  # gomelint: disable=GL402
 
     def install(
         self,
@@ -105,7 +105,8 @@ class CompileJournal:
         (or the built source's name); `seconds` the wall-clock the caller
         measured; `detail` an optional analytic block (see
         frame_combo_detail). No-op (one attribute check) while disabled."""
-        if self._entries is None:  # fast check; re-checked under the lock
+        if self._entries is None:  # gomelint: disable=GL402 — fast check;
+            # disabled-state contract: zero work, re-checked locked
             return
         rec = {
             "entry": entry,

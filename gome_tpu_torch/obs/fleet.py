@@ -261,7 +261,7 @@ class FleetAggregator:
     def enabled(self) -> bool:
         # Off-lock read is the fast check (same benign-race contract as
         # TimelineSampler.enabled / Tracer.recorder).
-        return self._members is not None
+        return self._members is not None  # gomelint: disable=GL402
 
     # -- lifecycle ---------------------------------------------------------
     def install(
@@ -341,7 +341,7 @@ class FleetAggregator:
         None while disabled. Disabled = one attribute check, zero
         allocations (the guarded hot-path contract — an embedding
         service may call this unconditionally)."""
-        members = self._members
+        members = self._members  # gomelint: disable=GL402 — fast check;
         if members is None:  # disabled-state contract, re-checked below
             return None
         snap = {name: self._scrape_member(url) for name, url in members.items()}
@@ -368,7 +368,7 @@ class FleetAggregator:
     def poll_age_s(self, name: str) -> float | None:
         """Seconds since `name`'s last fully-successful scrape, or None
         if it has never been scraped successfully."""
-        t = self._last_ok.get(name)
+        t = self._last_ok.get(name)  # gomelint: disable=GL402 — stale read OK
         return None if t is None else max(self._clock() - t, 0.0)
 
     def member_up(self, name: str) -> bool:
@@ -376,7 +376,7 @@ class FleetAggregator:
         (poll age within stale_after_s) — the gome_fleet_member_up
         gauge value. An unreachable or stale member reads 0, never a
         silently-served stale merge."""
-        st = self._last.get(name)
+        st = self._last.get(name)  # gomelint: disable=GL402 — stale read OK
         if st is None or st["error"] is not None:
             return False
         age = self.poll_age_s(name)
@@ -430,7 +430,7 @@ class FleetAggregator:
         """Run the periodic poller on a daemon thread (idempotent). The
         cadence is fixed at install() time — one config point keeps
         interval_s genuinely single-writer."""
-        if self._members is None:
+        if self._members is None:  # gomelint: disable=GL402 — arm check;
             # a disable() racing start() is caught by poll()'s own
             # locked re-check (the thread then records nothing)
             raise RuntimeError("install() the aggregator before start()")
@@ -462,7 +462,7 @@ class FleetAggregator:
         """{member: FlightRecorder export} fetched from every member's
         ``/trace?format=journeys`` (None for a member whose fetch
         failed); {} while disabled."""
-        members = self._members
+        members = self._members  # gomelint: disable=GL402 — see poll()
         if members is None:
             return {}
         out = {}
@@ -636,27 +636,27 @@ class FleetAggregator:
         registry.callback_gauge(
             "gome_fleet_members",
             "member processes the fleet aggregator is polling",
-            lambda: len(self._members or ()),
+            lambda: len(self._members or ()),  # gomelint: disable=GL402
         )
         registry.callback_gauge(
             "gome_fleet_polls_total",
             "fleet poll sweeps completed since install",
-            lambda: self._polls,
+            lambda: self._polls,  # gomelint: disable=GL402 — see _export
         )
         registry.callback_gauge(
             "gome_fleet_unhealthy_polls_total",
             "poll sweeps that saw >=1 unhealthy member",
-            lambda: self._unhealthy_polls,
+            lambda: self._unhealthy_polls,  # gomelint: disable=GL402
         )
         registry.callback_gauge(
             "gome_fleet_degraded_polls_total",
             "poll sweeps that saw >=1 degraded member (breaker/spill)",
-            lambda: self._degraded_polls,
+            lambda: self._degraded_polls,  # gomelint: disable=GL402
         )
         registry.callback_gauge(
             "gome_fleet_fetch_errors_total",
             "member endpoint fetches that failed",
-            lambda: self._fetch_errors,
+            lambda: self._fetch_errors,  # gomelint: disable=GL402
         )
         registry.callback_gauge(
             "gome_fleet_partition_imbalance",
@@ -667,7 +667,7 @@ class FleetAggregator:
         # Per-member liveness: one labeled child per member name (the
         # member set is fixed at install time). 1 = latest scrape
         # succeeded and is fresh; 0 = unreachable or stale.
-        for name in (self._members or {}):
+        for name in (self._members or {}):  # gomelint: disable=GL402
             registry.callback_gauge(
                 "gome_fleet_member_up",
                 "1 while the member's latest poll succeeded and is fresh "

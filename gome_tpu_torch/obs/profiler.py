@@ -665,7 +665,7 @@ class Profiler:
 
     @property
     def enabled(self) -> bool:
-        return self._reports is not None
+        return self._reports is not None  # gomelint: disable=GL402
 
     def install(
         self,
@@ -695,8 +695,8 @@ class Profiler:
         count, per-shard row-block height (the bucketed max), and the
         per-shard LIVE lane counts (``np.bincount`` the caller already
         holds). Disabled: one attribute check, zero allocations."""
-        shards = self._shards  # lock-free fast check; re-validated below
-        if shards is None:
+        shards = self._shards  # gomelint: disable=GL402 — lock-free fast
+        if shards is None:  # check; the locked append below re-validates
             return
         with self._lock:
             if self._shards is not None:
@@ -801,7 +801,7 @@ class Profiler:
         reg.callback_gauge(
             "gome_profile_captures_total",
             "Measured-roofline captures taken since arm",
-            lambda: self._captures,
+            lambda: self._captures,  # gomelint: disable=GL402 — see _export
         )
         reg.callback_gauge(
             "gome_profile_shard_skew",

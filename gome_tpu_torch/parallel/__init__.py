@@ -7,6 +7,8 @@ from .mesh import (
     Sharded,
     global_fill_rate,
     make_mesh,
+    mesh_backend,
+    process_mesh,
     shard_batch,
     shard_execution_report,
     sharded_batch_step,
@@ -20,6 +22,8 @@ __all__ = [
     "Sharded",
     "global_fill_rate",
     "make_mesh",
+    "mesh_backend",
+    "process_mesh",
     "shard_batch",
     "shard_execution_report",
     "sharded_batch_step",

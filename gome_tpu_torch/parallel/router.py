@@ -162,10 +162,24 @@ class _ResultsBatch:
         ]
 
 
-def multihost_mesh(n_local: int | None = None):
-    """The 1-D symbol mesh over this host's CUDA cards (all of them by
-    default; raises when fewer than n_local exist). A mesh across
-    processes or hosts is not ported yet."""
-    from .mesh import make_mesh
+def multihost_mesh(n_local: int | None = None, devices=None):
+    """Global 1-D symbol mesh across all participating processes' devices.
 
-    return make_mesh(n_local)
+    Without an initialized ``torch.distributed`` group: the local mesh
+    (``make_mesh(n_local, devices)``: this host's cards, all of them by
+    default), the reference's single-host behaviour. With one (the
+    counterpart of ``jax.distributed.initialize()``): every rank calls
+    this with its own ``n_local`` shards (on ``devices``, default its
+    first ``n_local`` visible cards), and the mesh spreads shard blocks
+    over the ranks (``mesh.process_mesh``). Every rank then runs the same
+    engine on the same frames, steps only its own blocks, and joins
+    whole-stack reads with collectives; the group's backend must serve
+    the layout (``mesh.mesh_backend``) or this raises."""
+    import torch.distributed as dist
+
+    from .mesh import make_mesh, process_mesh
+
+    local = make_mesh(n_local, devices=devices)
+    if not (dist.is_available() and dist.is_initialized()):
+        return local
+    return process_mesh(local.devices)

@@ -19,6 +19,8 @@ The port of ``gome_tpu/service/app.py``. The engine runs on the CUDA card
 
 from __future__ import annotations
 
+import os
+
 from ..bus import make_bus
 from ..config import Config
 from ..engine.orchestrator import MatchEngine
@@ -262,8 +264,14 @@ class EngineService:
             # wedged loop (HealthMonitor.stall_after_s without a step),
             # never merely a service older than stall_after_s with backlog.
             self.consumer.heartbeat = self.ops.monitor.heartbeat
-        # The reference's GOME_RACECHECK=1 hook (analysis.racecheck) comes
-        # with the port of analysis/ (ROADMAP Queue 1 item 6).
+        if os.environ.get("GOME_RACECHECK") == "1":
+            # Arm the dynamic lockset race detector (analysis.racecheck)
+            # over the service's cross-thread hotspots — the race drill's
+            # hook. Local import behind the env check: a normal boot
+            # neither imports nor pays for it.
+            from ..analysis.racecheck import maybe_arm
+
+            maybe_arm(self)
 
     def start(self):
         """Start gRPC server + consumer + feed threads (+ the ops HTTP
