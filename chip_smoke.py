@@ -76,7 +76,7 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      card, three runs: (b) depth 0 and (a) depth 2 with a SubscribeMatches
      stream opened first through the port's OrderStub, (c) depth 0 with
      no subscriber. Phase 3's 200,000 orders ((b), (a): their first
-     102,400) go over the wire as DoOrderBatch requests of 4,096 (cancels
+     53,248) go over the wire as DoOrderBatch requests of 4,096 (cancels
      in the mask), one at a time, then two DoOrder and one DeleteOrder;
      the stream must deliver the oracle's events through
      match_result_to_pb, byte for byte, in order ((c): the match queue's
@@ -111,7 +111,7 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      equal leaf by leaf; (c) phase 8 (c)'s service with a persist:
      section (every 4 batches, one request per consumer batch, file
      bus) and a redis: section naming a FakeRedisServer (marks through
-     RespPrePool): the flow's first 53,248 orders over the wire, stopped,
+     RespPrePool): the flow's first 20,480 orders over the wire, stopped,
      and a second service over the same directories and store whose
      start() restores: books equal, /durability reports the
      restore, the match queue's documents equal the oracle's with seqs
@@ -182,7 +182,7 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
  12. the RabbitMQ transport (gome_tpu_torch.bus.amqp, the port's
      FakeBroker in this process): (a) phase 8 (c)'s service (depth 0,
      json wire, no subscriber) booted from a config whose rabbitmq:
-     section names the broker, over the flow's first 102,400 orders and
+     section names the broker, over the flow's first 53,248 orders and
      the unary tail: matchOrder bodies, read back through the service's
      AMQP match queue, the oracle's, the flow's byte-equal to phase 8
      (c)'s, /healthz
@@ -246,7 +246,7 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      ...`: traced scalar loop, file bus, placement) and a consumer process
      on the card (`--fleet-consumer`: EngineService with a redis: store,
      ops.trace on; K1 launches = device calls, K1 at its inputs), the
-     flow's first 20,000 orders routed by fleet.partition_of, this
+     flow's first 10,000 orders routed by fleet.partition_of, this
      process's obs.fleet.FLEET polling the four ops servers: merged
      /metrics family totals equal to the members' sums, no unhealthy,
      degraded or failed poll, an exact fleet-wide seq audit, journeys
@@ -270,7 +270,27 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      engine's, K1 launches = one per local shard per grid, K1 equal to
      its plain version at the rank's inputs; orders/s and the cross-rank
      joins' seconds beside 11 (b)'s; (c) `python -m
-     gome_tpu_torch.analysis gome_tpu_torch` exits 0.
+     gome_tpu_torch.analysis gome_tpu_torch` exits 0;
+ 16. fuzz, soak and the compile surface: (a) scripts/fuzz.py's run_case
+     (seeds 1000..1099) and run_sim_case (seeds 7000..7003) on the port
+     (fuzz_case, fuzz_sim_case: the same rng draws, so a seed gives the
+     reference's geometry, mode, orders and chunking; the sim cases'
+     flow comes from the port's simulator on the card), every case's
+     events equal to the port's oracle's, books verified, K1 launched in
+     every case; cases by mode and dtype, escalations, K1 and K5
+     launches; (b) scripts/soak.py's run_soak (soak_drill): bench.py's
+     mixed flow (MixedFlow) through gateway steps and an OrderConsumer
+     at depth 2 (frame wire, memory bus) on an engine of 10,240 symbols,
+     cap 256, K 16, int32, frames of 8,192, warmed off the record, then
+     settled until the geometry has held for 1,024 frames (at most 3,072),
+     then 30 s of wall clock with the timeline and the compile journal
+     armed; verdicts live_buffers_flat, rss_bounded, geometry_stable (no
+     combo minted in the timed window) and zero_breaker_trips, the
+     journal's export inside the committed combo universe (GL906), and
+     K1 held against its plain version at the inputs the soak gave it;
+     (c) GL906 over phases 13 (a) and 14 (a)'s
+     journal exports; (d) `python -m gome_tpu_torch.analysis
+     gome_tpu_torch --select GL9 --journal <(b)'s export>` exits 0.
 
 The last two lines are the kernel table (JSON) and
 {"ok": true, "device": {...}}.
@@ -288,6 +308,13 @@ A, ...) to compare them on one card.
 runs phase 11 (b)'s one-process D=4 run and then phase 15 alone (about two
 minutes on one card; under four cards (b) runs a card a rank too).
 
+    python3 chip_smoke.py --soak SECONDS
+    python3 chip_smoke.py --fuzz N [SEED0]
+
+run phase 16 (b)'s soak for SECONDS, or phase 16 (a)'s fuzz over N
+run_case seeds from SEED0 (1000 by default) and the four sim seeds (a
+line a case, as scripts/fuzz.py prints them), alone on the card.
+
     python3 chip_smoke.py --obs-ab
 
 runs phase 8 (c)'s service and flow with every obs/ flag off, with
@@ -295,6 +322,12 @@ timeline, hostprof and placement each armed alone, and with all three
 (phase 13 (a)'s armed run), in the order off, all, timeline, hostprof,
 placement, placement, hostprof, timeline, all, off: bodies byte-equal
 in every run; prints one JSON line of each run's orders/s and split.
+
+    python3 chip_smoke.py --prefix-warm-ab
+
+times phase 14 (c)'s warm first frames with and without the reference's
+prefix-slice warm-up after load_geometry (three rounds of plain, slices,
+slices, plain; events equal across engines).
 """
 
 from __future__ import annotations
@@ -306,6 +339,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1023,34 +1057,143 @@ def distinct_kept(kept, name) -> list:
     return list({id(args): args for _, args in kept[name].values()}.values())
 
 
+#: main() sets this to a list: check_kept_inputs then queues each call's
+#: kept K1 grids on the card (not those kept with `every`), and
+#: check_queued_inputs holds them all against the plain version after
+#: phase 16, the grids of one config in one plain run (plain_grouped),
+#: where each call's own plain runs stepped every deep grid's 1,024
+#: columns again. The port writes no kernel input in place (the engine's
+#: write-backs go into copies), so the kept grids still hold what the
+#: kernel saw.
+KEPT_QUEUE: list | None = None
+#: Cells (rows x columns) of one grouped plain run at most.
+GROUP_CELLS = 1 << 21
+
+
+def kept_shape(config, ops) -> str:
+    s, t = ops.action.shape
+    return (f"{s}x{t}@{config.cap}/K{config.max_fills}/"
+            f"{str(config.dtype)[6:]}{card_tag(ops.action)}")
+
+
+def kept_line(label, grids, every: bool) -> str:
+    shapes: dict = {}
+    for config, _, ops in grids:
+        shape = kept_shape(config, ops)
+        shapes[shape] = shapes.get(shape, 0) + 1
+    which = "the deepest and the widest grid of each launch shape"
+    if every:
+        which += ", every kept call"
+    return (f"{label}: kernel equal to its plain version on every leaf at "
+            f"the inputs its path gave it ({which}): "
+            + ", ".join(f"{k} x{v}" for k, v in shapes.items()))
+
+
+def kept_error(label, config, ops, err) -> SystemExit:
+    s, t = ops.action.shape
+    return SystemExit(f"{label}: kernel differs from its plain version on "
+                      f"the {s}x{t} grid at cap {config.cap}, K "
+                      f"{config.max_fills}, {config.dtype} (max |err| {err})")
+
+
 def check_kept_inputs(label, kept) -> tuple[int, str]:
     """Re-run every kept K1 grid through the kernel and its plain version;
     every book and StepOutput leaf must be equal. These launches come after
-    the main path's count is read. Returns (worst |error|, report line)."""
+    the main path's count is read. With KEPT_QUEUE set, card grids are
+    queued for check_queued_inputs instead. Returns (worst |error|, report
+    line)."""
     from gome_tpu_torch.ops.match_step import batch_step, batch_step_reference
 
-    worst, shapes = 0, {}
-    for config, books, ops in distinct_kept(kept, "batch_step"):
+    grids = distinct_kept(kept, "batch_step")
+    every = "last" in kept["batch_step"]
+    if KEPT_QUEUE is not None and grids and not every and \
+            all(books.price.is_cuda for _, books, _ in grids):
+        KEPT_QUEUE.append((label, grids))
+        return 0, (f"{label}: K1 inputs kept at "
+                   + ", ".join(kept_shape(c, o) for c, _, o in grids)
+                   + "; held against its plain version after phase 16")
+    worst = 0
+    for config, books, ops in grids:
         nb, out = batch_step(config, books, ops)
         pb, pout = batch_step_reference(config, books, ops)
         sync(books.price.device)
         err = max(max_abs_err(out, pout), max_abs_err(nb, pb))
-        s, t = ops.action.shape
         if err:
-            raise SystemExit(f"{label}: kernel differs from its plain "
-                             f"version on the {s}x{t} grid at cap "
-                             f"{config.cap}, K {config.max_fills}, "
-                             f"{config.dtype} (max |err| {err})")
-        worst = max(worst, err)
-        shape = (f"{s}x{t}@{config.cap}/K{config.max_fills}/"
-                 f"{str(config.dtype)[6:]}{card_tag(ops.action)}")
-        shapes[shape] = shapes.get(shape, 0) + 1
-    which = "the deepest and the widest grid of each launch shape"
-    if "last" in kept["batch_step"]:
-        which += ", every kept call"
-    return worst, (f"{label}: kernel equal to its plain version on every "
-                   f"leaf at the inputs its path gave it ({which}): "
-                   + ", ".join(f"{k} x{v}" for k, v in shapes.items()))
+            raise kept_error(label, config, ops, err)
+    return worst, kept_line(label, grids, every)
+
+
+def plain_grouped(config, grids) -> list:
+    """batch_step_reference over several (books, ops) grids of one config
+    in one run: rows stacked, each grid's ops padded to the widest T with
+    NOP columns (a NOP leaves its row's book as it was), so the run steps
+    the deepest grid's columns once instead of every grid's. Rows never
+    meet in the plain version. Returns each grid's (books, outputs)."""
+    from gome_tpu_torch.engine.book import BookState, DeviceOp, StepOutput
+    from gome_tpu_torch.ops.match_step import batch_step_reference
+
+    t_max = max(ops.action.shape[1] for _, ops in grids)
+    books = BookState(*(torch.cat(leaf) for leaf in zip(*(b for b, _ in grids))))
+    ops = DeviceOp(*(
+        torch.cat([torch.cat([f, f.new_zeros(f.shape[0], t_max - f.shape[1])],
+                             dim=1) for f in leaf])
+        for leaf in zip(*(o for _, o in grids))))
+    nb, out = batch_step_reference(config, books, ops)
+    res, r = [], 0
+    for _, o in grids:
+        s, t = o.action.shape
+        res.append((BookState(*(x[r:r + s] for x in nb)),
+                    StepOutput(*(x[r:r + s, :t] for x in out))))
+        r += s
+    return res
+
+
+def check_queued_inputs(label: str) -> tuple[int, float]:
+    """Hold every grid queued in KEPT_QUEUE against the plain version and
+    empty the queue: per config and card, the grids deepest first, in
+    plain runs of at most GROUP_CELLS padded cells (plain_grouped), each
+    grid's kernel run on its own. Prints each queued call's line as
+    check_kept_inputs would have; SystemExit on any difference. Returns
+    (worst |error|, seconds)."""
+    from gome_tpu_torch.ops.match_step import batch_step
+
+    t0 = time.perf_counter()
+    queue = list(KEPT_QUEUE or ())
+    KEPT_QUEUE[:] = []
+    groups: dict = {}
+    for i, (_, grids) in enumerate(queue):
+        for config, books, ops in grids:
+            groups.setdefault((config, books.price.device), []).append(
+                (i, books, ops))
+    n_runs = 0
+    for (config, device), items in groups.items():
+        items.sort(key=lambda it: -it[2].action.shape[1])
+        chunks, rows = [], 0
+        for it in items:
+            s = it[2].action.shape[0]
+            if chunks and (rows + s) * chunks[-1][0][2].action.shape[1] \
+                    <= GROUP_CELLS:
+                chunks[-1].append(it)
+                rows += s
+            else:
+                chunks.append([it])
+                rows = s
+        for chunk in chunks:
+            plain = plain_grouped(config, [(b, o) for _, b, o in chunk])
+            n_runs += 1
+            for (i, books, ops), (pb, pout) in zip(chunk, plain):
+                nb, out = batch_step(config, books, ops)
+                sync(device)
+                err = max(max_abs_err(out, pout), max_abs_err(nb, pb))
+                if err:
+                    raise kept_error(queue[i][0], config, ops, err)
+    for call_label, grids in queue:
+        print(kept_line(call_label, grids, False))
+    secs = time.perf_counter() - t0
+    print(f"{label}: the {sum(len(g) for _, g in queue)} K1 grids kept by "
+          f"{len(queue)} calls held against the plain version in {n_runs} "
+          f"grouped plain runs, {secs:.1f} s")
+    return 0, secs
 
 
 def check_kept_scans(label, kept) -> tuple[float, str]:
@@ -1717,9 +1860,9 @@ SERVICE_PARTS = ("gateway", "consumer", "consumer_wait", "publish", "feed",
 # (label, pipeline depth, whether a SubscribeMatches stream takes the events)
 SERVICE_RUNS = (("b", 0, True), ("a", 2, True), ("c", 0, False))
 #: (b) and (a), the runs with a subscriber (one gRPC message an event,
-#: ~2,000-4,500 orders/s), send the flow's first 25 DoOrderBatch requests
-#: (102,400 orders) and leave load_client to (c): the script's time limit.
-SUBSCRIBED_REQUESTS = 25
+#: ~2,000-4,500 orders/s), send the flow's first 13 DoOrderBatch requests
+#: (53,248 orders) and leave load_client to (c): the script's time limit.
+SUBSCRIBED_REQUESTS = 13
 #: Phase 12 (a), the service over AMQP (one confirmed publish an event,
 #: ~2,600-4,900 orders/s), sends the same first requests: the script's
 #: time limit.
@@ -2195,11 +2338,11 @@ PERSIST_EVERY = 4  # the drill's snapshot cadence, in committed batches
 DRILL_ORDERS = 102_400  # (a): the flow's first orders, 13 ORDER frames
 PERSIST_KEEP = 8
 SERVICE_PERSIST_EVERY = 4  # (c)'s cadence
-#: (c) sends the flow's first 13 DoOrderBatch requests (53,248 orders):
-#: snapshots at 4, 8 and 12, one request for the restored service to
-#: replay. The file bus fsyncs every event, so the flow's length is the
-#: script's time limit.
-DURABLE_REQUESTS = 13
+#: (c) sends the flow's first 5 DoOrderBatch requests (20,480 orders): a
+#: snapshot at 4, one request for the restored service to replay (the
+#: snapshots and restores at cap 1,024 are (a)'s and (b)'s). The file bus
+#: fsyncs every event, so the flow's length is the script's time limit.
+DURABLE_REQUESTS = 5
 
 
 def kill_plan(cycle: int):
@@ -4924,6 +5067,7 @@ def phase13(card: str, sizes, zipf, flow8, p8c) -> dict:
             raise SystemExit("phase 13 (a): the armed run made no "
                              "submit_frame call")
         journal = JOURNAL.summary()
+        journal_export = JOURNAL.export()
         disarm_obs()
         a_worst, kept_line = check_kept_inputs("phase 13 (a)", kept)
         del kept
@@ -5022,7 +5166,8 @@ def phase13(card: str, sizes, zipf, flow8, p8c) -> dict:
     return dict(worst=a_worst, seconds=secs, launches=dict(
         disarmed=off["launches"], armed=on["launches"],
         traced=traced["launches"]),
-        ratio=rate_on / rate_off, p50=c["p50"], stages=stages)
+        ratio=rate_on / rate_off, p50=c["p50"], stages=stages,
+        journal=journal_export)
 
 
 # -- phase 14 ----------------------------------------------------------------
@@ -5030,7 +5175,7 @@ def phase13(card: str, sizes, zipf, flow8, p8c) -> dict:
 #: (a)'s armed run: the compile journal (cost) and the measured-roofline
 #: profiler (profile); the other obs/ flags stay off.
 COST_ARMED = dict(cost=True, profile=True)
-FLEET_ORDERS = 20_000  # (b): the flow's first orders over the partitions
+FLEET_ORDERS = 10_000  # (b): the flow's first orders over the partitions
 FLEET_PARTITIONS = 2
 FLEET_WAIT_S = 240  # (b): boot, drive and drain of the whole fleet
 GEOMETRY_FRAMES = 8  # (c): the first frames timed cold and warm
@@ -5216,7 +5361,7 @@ def phase14a(card: str, sizes, zipf, flow8, p8c) -> dict:
     the sender starts once a quarter of the requests are sent) and once
     after; bodies
     byte-equal to phase 8 (c)'s; K1 at the run's inputs."""
-    from gome_tpu_torch.obs import costmodel, profiler
+    from gome_tpu_torch.obs import JOURNAL, costmodel, profiler
     from gome_tpu_torch.ops.match_step import batch_step
 
     requests, tail, want = flow8
@@ -5232,6 +5377,9 @@ def phase14a(card: str, sizes, zipf, flow8, p8c) -> dict:
                 mid=lambda svc, started: cost_profile_reads(
                     label + " mid-flow", svc, started),
                 on_done=lambda svc: cost_profile_reads(label + " after", svc))
+        # ops.cost armed the compile journal: phase 16 (c) holds its
+        # export to the committed combo universe.
+        journal_export = JOURNAL.export()
     finally:
         disarm_obs()
     worst, kept_line = check_kept_inputs("phase 14 (a)", kept)
@@ -5306,7 +5454,7 @@ def phase14a(card: str, sizes, zipf, flow8, p8c) -> dict:
                 mid={e: r["device_us_per_call"] for e, r in mid["rows"].items()},
                 after={e: r["device_us_per_call"]
                        for e, r in after["rows"].items()},
-                k1_total=costmodel.ENTRY_K1_LAUNCHES)
+                k1_total=costmodel.ENTRY_K1_LAUNCHES, journal=journal_export)
 
 
 def fleet_gateway(args) -> dict:
@@ -6144,19 +6292,21 @@ def mesh_ranks(work: str, devices, timeout_s: float = MESH_WAIT_S,
     return results
 
 
-def lint_gate() -> tuple[float, str]:
-    """Phase 15 (c): `python -m gome_tpu_torch.analysis gome_tpu_torch`
-    must exit 0 (no finding outside the committed baseline). Returns
-    (seconds, its summary line)."""
+def lint_gate(label: str = "phase 15 (c)", *args) -> tuple[float, str]:
+    """`python -m gome_tpu_torch.analysis gome_tpu_torch [args]` must exit
+    0 (no finding outside the committed baseline): phase 15 (c) with no
+    arguments, phase 16 (d) with GL9 and a journal. Returns (seconds, its
+    summary line)."""
     here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     r = subprocess.run(
-        [sys.executable, "-m", "gome_tpu_torch.analysis", "gome_tpu_torch"],
+        [sys.executable, "-m", "gome_tpu_torch.analysis", "gome_tpu_torch",
+         *args],
         capture_output=True, text=True, cwd=here, timeout=300)
     secs = time.perf_counter() - t0
     lines = r.stdout.strip().splitlines()
     if r.returncode != 0:
-        raise SystemExit(f"phase 15 (c): gomelint exited {r.returncode}: "
+        raise SystemExit(f"{label}: gomelint exited {r.returncode}: "
                          + "\n".join(lines[-20:]) + r.stderr[-2000:])
     return secs, lines[-1] if lines else ""
 
@@ -6276,6 +6426,964 @@ def phase15_alone() -> int:
         runs={name: r}, d4_name=name, d4_digest=book_digest(r["engine"])))
     print(f"chip_smoke --phase15 [{card}]: {time.perf_counter() - t0:.1f} s")
     return 0
+
+
+# -- phase 16: fuzz, soak, the compile surface -------------------------------
+
+FUZZ_SEED0 = 1000  # scripts/fuzz.py's default first seed
+FUZZ_CASES = 100  # (a): run_case seeds FUZZ_SEED0 ...
+FUZZ_SIM_SEED0 = 7000  # tests/test_fuzz.py's sim seeds
+FUZZ_SIM_CASES = 4  # (a): run_sim_case seeds FUZZ_SIM_SEED0 ...
+SOAK_SECONDS = 30.0  # (b)'s wall clock in the full script
+SOAK_FAULT_COUNTERS = (
+    "gome_gateway_retryable_rejects_total",
+    "gome_gateway_spilled_frames_total",
+    "gome_consumer_step_failures_total",
+)
+#: (b)'s settling, after soak_warmup: frames until the geometry manifest's
+#: hash has held for SOAK_SETTLE_FRAMES frames in a row, at most
+#: SOAK_SETTLE_MAX. At 10,240 symbols the mixed flow keeps minting combos
+#: (the storage cap's escalation, deeper lanes' cap classes, rare
+#: packed-op buckets) for well over a thousand frames after bench.py's
+#: warm-up (8 to 12 frames, sized for 256 symbols): on the H100 at seed 11
+#: the hash changed at frames 5, 230, 282, 713 and 1,697, so the hold is
+#: longer than the widest gap between two changes (984 frames). The timed
+#: window then has to mint nothing (geometry_stable); the report lists the
+#: frames at which the hash changed.
+SOAK_SETTLE_FRAMES = 1024
+SOAK_SETTLE_MAX = 3072
+#: (b)'s verdict bounds: scripts/soak.py's defaults.
+SOAK_RSS_SLOPE_MB_PER_MIN = 8.0
+SOAK_RSS_GROWTH_MB = 8.0
+SOAK_RSS_BYTES_PER_ORDER = 256.0
+
+
+def _fuzz_result(desc: str, engine, device, got, expected, **case) -> dict:
+    """A fuzz case's check, as run_case ends: the events equal the
+    oracle's, the books verify, and on the card K1 ran. Returns the case
+    with its run_case-style line."""
+    if got != expected:
+        first = next((j for j, (a, b) in enumerate(zip(got, expected))
+                      if a != b), min(len(got), len(expected)))
+        raise SystemExit(
+            f"DIVERGENCE [{desc}] events {len(got)} vs {len(expected)}, "
+            f"first mismatch at {first}:\n got: "
+            f"{got[first] if first < len(got) else '<none>'}\n exp: "
+            f"{expected[first] if first < len(expected) else '<none>'}")
+    engine.verify_books()
+    if torch.device(device).type == "cuda" and case["launches"] <= 0:
+        raise SystemExit(f"fuzz [{desc}]: no K1 launch")
+    st = engine.stats
+    return dict(
+        case, events=got, cap_escalations=st.cap_escalations,
+        record_escalations=st.fill_record_escalations,
+        line=(f"OK [{desc}] events={len(got)} esc={st.cap_escalations}"
+              f"/{st.fill_record_escalations}"))
+
+
+def _fuzz_feed(engine, orders, mode: str, chunk: int) -> list:
+    got = []
+    for i in range(0, len(orders), chunk):
+        part = orders[i:i + chunk]
+        if mode == "columnar":
+            got.extend(engine.process_columnar(part).to_results())
+        else:
+            got.extend(engine.process(part))
+    return got
+
+
+def fuzz_case(seed: int, device="cuda") -> dict:
+    """scripts/fuzz.py's run_case on the port: the same
+    np.random.default_rng(seed) draws in the same order (geometry, dtype,
+    mode, orders, chunking; int32 <-> torch.int32), the port's engine
+    against the port's oracle, then verify_books. On the card every case
+    must launch K1. Fails (SystemExit) on a divergence; returns the case
+    (its line equals run_case's for the seed: kernel=scan is the engine
+    argument run_case passes by default, and both of the port's values run
+    K1)."""
+    from gome_tpu_torch.engine import BatchEngine, BookConfig
+    from gome_tpu_torch.ops.match_step import batch_step
+    from gome_tpu_torch.oracle import OracleEngine
+    from gome_tpu_torch.types import Action, Order, OrderType, Side
+
+    rng = np.random.default_rng(seed)
+    cap = int(rng.choice([4, 8, 16, 64]))
+    max_fills = int(rng.choice([1, 2, 4, 8]))
+    max_t = int(rng.choice([1, 3, 16]))
+    n_slots = int(rng.choice([1, 2, 8, 16]))
+    dtype = torch.int32 if rng.random() < 0.5 else torch.int64
+    mode = str(rng.choice(["object", "columnar", "frame"]))
+    n_symbols = int(rng.choice([1, 3, 7]))
+    base_price = int(rng.choice(
+        [100, 10_000_000,
+         10_000_000_000_000 if dtype == torch.int32 else 100_000]))
+    band = int(rng.choice([3, 50, 5_000]))
+    n_orders = int(rng.choice([50, 200]))
+    market_p = float(rng.choice([0.0, 0.15]))
+    cancel_p = float(rng.choice([0.0, 0.3]))
+    chunk = int(rng.choice([1, 17, 64]))
+
+    orders = []
+    live: list[tuple[str, str, Side, int]] = []
+    for i in range(n_orders):
+        sym = f"s{int(rng.integers(n_symbols))}"
+        if live and rng.random() < cancel_p:
+            sym_o, oid, side_o, price_o = live[int(rng.integers(len(live)))]
+            if rng.random() < 0.25:  # a deliberate miss
+                price_o = price_o + int(rng.integers(1, band + 2))
+            orders.append(Order(uuid="u", oid=oid, symbol=sym_o, side=side_o,
+                                price=price_o, volume=0, action=Action.DEL))
+            continue
+        kind = OrderType.MARKET if rng.random() < market_p else OrderType.LIMIT
+        side = Side(int(rng.integers(2)))
+        price = (0 if (kind is OrderType.MARKET and rng.random() < 0.5)
+                 else base_price + int(rng.integers(-band, band + 1)))
+        orders.append(Order(uuid=f"u{int(rng.integers(3))}", oid=str(i),
+                            symbol=sym, side=side, price=price,
+                            volume=int(rng.integers(1, 30)),
+                            order_type=kind))
+        if kind is OrderType.LIMIT:
+            live.append((sym, str(i), side, price))
+
+    oracle = OracleEngine()
+    expected = []
+    for o in orders:
+        expected.extend(oracle.process(o))
+
+    k0 = batch_step.launches
+    depth = 0
+    config = BookConfig(cap=cap, max_fills=max_fills, dtype=dtype)
+    if mode == "frame":
+        from gome_tpu_torch.bus.colwire import decode_order_frame, encode_orders
+        from gome_tpu_torch.engine import MatchEngine
+        from gome_tpu_torch.engine.pipeline import FramePipeline
+
+        depth = int(rng.choice([1, 2, 3]))
+        meng = MatchEngine(config=config, n_slots=n_slots, max_t=max_t,
+                           kernel="scan", device=device)
+        engine = meng.batch
+        for o in orders:
+            meng.mark(o)
+        pipe = FramePipeline(meng, depth=depth)
+        got = []
+        for i in range(0, len(orders), chunk):
+            cols = decode_order_frame(encode_orders(orders[i:i + chunk]))
+            for _tok, batch in pipe.feed(cols):
+                got.extend(batch.to_results())
+        for _tok, batch in pipe.flush():
+            got.extend(batch.to_results())
+    else:
+        engine = BatchEngine(config, n_slots=n_slots, max_t=max_t,
+                             kernel="scan", device=device)
+        got = _fuzz_feed(engine, orders, mode, chunk)
+    dt_name = str(dtype).removeprefix("torch.")
+    desc = (f"seed={seed} cap={cap} K={max_fills} max_t={max_t} "
+            f"slots={n_slots} dtype={dt_name} mode={mode}"
+            f"{f'(depth={depth})' if depth else ''} kernel=scan "
+            f"base={base_price} band={band} n={n_orders} chunk={chunk}")
+    return _fuzz_result(desc, engine, device, got, expected, seed=seed,
+                        mode=mode, dtype=dt_name, orders=orders,
+                        launches=batch_step.launches - k0, k5=0)
+
+
+def fuzz_sim_case(seed: int, device="cuda", orders=None) -> dict:
+    """scripts/fuzz.py's run_sim_case on the port: the same rng draws for
+    the flow (lanes, bins, excitation, rates, offsets, volumes), its grid
+    count and the adversarial engine geometry. The flow is the port's
+    simulator (sim.env, K5 and K1) on `device`, its grids linearized into
+    orders (sim.replay.orders_from_grid) for the port's oracle and an
+    engine of the drawn geometry, unless `orders` (a flow made elsewhere,
+    e.g. the reference's jax.random flow for the same seed) is given."""
+    from gome_tpu_torch.engine import BatchEngine, BookConfig
+    from gome_tpu_torch.ops.hawkes_scan import hawkes_scan
+    from gome_tpu_torch.ops.match_step import batch_step
+    from gome_tpu_torch.oracle import OracleEngine
+    from gome_tpu_torch.sim.env import EnvConfig, env_reset
+    from gome_tpu_torch.sim.flow import FlowConfig
+    from gome_tpu_torch.sim.replay import _record_step, grid_host, \
+        orders_from_grid
+
+    rng = np.random.default_rng(seed)
+    flow = FlowConfig(
+        n_lanes=int(rng.choice([2, 4, 7])),
+        t_bins=int(rng.choice([32, 64])),
+        excite_self=float(rng.choice([0.25, 0.45])),
+        cancel_rate=float(rng.choice([0.8, 1.4, 2.0])),
+        market_rate=float(rng.choice([0.2, 0.8])),
+        offset_p=float(rng.choice([0.2, 0.5])),
+        vol_max=int(rng.choice([5, 60])),
+    )
+    gen_cfg = EnvConfig(flow=flow,
+                        book=BookConfig(cap=64, max_fills=8,
+                                        dtype=torch.int32))
+    n_grids = int(rng.choice([8, 20]))
+    k0, s0 = batch_step.launches, hawkes_scan.launches
+    if orders is None:
+        state, _ = env_reset(gen_cfg, seed, device=device)
+        orders = []
+        for _ in range(n_grids):
+            state, bg_ops, _info, _bins = _record_step(gen_cfg, state)
+            orders.extend(orders_from_grid(grid_host(bg_ops)))
+
+    oracle = OracleEngine()
+    expected = []
+    for o in orders:
+        expected.extend(oracle.process(o))
+
+    cap = int(rng.choice([4, 8, 16]))
+    max_fills = int(rng.choice([1, 2, 4]))
+    max_t = int(rng.choice([1, 3, 16]))
+    n_slots = int(rng.choice([1, 2, flow.n_lanes]))
+    dtype = torch.int32 if rng.random() < 0.5 else torch.int64
+    mode = str(rng.choice(["object", "columnar"]))
+    chunk = int(rng.choice([1, 17, 64]))
+    engine = BatchEngine(BookConfig(cap=cap, max_fills=max_fills,
+                                    dtype=dtype),
+                         n_slots=n_slots, max_t=max_t, device=device)
+    got = _fuzz_feed(engine, orders, mode, chunk)
+    dt_name = str(dtype).removeprefix("torch.")
+    desc = (f"seed={seed} SIM lanes={flow.n_lanes} t_bins={flow.t_bins} "
+            f"grids={n_grids} n={len(orders)} cap={cap} K={max_fills} "
+            f"max_t={max_t} slots={n_slots} dtype={dt_name} mode={mode} "
+            f"chunk={chunk}")
+    return _fuzz_result(desc, engine, device, got, expected, seed=seed,
+                        mode=f"sim-{mode}", dtype=dt_name, orders=orders,
+                        launches=batch_step.launches - k0,
+                        k5=hawkes_scan.launches - s0)
+
+
+def fuzz_drill(device, n: int = FUZZ_CASES, seed0: int = FUZZ_SEED0,
+               n_sim: int = FUZZ_SIM_CASES, sim_seed0: int = FUZZ_SIM_SEED0,
+               out=None) -> dict:
+    """Phase 16 (a): n fuzz_case seeds from seed0 and n_sim fuzz_sim_case
+    seeds from sim_seed0, each case's line written to `out` when given.
+    Fails on the first divergence or case without K1. Returns the counts
+    by mode and dtype, the escalations, K1 and K5 launches and the
+    seconds."""
+    t0 = time.perf_counter()
+    by = collections.Counter()
+    cap_esc = rec_esc = launches = k5 = events = 0
+    cases = [(fuzz_case, s) for s in range(seed0, seed0 + n)]
+    cases += [(fuzz_sim_case, s) for s in range(sim_seed0, sim_seed0 + n_sim)]
+    for case, seed in cases:
+        r = case(seed, device=device)
+        if out is not None:
+            out.write(r["line"] + f" k1={r['launches']} k5={r['k5']}\n")
+        by[(r["mode"], r["dtype"])] += 1
+        cap_esc += r["cap_escalations"]
+        rec_esc += r["record_escalations"]
+        launches += r["launches"]
+        k5 += r["k5"]
+        events += len(r["events"])
+    return dict(cases=len(cases), by=dict(sorted(by.items())),
+                cap_escalations=cap_esc, record_escalations=rec_esc,
+                launches=launches, k5=k5, events=events,
+                seconds=time.perf_counter() - t0)
+
+
+def fuzz_text(f: dict) -> str:
+    return (f"{f['cases']} cases in {f['seconds']:.1f} s "
+            f"({f['cases'] / f['seconds']:.2f} cases/s), 0 divergences, "
+            f"books verified; by mode and dtype: "
+            + ", ".join(f"{m}/{d} {c}" for (m, d), c in f["by"].items())
+            + f"; {f['events']} events; escalations cap "
+            f"{f['cap_escalations']}, record {f['record_escalations']}; K1 "
+            f"launches {f['launches']}"
+            + (" (every case > 0)" if f["launches"] else "")
+            + f", K5 launches {f['k5']}")
+
+
+class MixedFlow:
+    """bench.py's _MixedFlow on the port's side: config-5-shaped service
+    load, ~45% cancels (a fifth of them targeting ADDs of the same frame,
+    some before their ADD: the cancel-before-consume race), ~25% markets
+    among ADDs, 256 uuids, Zipf(1) symbols; cancels target really-issued
+    (symbol, uuid, oid, price) quadruples from a rolling pool biased to
+    the newest quarter. The same rng calls in the same order as
+    bench.py's, so a seed gives its frames."""
+
+    CANCEL_P = 0.45
+    MARKET_P = 0.25
+    SAME_FRAME_P = 0.2
+    RECENT_BIAS = 4
+    N_UUIDS = 256
+    POOL_MAX = 1 << 20
+
+    def __init__(self, rng, n_symbols):
+        self.rng = rng
+        ranks = np.arange(1, n_symbols + 1, dtype=np.float64)
+        w = 1.0 / ranks
+        self.sym_p = w / w.sum()
+        self.n_symbols = n_symbols
+        self.oid0 = 1
+        self.pool_sym = np.zeros(self.POOL_MAX, np.uint32)
+        self.pool_price = np.zeros(self.POOL_MAX, np.int64)
+        self.pool_oid = np.zeros(self.POOL_MAX, np.int64)
+        self.pool_uuid = np.zeros(self.POOL_MAX, np.uint32)
+        self.pool_n = 0
+        self.pool_head = 0
+
+    def _pool_push(self, sym, price, oid, uuid):
+        k = len(sym)
+        idx = (self.pool_head + np.arange(k)) % self.POOL_MAX
+        self.pool_sym[idx] = sym
+        self.pool_price[idx] = price
+        self.pool_oid[idx] = oid
+        self.pool_uuid[idx] = uuid
+        self.pool_head = (self.pool_head + k) % self.POOL_MAX
+        self.pool_n = min(self.pool_n + k, self.POOL_MAX)
+
+    def frame(self, n):
+        rng = self.rng
+        action = np.ones(n, np.uint8)
+        dels = rng.random(n) < self.CANCEL_P
+        if self.pool_n == 0:
+            dels[:] = False
+        action[dels] = 2
+        adds = ~dels
+        n_add = int(adds.sum())
+        sym = rng.choice(self.n_symbols, size=n, p=self.sym_p).astype(np.uint32)
+        price = rng.integers(99_500_000, 100_500_000, n).astype(np.int64)
+        volume = rng.integers(1, 101, n).astype(np.int64)
+        kind = np.zeros(n, np.uint8)
+        mkt = adds & (rng.random(n) < self.MARKET_P)
+        kind[mkt] = 1
+        oid_nums = np.zeros(n, np.int64)
+        oid_nums[adds] = self.oid0 + np.arange(n_add)
+        self.oid0 += n_add
+        uuid_idx = rng.integers(0, self.N_UUIDS, n).astype(np.uint32)
+        di = np.nonzero(dels)[0]
+        if len(di):
+            same = rng.random(len(di)) < self.SAME_FRAME_P
+            ai = np.nonzero(adds & (kind == 0))[0]
+            if len(ai) == 0:
+                same[:] = False
+            n_pool = int((~same).sum())
+            if n_pool:
+                depth = max(self.pool_n // self.RECENT_BIAS, 1)
+                back = rng.integers(1, depth + 1, n_pool)
+                pi = (self.pool_head - back) % self.POOL_MAX
+                tgt = di[~same]
+                sym[tgt] = self.pool_sym[pi]
+                price[tgt] = self.pool_price[pi]
+                oid_nums[tgt] = self.pool_oid[pi]
+                uuid_idx[tgt] = self.pool_uuid[pi]
+            if same.any():
+                ti = rng.integers(0, len(ai), int(same.sum()))
+                src = ai[ti]
+                tgt = di[same]
+                sym[tgt] = sym[src]
+                price[tgt] = price[src]
+                oid_nums[tgt] = oid_nums[src]
+                uuid_idx[tgt] = uuid_idx[src]
+        rest = adds & (kind == 0)
+        self._pool_push(sym[rest], price[rest], oid_nums[rest],
+                        uuid_idx[rest])
+        return dict(
+            n=n, action=action, side=rng.integers(0, 2, n).astype(np.uint8),
+            kind=kind, price=np.where(mkt, 0, price), volume=volume,
+            symbol_idx=sym, uuid_idx=uuid_idx,
+            oids=np.char.add("o", oid_nums.astype("U12")).astype("S"))
+
+
+MIXED_UUIDS = [f"u{i}" for i in range(MixedFlow.N_UUIDS)]
+
+
+def soak_warmup(engine, consumer, bus, make_frame) -> int:
+    """bench.py's _svc_warmup (margin=True) on the port: drain warm frames
+    until the geometry ratchets hold still for two frames (8 to 12),
+    forget the transient's floors and combos, two steady frames, pin the
+    rows/depth/cancels floors at 2x, one more frame. Returns the warm
+    frames consumed."""
+    q = bus.order_queue
+    n_warm = stable = 0
+    while n_warm < 8 or stable < 2:
+        if n_warm >= 12:
+            break
+        geo = engine.batch.geometry_floors()
+        gateway_step(engine, q, make_frame())
+        consumer.drain()
+        stable = stable + 1 if engine.batch.geometry_floors() == geo else 0
+        n_warm += 1
+    engine.batch.reset_geometry_floors(combos=True)
+    for _ in range(2):
+        gateway_step(engine, q, make_frame())
+        consumer.drain()
+        n_warm += 1
+    g = engine.batch.geometry_floors()
+    engine.batch.prewarm_geometry(
+        rows_floor={c: 2 * v for c, v in g["rows_floor"].items()},
+        t_floor={c: 2 * v for c, v in g["t_floor"].items()},
+        cancels_buf={b: 2 * v for b, v in g["cancels_buf"].items()},
+    )
+    gateway_step(engine, q, make_frame())
+    consumer.drain()
+    return n_warm + 1
+
+
+def soak_settle(engine, consumer, bus, make_frame) -> tuple[int, list]:
+    """Frames through the stack until the geometry manifest's hash
+    (obs.timeline.geometry_manifest_hash) holds for SOAK_SETTLE_FRAMES
+    frames in a row, at most SOAK_SETTLE_MAX: the soak's own loop (one
+    run_once a frame, frames in flight at the pipeline's depth), both logs
+    compacted, then a drain. Returns the frames run and the frame numbers at which the
+    hash changed."""
+    from gome_tpu_torch.obs.timeline import geometry_manifest_hash
+
+    mq = bus.match_queue
+    last = geometry_manifest_hash(engine.batch)
+    changes, held, n = [], 0, 0
+    while held < SOAK_SETTLE_FRAMES and n < SOAK_SETTLE_MAX:
+        gateway_step(engine, bus.order_queue, make_frame())
+        consumer.run_once()
+        mq.commit(mq.end_offset())
+        mq.compact()
+        bus.order_queue.compact()
+        n += 1
+        h = geometry_manifest_hash(engine.batch)
+        if h == last:
+            held += 1
+        else:
+            changes.append(n)
+            last, held = h, 0
+    consumer.drain()  # the timed loop starts with no frame in flight
+    return n, changes
+
+
+def rss_fit(samples: list[dict]) -> dict:
+    """scripts/soak.py's _rss_fit: least-squares RSS slope, growth and
+    growth per processed order over the sample window."""
+    t = np.asarray([s["t"] for s in samples], np.float64)
+    rss = np.asarray([s["rss_bytes"] for s in samples], np.float64)
+    slope = (float(np.polyfit(t - t[0], rss, 1)[0])
+             if len(t) >= 2 and t[-1] > t[0] else 0.0)
+    growth = int(rss[-1] - rss[0]) if len(rss) else 0
+    orders = int(samples[-1]["orders"] - samples[0]["orders"]) \
+        if samples else 0
+    return {
+        "samples": len(samples),
+        "window_s": round(float(t[-1] - t[0]), 3) if len(t) else 0.0,
+        "slope_bytes_per_s": round(slope, 1),
+        "slope_mb_per_min": round(slope * 60 / 2**20, 3),
+        "growth_bytes": growth,
+        "window_orders": orders,
+        "growth_bytes_per_order": round(growth / max(orders, 1), 2),
+        "first_bytes": int(rss[0]) if len(rss) else 0,
+        "last_bytes": int(rss[-1]) if len(rss) else 0,
+    }
+
+
+def soak_drill(device, seconds: float = SOAK_SECONDS, symbols: int = 10240,
+               cap: int = 256, max_fills: int = 16, frame_n: int = 8192,
+               depth: int = 2, interval: float = 1.0, seed: int = 11,
+               gate=None) -> dict:
+    """Phase 16 (b), scripts/soak.py's run_soak on the port: the mixed
+    flow (MixedFlow) through gateway steps (encode, mark_frame, publish)
+    and an OrderConsumer (frame wire, memory bus, `depth`) on an int32
+    engine, warmed off the record (soak_warmup, then soak_settle until
+    the geometry holds still), then a wall-clock closed
+    loop for `seconds` with the timeline sampler armed (obs.timeline
+    service_timeline) and the compile journal installed before the
+    warm-up; the match queue drained and decoded, both logs compacted.
+    Verdicts: live_buffers_flat (obs.live.assert_steady_state over 6
+    further frames after 3 to settle), rss_bounded (slope, growth or
+    bytes per order), geometry_stable (stricter than scripts/soak.py's
+    last half: one geometry hash over every sample of the timed window
+    and no combo minted in it), zero_breaker_trips; then the journal's
+    export against the committed combo universe (GL906,
+    analysis.surface.journal_escapes). K1's inputs from the warm-up, the
+    settling and the timed loop are kept (keep_kernel_inputs) and, on the
+    card, held against its plain version after the count is read. Fails
+    (SystemExit) unless every verdict passes, nothing escapes and K1
+    agrees. `gate`, if given, is called with the warm-up's and the
+    settling's numbers between the settling and the timed loop, and the
+    loop starts when it returns (DrillWorker). Returns the report."""
+    import types as pytypes
+
+    from gome_tpu_torch.bus.colwire import decode_event_frame
+    from gome_tpu_torch.bus import MemoryQueue, QueueBus
+    from gome_tpu_torch.engine import BookConfig, MatchEngine
+    from gome_tpu_torch.obs import JOURNAL, live
+    from gome_tpu_torch.obs.timeline import TIMELINE, service_timeline
+    from gome_tpu_torch.ops import match_step
+    from gome_tpu_torch.service import OrderConsumer
+    from gome_tpu_torch.utils.metrics import REGISTRY
+
+    engine = MatchEngine(BookConfig(cap=cap, max_fills=max_fills,
+                                    dtype=torch.int32),
+                         n_slots=symbols, max_t=32, device=device)
+    bus = QueueBus(MemoryQueue("doOrder"), MemoryQueue("matchOrder"))
+    consumer = OrderConsumer(engine, bus, batch_n=1, batch_wait_s=0,
+                             match_wire="frame", pipeline_depth=depth)
+    flow = MixedFlow(np.random.default_rng(seed), symbols)
+    names = [f"sym{i}" for i in range(symbols)]
+
+    def make_frame():
+        return dict(flow.frame(frame_n), symbols=names, uuids=MIXED_UUIDS)
+
+    monitor = live.service_monitor(engine)
+    JOURNAL.install(keep_n=256)
+    k1 = match_step.batch_step  # the wrapper, not keep_kernel_inputs' keeper
+    try:
+        with keep_kernel_inputs() as kept:
+            t0 = time.perf_counter()
+            n_warm = soak_warmup(engine, consumer, bus, make_frame)
+            warm_s = time.perf_counter() - t0
+            n_settle, settle_changes = soak_settle(engine, consumer, bus,
+                                                   make_frame)
+            settle_s = time.perf_counter() - t0 - warm_s
+            sync(torch.device(device))
+            if gate is not None:
+                gate(dict(warmup_frames=n_warm, warmup_s=warm_s,
+                          settle_frames=n_settle, settle_s=settle_s))
+            manifest0 = engine.batch.shape_manifest()
+            TIMELINE.install(interval_s=interval, keep_n=4096)
+            service_timeline(pytypes.SimpleNamespace(engine=engine, bus=bus))
+            faults0 = {n: int(REGISTRY.counter(n).value())
+                       for n in SOAK_FAULT_COUNTERS}
+            k0 = k1.launches
+            TIMELINE.sample()
+            TIMELINE.start()
+            mq = bus.match_queue
+            frames = orders = done = events = 0
+            n_combos, window_changes = engine.batch.combo_count(), []
+            ev_off = mq.end_offset()
+            deadline = time.monotonic() + seconds
+            t0 = time.perf_counter()
+            while time.monotonic() < deadline:
+                cols = make_frame()
+                gateway_step(engine, bus.order_queue, cols)
+                frames += 1
+                orders += int(cols["n"])
+                done += consumer.run_once()
+                for m in mq.read_from(ev_off, 1 << 20):
+                    events += len(decode_event_frame(m.body))
+                    ev_off = m.offset + 1
+                mq.commit(ev_off)
+                mq.compact()
+                bus.order_queue.compact()
+                if engine.batch.combo_count() != n_combos:
+                    n_combos = engine.batch.combo_count()
+                    window_changes.append(n_settle + frames)
+            done += consumer.drain()
+            for m in mq.read_from(ev_off, 1 << 20):
+                events += len(decode_event_frame(m.body))
+                ev_off = m.offset + 1
+            elapsed = time.perf_counter() - t0
+            TIMELINE.stop()
+            TIMELINE.sample()
+            launches = k1.launches - k0
+        manifest1 = engine.batch.shape_manifest()
+        new_combos = sorted(set(manifest1["combos"])
+                            - set(manifest0["combos"]))
+        if done != orders:
+            raise SystemExit(f"phase 16 (b): the consumer committed {done} "
+                             f"of {orders} orders")
+        series = TIMELINE.series()
+        faults = {n: int(REGISTRY.counter(n).value()) - faults0[n]
+                  for n in SOAK_FAULT_COUNTERS}
+        verdicts: dict = {}
+
+        def step():
+            gateway_step(engine, bus.order_queue, make_frame())
+            consumer.drain()
+
+        try:
+            leak = live.assert_steady_state(step, steps=6, settle=3)
+            verdicts["live_buffers_flat"] = {
+                "pass": True, "leaked": leak["leaked"],
+                "baseline": leak["baseline"], "counts": leak["counts"]}
+        except AssertionError as exc:
+            verdicts["live_buffers_flat"] = {"pass": False,
+                                             "detail": str(exc)}
+        steady = series[max(len(series) * 2 // 5, 1):] or series
+        fit = rss_fit(steady)
+        fit["pass"] = (
+            fit["slope_mb_per_min"] <= SOAK_RSS_SLOPE_MB_PER_MIN
+            or fit["growth_bytes"] <= SOAK_RSS_GROWTH_MB * 2**20
+            or fit["growth_bytes_per_order"] <= SOAK_RSS_BYTES_PER_ORDER)
+        verdicts["rss_bounded"] = fit
+        window = [s["engine"]["geometry_hash"] for s in series
+                  if isinstance(s.get("engine"), dict)
+                  and "geometry_hash" in s["engine"]]
+        verdicts["geometry_stable"] = {
+            "pass": bool(window) and len(set(window)) == 1 and not new_combos,
+            "hashes": sorted(set(window)), "window_samples": len(window),
+            "new_combos": new_combos, "changed_at_frames": window_changes}
+        degraded = sum(1 for s in series
+                       if isinstance(s.get("batcher"), dict)
+                       and s["batcher"].get("degraded"))
+        verdicts["zero_breaker_trips"] = {
+            "pass": degraded == 0 and all(v == 0 for v in faults.values()),
+            "degraded_samples": degraded, "fault_counter_deltas": faults}
+        verdicts["pass"] = all(v["pass"] for v in verdicts.values()
+                               if isinstance(v, dict))
+        journal = JOURNAL.export()
+    finally:
+        TIMELINE.disable()
+        JOURNAL.disable()
+        del monitor
+    engine.batch.verify_books()
+    st = engine.batch.stats
+    report = dict(
+        seconds_requested=seconds, seconds_elapsed=elapsed,
+        warmup_frames=n_warm, warmup_s=warm_s, settle_frames=n_settle,
+        settle_s=settle_s, settle_changes=settle_changes,
+        new_combos=new_combos,
+        floors_moved={k: (v, manifest1["floors"][k])
+                      for k, v in manifest0["floors"].items()
+                      if manifest1["floors"][k] != v},
+        frames=frames, orders=orders,
+        events=events, orders_per_s=orders / max(elapsed, 1e-9),
+        launches=launches, cap=engine.batch.config.cap,
+        cap_escalations=st.cap_escalations,
+        frame_fallbacks=st.frame_fallbacks, verdicts=verdicts,
+        samples=len(series), journal=journal,
+        combos=engine.batch.combo_count())
+    if not verdicts["pass"]:
+        raise SystemExit("phase 16 (b): soak verdict failed: " + json.dumps(
+            {k: v for k, v in report.items() if k != "journal"},
+            default=str))
+    report["dispatches"] = journal_check("phase 16 (b)", journal)
+    on_card = torch.device(device).type == "cuda"
+    if on_card and launches <= 0:
+        raise SystemExit("phase 16 (b): the soak launched no K1")
+    report["worst"], report["kept_line"] = (
+        check_kept_inputs("phase 16 (b)", kept) if on_card else (0, ""))
+    report["kept_grids"] = len(distinct_kept(kept, "batch_step"))
+    return report
+
+
+def soak_text(r: dict) -> str:
+    v = r["verdicts"]
+    fit, lb, geo = v["rss_bounded"], v["live_buffers_flat"], \
+        v["geometry_stable"]
+    return (f"{r['frames']} frames, {r['orders']:,} orders, "
+            f"{r['events']:,} events in {r['seconds_elapsed']:.2f} s "
+            f"({r['orders_per_s']:,.0f} orders/s; warm-up {r['warmup_frames']}"
+            f" frames in {r['warmup_s']:.2f} s, then {r['settle_frames']} "
+            f"frames in {r['settle_s']:.2f} s settling until the geometry "
+            f"held for {SOAK_SETTLE_FRAMES} (at most {SOAK_SETTLE_MAX}), its "
+            f"hash changing at frames {r['settle_changes']}), "
+            f"{r['launches']} K1 launches,"
+            f" cap {r['cap']} ({r['cap_escalations']} escalations, "
+            f"{r['frame_fallbacks']} exact fallbacks), {r['samples']} timeline"
+            f" samples; verdicts: live_buffers_flat (baseline "
+            f"{lb['baseline']}, leaked {lb['leaked']}), rss_bounded (slope "
+            f"{fit['slope_mb_per_min']} MB/min, growth "
+            f"{fit['growth_bytes'] / 2**20:.2f} MiB, "
+            f"{fit['growth_bytes_per_order']} B/order over "
+            f"{fit['window_orders']:,} orders), geometry_stable (one hash "
+            f"{geo['hashes'][0][:12]} over all {geo['window_samples']} "
+            f"samples, no combo minted in the window), "
+            f"zero_breaker_trips; journal {r['dispatches']} first-seen "
+            f"dispatch combos ({r['combos']} recorded), 0 GL906 escapes")
+
+
+def committed_universe() -> dict:
+    """gome_tpu_torch/analysis/combo_universe.json of this checkout."""
+    from gome_tpu_torch.analysis.surface import DEFAULT_UNIVERSE, load_universe
+
+    universe = load_universe(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), DEFAULT_UNIVERSE))
+    if universe is None:
+        raise SystemExit("phase 16: no committed combo universe")
+    return universe
+
+
+def journal_check(label: str, export: dict) -> int:
+    """GL906 over one compile-journal export against the committed
+    universe, in process. Fails on an escape; returns the dispatch combos
+    checked."""
+    from gome_tpu_torch.analysis.surface import journal_escapes
+
+    escapes = journal_escapes(export["entries"], committed_universe())
+    if escapes:
+        raise SystemExit(f"{label}: {len(escapes)} dispatch combo(s) escape "
+                         f"the committed universe: {escapes[:4]}")
+    return sum(1 for e in export["entries"]
+               if e.get("entry") == "frame_dispatch")
+
+
+def phase16(card: str, device, journals: dict, drills: DrillWorker) -> dict:
+    """Phase 16: (a) the fuzz drill and (b) the soak drill with its
+    verdict and GL906 over its journal, both in `drills`, a fresh
+    interpreter started before phase 9, (c) GL906 over phases 13 and 14's
+    journal exports, (d) `python -m gome_tpu_torch.analysis
+    gome_tpu_torch --select GL9 --journal <(b)'s export>` (GL901-GL905
+    over the tree, GL906 over the soak) exits 0. Returns the numbers."""
+    t_phase = time.perf_counter()
+    f = drills.fuzz()
+    kinds = {m for m, _ in f["by"]} & {"object", "columnar", "frame"}
+    dtypes = {d for _, d in f["by"]}
+    if kinds != {"object", "columnar", "frame"} or \
+            dtypes != {"int32", "int64"}:
+        raise SystemExit(f"phase 16 (a): the seeds covered {sorted(kinds)} "
+                         f"x {sorted(dtypes)} only")
+    print(f"phase 16 (a) [{card}]: the fuzz drill (scripts/fuzz.py's cases, "
+          f"seeds {FUZZ_SEED0}..{FUZZ_SEED0 + FUZZ_CASES - 1} and sim seeds "
+          f"{FUZZ_SIM_SEED0}..{FUZZ_SIM_SEED0 + FUZZ_SIM_CASES - 1}) against "
+          f"the port's oracle, run first in the drill worker, beside phase "
+          f"9 (this phase waited {f['wait_s']:.1f} s for it): "
+          + fuzz_text(f))
+    s = drills.soak()
+    print(f"phase 16 (b) [{card}]: the soak drill, {SOAK_SECONDS:g} s at "
+          f"10,240 symbols x cap 256 (storage cap {s['cap']:,} after the "
+          f"settling) x K 16, int32, frames of 8,192, depth 2, memory bus, "
+          f"frame wire, in the drill worker after the fuzz: its warm-up and "
+          f"settling ran beside phases 9 onward, its timed loop alone, "
+          f"{s['started_s']:.1f} s after the worker started (this phase "
+          f"waited {s['settle_wait_s']:.1f} s for the settling): "
+          + soak_text(s))
+    print(s["kept_line"])
+    checked = {name: journal_check(f"phase 16 (c) {name}", doc)
+               for name, doc in journals.items()}
+    print(f"phase 16 (c) [{card}]: GL906 over the compile journals of "
+          + ", ".join(f"{name} ({n} dispatch combos)"
+                      for name, n in checked.items())
+          + ": 0 escapes from gome_tpu_torch/analysis/combo_universe.json")
+    with tempfile.TemporaryDirectory(prefix="phase16-") as work:
+        path = os.path.join(work, "soak_journal.json")
+        with open(path, "w", encoding="utf-8") as fh:
+            json.dump(s["journal"], fh, default=list)
+        lint_s, lint_line = lint_gate("phase 16 (d)", "--select", "GL9",
+                                      "--journal", path)
+    print(f"phase 16 (d) [{card}]: python -m gome_tpu_torch.analysis "
+          f"gome_tpu_torch --select GL9 --journal <(b)'s export> exited 0 in "
+          f"{lint_s:.2f} s (GL901-GL905 over the tree, GL906 over the soak; "
+          f"{lint_line})")
+    secs = time.perf_counter() - t_phase
+    print(f"phase 16 [{card}]: fuzz, soak and the compile surface in "
+          f"{secs:.1f} s")
+    return dict(fuzz=f, soak=s, journals=checked, seconds=secs,
+                worst=s["worst"],
+                launches=dict(fuzz=f["launches"], soak=s["launches"]))
+
+
+def warm_prefix_slices(eng, combos) -> None:
+    """gome_tpu's precompile_combos warm-up of its _prefix_slice_fn, on
+    the port: each recorded fill and cancel buffer's used prefix copied to
+    the host at every pow2 length from 64."""
+    from gome_tpu_torch.engine import frames
+
+    wide = torch.promote_types(torch.int32, eng.config.dtype)
+    for n_fields, e in sorted({
+        (len(fields), c[col]) for c in combos if len(c) == 9
+        for fields, col in ((frames._FILL_FIELDS, 6),
+                            (frames._CANCEL_FIELDS, 7))
+    }):
+        zeros = torch.zeros((n_fields, e), dtype=wide,
+                            device=eng.batch.device)
+        length = e
+        while length >= 64:
+            frames._prefix_slice_fn(zeros, length)
+            length //= 2
+    sync(eng.batch.device)
+
+
+def prefix_warm_ab(rounds: int = 3) -> int:
+    """`--prefix-warm-ab`: whether warming phase 2's prefix slices after
+    load_geometry (warm_prefix_slices) moves phase 14 (c)'s warm first
+    frames. Phase 14 (c)'s manifest flow (phase 6's engine over the Zipf
+    flow), then `rounds` rounds of four fresh engines after load_geometry
+    in the order plain, slices, slices, plain; each engine's first
+    GEOMETRY_FRAMES frames timed (first_frames), their events equal
+    across engines. Exits 1 without a card."""
+    from gome_tpu_torch.utils.streams import multi_symbol_stream
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --prefix-warm-ab: no CUDA card", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    device = torch.device("cuda")
+    card = card_line()
+    print(card)
+    load_kernel(card)
+    sizes = dict(symbols=10240, zipf_n=200_000, batch=8192)
+    zipf = multi_symbol_stream(n=sizes["zipf_n"], n_symbols=sizes["symbols"],
+                               zipf_a=1.2, cancel_prob=0.3, seed=7)
+    frame_list = [frame_columns(zipf[i:i + sizes["batch"]])
+                  for i in range(0, len(zipf), sizes["batch"])]
+    times, warm_s, first = {"plain": [], "slices": []}, [], None
+    with tempfile.TemporaryDirectory(prefix="prefix-ab-") as work:
+        path = os.path.join(work, "geometry.json")
+        eng, _, _ = consumer_stack(device, sizes["symbols"], 0)
+        run_frames(eng, frame_list)
+        eng.save_geometry(path)
+        combos = eng.batch.shape_manifest()["combos"]
+        del eng
+        for _ in range(rounds):
+            for tag in ("plain", "slices", "slices", "plain"):
+                torch.cuda.empty_cache()
+                eng, _, _ = consumer_stack(device, sizes["symbols"], 0)
+                eng.load_geometry(path)
+                if tag == "slices":
+                    t1 = time.perf_counter()
+                    warm_prefix_slices(eng, combos)
+                    warm_s.append(time.perf_counter() - t1)
+                events, secs = first_frames(eng, frame_list[:GEOMETRY_FRAMES])
+                flat = [e for b in events for e in b]
+                if first is None:
+                    first = flat
+                elif flat != first:
+                    raise SystemExit("--prefix-warm-ab: events differ "
+                                     "between engines")
+                times[tag].append(sum(secs))
+                del eng
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"chip_smoke --prefix-warm-ab [{card}]: first {GEOMETRY_FRAMES} "
+          f"frames after load_geometry ({len(combos)} combos), {rounds} "
+          f"rounds of plain, slices, slices, plain: plain "
+          + ", ".join(f"{t:.4f}" for t in times["plain"])
+          + " s (median " + f"{med['plain']:.4f}), slices "
+          + ", ".join(f"{t:.4f}" for t in times["slices"])
+          + f" s (median {med['slices']:.4f}; the warm-up itself "
+          f"{float(np.median(warm_s)):.4f} s); slices / plain "
+          f"{med['slices'] / med['plain']:.4f}; events equal in all "
+          f"{4 * rounds}; {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def drill_alone(argv) -> int:
+    """`--soak SECONDS` / `--fuzz N [SEED0]`: one drill alone on the card,
+    its report printed. Exits 1 without a card."""
+    if not torch.cuda.is_available():
+        print(f"chip_smoke {argv[0]}: no CUDA card", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    card = card_line()
+    print(card)
+    load_kernel(card)
+    if argv[0] == "--soak":
+        seconds = float(argv[1]) if len(argv) > 1 else SOAK_SECONDS
+        s = soak_drill("cuda", seconds=seconds)
+        print(f"chip_smoke --soak [{card}]: {seconds:g} s at 10,240 symbols "
+              f"x cap 256 (storage cap {s['cap']:,} after the settling) x "
+              f"K 16, int32, frames of 8,192, depth 2: " + soak_text(s))
+        print(s["kept_line"])
+        print(json.dumps({k: v for k, v in s.items() if k != "journal"},
+                         default=str))
+    else:
+        n = int(argv[1]) if len(argv) > 1 else FUZZ_CASES
+        seed0 = int(argv[2]) if len(argv) > 2 else FUZZ_SEED0
+        f = fuzz_drill("cuda", n=n, seed0=seed0, out=sys.stdout)
+        print(f"chip_smoke --fuzz [{card}]: seeds {seed0}..{seed0 + n - 1} "
+              f"and sim seeds {FUZZ_SIM_SEED0}.."
+              f"{FUZZ_SIM_SEED0 + FUZZ_SIM_CASES - 1}: " + fuzz_text(f))
+        print(json.dumps({k: (str(v) if k == "by" else v)
+                          for k, v in f.items()}))
+    print(f"chip_smoke {argv[0]} [{card}]: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+#: The drill worker gives up waiting for its go file after this long.
+DRILL_WAIT_S = 1100.0
+
+
+def _write_json(path: str, doc) -> None:
+    with open(path + ".tmp", "w") as fh:
+        json.dump(doc, fh, default=list)
+    os.replace(path + ".tmp", path)
+
+
+def drill_worker(argv) -> int:
+    """`--drill-worker DIR SECONDS`: phase 16's drills on the card in a
+    fresh interpreter for DrillWorker: fuzz_drill (report to
+    DIR/fuzz.json), then soak_drill, which after its settling writes
+    DIR/settled.json and waits for DIR/go (exits 1 if its parent goes
+    away or after DRILL_WAIT_S) before its timed loop; its report goes to
+    DIR/soak.json."""
+    work, seconds = argv[1], float(argv[2])
+    if not torch.cuda.is_available():
+        print("chip_smoke --drill-worker: no CUDA card", file=sys.stderr)
+        return 1
+    parent, t0 = os.getppid(), time.monotonic()
+    load_kernel(card_line())
+    f = fuzz_drill("cuda")
+    f["by"] = [[m, d, c] for (m, d), c in f["by"].items()]
+    _write_json(os.path.join(work, "fuzz.json"), f)
+
+    def gate(info):
+        _write_json(os.path.join(work, "settled.json"), info)
+        while not os.path.exists(os.path.join(work, "go")):
+            if os.getppid() != parent or \
+                    time.monotonic() - t0 > DRILL_WAIT_S:
+                raise SystemExit("chip_smoke --drill-worker: no go from "
+                                 "the parent")
+            time.sleep(0.05)
+
+    _write_json(os.path.join(work, "soak.json"),
+                soak_drill("cuda", seconds=seconds, gate=gate))
+    return 0
+
+
+class DrillWorker:
+    """Phase 16 (a) and (b) in a fresh interpreter (drill_worker), started
+    before phase 9: the fuzz, the soak's warm-up and its settling (about
+    2,700 frames) run beside phases 9 onward, and the soak's timed loop
+    runs alone, when phase 16 (b) asks for it (soak) and this process
+    only waits. stop() kills the worker if it is still running."""
+
+    def __init__(self, seconds: float = SOAK_SECONDS):
+        self.work = tempfile.mkdtemp(prefix="phase16-")
+        self.log_path = os.path.join(self.work, "worker.log")
+        self.t0 = time.perf_counter()
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--drill-worker",
+                 self.work, str(seconds)],
+                stdout=log, stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def _fail(self, what: str) -> SystemExit:
+        with open(self.log_path) as fh:
+            tail = fh.read()[-3000:]
+        return SystemExit(f"phase 16: the drill worker {what}:\n{tail}")
+
+    def _wait_for(self, name: str, timeout_s: float) -> tuple[dict, float]:
+        t0 = time.perf_counter()
+        path = os.path.join(self.work, name)
+        while not os.path.exists(path):
+            if self.proc.poll() is not None:
+                raise self._fail(f"exited {self.proc.returncode} before "
+                                 f"writing {name}")
+            if time.perf_counter() - t0 > timeout_s:
+                raise self._fail(f"wrote no {name} in {timeout_s:g} s")
+            time.sleep(0.05)
+        with open(path) as fh:
+            return json.load(fh), time.perf_counter() - t0
+
+    def fuzz(self, timeout_s: float = 300.0) -> dict:
+        """fuzz_drill's report, with the seconds this process waited for
+        it (wait_s)."""
+        f, waited = self._wait_for("fuzz.json", timeout_s)
+        f["by"] = {(m, d): c for m, d, c in f["by"]}
+        f["wait_s"] = waited
+        return f
+
+    def soak(self, timeout_s: float = 300.0) -> dict:
+        """Wait for the settling, start the timed loop, wait for the
+        report. Returns soak_drill's report with the seconds this process
+        waited for the settling (settle_wait_s) and from the worker's
+        start to its timed loop (started_s)."""
+        _, waited = self._wait_for("settled.json", timeout_s)
+        started = time.perf_counter() - self.t0
+        open(os.path.join(self.work, "go"), "w").close()
+        try:
+            rc = self.proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            raise self._fail(f"did not end within {timeout_s:g} s of go")
+        if rc != 0:
+            raise self._fail(f"exited {rc}")
+        r, _ = self._wait_for("soak.json", 1.0)
+        r.update(settle_wait_s=waited, started_s=started)
+        return r
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.work, ignore_errors=True)
 
 
 def time_ms(fn, runs: int, warmup: int = 3) -> float:
@@ -6472,8 +7580,14 @@ def main() -> int:
         return mesh_rank_worker(sys.argv[1:])
     if sys.argv[1:2] == ["--phase15"]:
         return phase15_alone()
+    if sys.argv[1:2] in (["--soak"], ["--fuzz"]):
+        return drill_alone(sys.argv[1:])
+    if sys.argv[1:2] == ["--drill-worker"]:
+        return drill_worker(sys.argv[1:])
     if sys.argv[1:2] == ["--obs-ab"]:
         return obs_ab()
+    if sys.argv[1:2] == ["--prefix-warm-ab"]:
+        return prefix_warm_ab()
     if sys.argv[1:2] == ["--k5-times"]:
         return k5_times(sys.argv[1:])
     t_start = time.perf_counter()
@@ -6483,10 +7597,12 @@ def main() -> int:
         return 1
     from gome_tpu_torch.ops.match_step import batch_step, batch_step_reference
 
+    global KEPT_QUEUE
     device = torch.device("cuda")
     card = card_line()
     print(card)
     load_kernel(card)
+    KEPT_QUEUE = []
 
     sizes = dict(a=10240, b=1024, c=64, d=512, e_rows=2048, e_t=512,
                  zipf_n=200_000, symbols=10240, hot_n=20_000, batch=8192,
@@ -6585,14 +7701,24 @@ def main() -> int:
     for line in s_lines:
         print(line)
     print_phase8(card, sizes, s_runs, runs)
-    p9 = phase9(card, device, sizes, zipf, want_zipf, s_runs["c"]["secs"])
-    p10 = phase10(card, device, sizes)
-    p11 = phase11(card, device, sizes, zipf, want_zipf, timing,
-                  f_orders_per_s, flow8, s_runs["c"])
-    p12 = phase12(card, device, sizes, zipf, flow8, s_runs["c"])
-    p13 = phase13(card, sizes, zipf, flow8, s_runs["c"])
-    p14 = phase14(card, device, sizes, zipf, want_zipf, flow8, s_runs["c"])
-    p15 = phase15(card, device, sizes, want_zipf, p11)
+    drills = DrillWorker()
+    try:
+        p9 = phase9(card, device, sizes, zipf, want_zipf,
+                    s_runs["c"]["secs"])
+        p10 = phase10(card, device, sizes)
+        p11 = phase11(card, device, sizes, zipf, want_zipf, timing,
+                      f_orders_per_s, flow8, s_runs["c"])
+        p12 = phase12(card, device, sizes, zipf, flow8, s_runs["c"])
+        p13 = phase13(card, sizes, zipf, flow8, s_runs["c"])
+        p14 = phase14(card, device, sizes, zipf, want_zipf, flow8,
+                      s_runs["c"])
+        p15 = phase15(card, device, sizes, want_zipf, p11)
+        p16 = phase16(card, device,
+                      {"phase 13 (a) armed": p13["journal"],
+                       "phase 14 (a) cost": p14["a"]["journal"]}, drills)
+        q_worst, _ = check_queued_inputs("phases 5-16")
+    finally:
+        drills.stop()
     h_launches = ab_runs[0][2]["launches"]
     row = dict(name="match_step", **KERNEL_ROWS["match_step"],
                launches=launches, frame_path_launches=f_launches,
@@ -6617,11 +7743,13 @@ def main() -> int:
                cost_profile_fleet_geometry_path_launches=p14["launches"],
                race_drill_path_launches=p15["race_launches"],
                process_mesh_path_launches=p15["launches"],
+               fuzz_soak_path_launches=p16["launches"],
                max_abs_err=max(worst, f_worst, c_worst, s_worst,
                                p9["drill"]["final"]["kernel_worst"],
                                p9["svc"]["worst"], p10["worst"],
                                p11["worst"], p12["worst"], p13["worst"],
-                               p14["worst"], p15["worst"]),
+                               p14["worst"], p15["worst"], p16["worst"],
+                               q_worst),
                ms=results["a"]["ms"],
                device_ms=results["a"]["device_ms"], plain_ms=results["a"]["plain_ms"],
                bound_ms=results["a"]["bound_ms"],
@@ -6632,7 +7760,7 @@ def main() -> int:
                     library_ms=None, checked=True,
                     T=sizes["sim_scan_t"][0],
                     **p10["hawkes_row"])
-    print(f"chip_smoke [{card}]: phases 1-15 in "
+    print(f"chip_smoke [{card}]: phases 1-16 in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [row, scan_row]}))
     print(json.dumps({"ok": True, "device": {

@@ -20,15 +20,23 @@ fingerprints and SARIF output:
                              lockset detector + seeded interleaving driver
                              — lives in analysis.racecheck /
                              analysis.interleave
+  GL9xx  compile-surface   — the frame-dispatch combo bounded by the
+                             `# gomesurface: quantizer` lattice (GL901),
+                             its build/replay/persist sites agreeing with
+                             engine.frames.COMBO_FIELDS (GL902), the
+                             declared device entries replayed at boot
+                             (GL903), no hot geometry reset (GL904), the
+                             committed combo_universe.json (GL905, which
+                             reads the port's engine defaults: no trace)
+                             and a compile-journal export inside it
+                             (GL906, pure JSON; analysis.surface)
 
 The other families of the reference have no subject here and are not
 ported: GL1xx (host leaks inside jit/pallas-traced code), GL2xx (the
 jaxpr dtype envelope and the generator audit), GL3xx (jit wrappers that
 bypass the compile cache) and GL6xx (buffer donation) — the port traces
 nothing and donates nothing; of GL8xx, GL801, GL804 and GL806 (partition
-specs, donation across shardings, the jaxpr-derived shard manifest); of
-GL9xx, GL901 and GL905 (jit shape sinks, the jaxpr-derived combo
-universe).
+specs, donation across shardings, the jaxpr-derived shard manifest).
 
 Run it via ``python -m gome_tpu_torch.analysis gome_tpu_torch`` or
 programmatically through :func:`run_paths`. Only findings NOT in the

@@ -4,10 +4,19 @@
     python -m gome_tpu_torch.analysis gome_tpu_torch --select GL5    # one family
     python -m gome_tpu_torch.analysis gome_tpu_torch --format sarif  # annotations
     python -m gome_tpu_torch.analysis gome_tpu_torch --update-baseline
+    python -m gome_tpu_torch.analysis gome_tpu_torch --update-universe
+    python -m gome_tpu_torch.analysis gome_tpu_torch --journal export.json
     python -m gome_tpu_torch.analysis --list-rules
 
 The port of ``scripts/gomelint.py``'s AST flags (the reference's jaxpr
-audits have no counterpart here; see ``analysis/__init__.py``). Exit
+audits have no counterpart here; see ``analysis/__init__.py``). Whenever
+the GL9 family runs (no --select, or one naming GL9), GL905 holds the
+port's engine bounds to the committed combo universe
+(``gome_tpu_torch/analysis/combo_universe.json``, override with
+--universe, regenerate with --update-universe): it imports the port's
+engine, not JAX, so it needs no --jaxpr gate. ``--journal FILE`` runs
+GL906 over a compile-journal export (``obs.JOURNAL.export()``) against
+the same universe. Exit
 status: 0 when every finding is clean or baselined, 1 when any NEW
 (non-baselined) finding survives suppressions, 2 on usage errors. The
 baseline (``gome_tpu_torch/analysis/baseline.json``, override with
@@ -36,6 +45,7 @@ from .core import (
     rule_catalogue,
     run_paths,
 )
+from .surface import DEFAULT_UNIVERSE
 
 #: The checkout's root (the package's parent): relative paths in the
 #: baseline and in SARIF URIs are relative to it.
@@ -62,6 +72,16 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--update-baseline", action="store_true",
                     help="rewrite the baseline to the current findings "
                          "and exit 0 (review the diff!)")
+    ap.add_argument("--universe",
+                    default=os.path.join(ROOT, DEFAULT_UNIVERSE),
+                    help="combo-universe manifest for the GL905 drift "
+                         f"ratchet (default: {DEFAULT_UNIVERSE})")
+    ap.add_argument("--update-universe", action="store_true",
+                    help="rewrite the combo universe to the current "
+                         "engine bounds and exit 0 (review the diff!)")
+    ap.add_argument("--journal", default="",
+                    help="compile-journal export (JSON) to check against "
+                         "the committed combo universe (GL906)")
     ap.add_argument("--show-suppressed", action="store_true",
                     help="include findings silenced by gomelint directives")
     ap.add_argument("--list-rules", action="store_true")
@@ -78,8 +98,23 @@ def main(argv: list[str] | None = None) -> int:
         ap.error("no paths given (or use --list-rules)")
 
     select = {s.strip().upper() for s in args.select.split(",") if s.strip()}
+    surface = not select or any(s.startswith("GL9") for s in select)
+    if args.update_universe:
+        from .surface import extract_universe, save_universe
+        universe = extract_universe()
+        save_universe(args.universe, universe)
+        print(f"gomelint: combo universe updated with "
+              f"{len(universe['dimensions'])} dimension(s) -> "
+              f"{args.universe}")
+        return 0
     findings = run_paths(args.paths, select or None,
                          keep_suppressed=args.show_suppressed)
+    if surface:
+        from .surface import check_journal_escape, check_universe
+        findings.extend(check_universe(args.universe))
+        if args.journal:
+            findings.extend(check_journal_escape(args.journal,
+                                                 args.universe))
     fingerprinted = fingerprint_findings(findings, root=ROOT)
     if args.update_baseline:
         save_baseline(args.baseline, fingerprinted)

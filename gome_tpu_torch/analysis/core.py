@@ -169,7 +169,7 @@ def _collect(module: SourceModule, select: set[str] | None,
 
 def _ensure_checkers_loaded() -> None:
     # Import-time registration; local imports avoid a hard cycle.
-    from . import locks, sharding, threads, transfers  # noqa: F401
+    from . import locks, sharding, surface, threads, transfers  # noqa: F401
 
 
 def _run_project(modules: list[SourceModule], select: set[str] | None,

@@ -1,0 +1,1058 @@
+"""GL9xx compile-surface analysis: statically bound the dispatch combo
+universe.
+
+The port of ``gome_tpu/analysis/surface.py``. In the port a combo
+triggers no compile, but it fixes everything else the reference's
+compile did: the caching allocator's buffer sizes for the frame path's
+grids and compaction buffers, the geometry warm-up's replay set
+(``frames.precompile_combos``) and the manifest either package loads
+(``BatchEngine.shape_manifest``). A combo that drifts off the lattice
+mints fresh allocations and a manifest the warm-up cannot replay: the
+port's recompile storm. Every combo-key dimension is the output of a
+small quantizer lattice (pow2/pow4 rounding, the cap ladder, grow-only
+buffer floors), and every site that builds, replays or persists the
+nine-dimension combo agrees field for field. This family machine-checks
+both:
+
+  GL901  a data-derived int reaches a combo-key dimension without
+         passing a registered quantizer. Quantizers carry a
+         ``# gomesurface: quantizer`` annotation on the def
+         (``_next_pow2``, ``_cap_ladder``, ``_buf_class``, ...); taint
+         starts at per-frame/per-order reductions (``len()``, ``.max()``,
+         ``.sum()``, ``.item()``, ``np.count_nonzero``,
+         ``torch.count_nonzero``, and ``int()``/``max()`` of a tensor) in
+         hot-path functions. The port has no ``lru_cache``-wrapped jit
+         factories, so the sink is the combo tuple (and ``record_combo``'s
+         argument).
+  GL902  combo-key drift: the tuple built in the ``combo(build)`` site
+         must agree in arity, order and per-field provenance with the
+         ``COMBO_FIELDS`` declaration, every ``combo(replay)`` unpack and
+         the ``combo(persist)`` manifest writer. Any ``_seen_combos``
+         reach-through outside ``engine/batch.py`` is GL902 too:
+         ``BatchEngine.record_combo`` is the single writer.
+  GL903  a per-combo device entry dispatched on the hot path that no
+         ``# gomesurface: precompile`` replay site reaches — its first
+         dispatch at a new shape pays the allocator's growth (and the
+         first launch) mid-traffic instead of at boot. The port's entries
+         are declared in :data:`DEVICE_ENTRIES` (the reference keys on
+         ``jax.jit``-traced functions, which the port has none of).
+  GL904  ``reset_geometry_floors()`` / ``_seen_combos.clear()`` reachable
+         from a ``# gomelint: hotpath`` seed — dropping the grow-only
+         geometry ratchets mid-traffic re-mints shapes; resets belong in
+         warm-up or maintenance code.
+  GL905  combo-universe drift: the per-dimension value sets enumerated
+         from the port's config bounds and quantizer lattice
+         (``combo_universe.json``, line-number-free) differ from the
+         committed manifest — review and regenerate with
+         ``--update-universe``, never absorb silently.
+  GL906  runtime escape: a compile-journal export contains an observed
+         dispatch combo outside the predicted universe — the static bound
+         and the runtime disagree, and one of them is wrong.
+
+Annotation grammar (comma-separable, on the def line, a decorator line,
+or the line immediately above — the placement of ``gomelint: hotpath``):
+
+    # gomesurface: quantizer          output is on the shape lattice
+    # gomesurface: combo(build)       builds the dispatch combo tuple
+    # gomesurface: combo(replay)      unpacks recorded combos
+    # gomesurface: combo(persist)     persists the recorded combo set
+    # gomesurface: precompile         the boot-time replay entry point
+
+Conventions the structural checks key on: the build tuple and the replay
+unpacks bind a variable named ``combo``; ``COMBO_FIELDS`` is a
+module-level tuple of field-name strings. GL901's taint is per-function
+and lexical (like GL5xx): parameters and attribute loads start clean,
+``min``/``max``/``int`` and arithmetic propagate, a quantizer call
+launders.
+
+GL901–GL904 are pure AST over the project call graph and ride the normal
+checker pipeline. GL905 imports the port's engine (which imports torch,
+never JAX), so the CLI runs it by default, with no --jaxpr gate, whenever
+GL9 is selected (no --select, or one naming GL9). GL906 is pure JSON: it
+checks a journal export against the *committed* universe, so it runs
+anywhere.
+"""
+
+from __future__ import annotations
+
+import ast
+import json
+import math
+import os
+import re
+from typing import Iterable, TypeVar
+
+from . import callgraph
+from .core import (
+    TOOL_VERSION,
+    Finding,
+    Project,
+    SourceModule,
+    _dotted,
+    register_project_checker,
+    register_rules,
+)
+
+register_rules({
+    "GL901": "data-derived int reaches a combo-key dimension without "
+             "passing a registered quantizer (unbounded dispatch surface)",
+    "GL902": "combo-key drift: build/replay/persist sites disagree with "
+             "COMBO_FIELDS (or a _seen_combos reach-through bypasses the "
+             "record_combo chokepoint)",
+    "GL903": "hot-path device entry not reachable from any "
+             "`# gomesurface: precompile` boot-time replay site",
+    "GL904": "geometry-ratchet reset (reset_geometry_floors / "
+             "_seen_combos.clear) reachable from a hotpath seed "
+             "(recompile-storm hazard)",
+    "GL905": "combo-universe drift — dimension bounds changed without "
+             "--update-universe",
+    "GL906": "runtime escape: compile-journal combo outside the "
+             "predicted combo universe",
+})
+
+#: Committed universe manifest location, relative to the checkout's root.
+DEFAULT_UNIVERSE = os.path.join("gome_tpu_torch", "analysis",
+                                "combo_universe.json")
+
+#: The per-combo device entries: what one replay of a recorded combo in
+#: frames.precompile_combos runs, and what a first dispatch at a new combo
+#: would otherwise run cold. (module path suffix, qualname) -> the
+#: reference's counterpart.
+DEVICE_ENTRIES: dict[tuple[str, str], str] = {
+    # K1's wrapper (ops/csrc/match_step.cu), one launch per grid.
+    ("ops/match_step.py", "batch_step"):
+        "engine/batch.py full_kernel_step / ops/pallas_match.py "
+        "pallas_batch_step (the full-grid jit entries)",
+    # Gather, K1, guard and scatter of one dense grid.
+    ("engine/batch.py", "dense_grid_step"):
+        "engine/batch.py dense_kernel_step / dense_batch_step",
+    # The [R, T] op grid built on the device from the packed columns.
+    ("engine/frames.py", "_scatter_grid_fn"):
+        "engine/frames.py _scatter_grid_fn (lru_cache'd jit factory)",
+    # A grid's fill and cancel records compacted into the frame buffers.
+    ("engine/frames.py", "compact_accum"):
+        "engine/frames.py compact_accum (jitted, donating)",
+    # Not _prefix_slice_fn (the reference's lru_cache'd jit factory for
+    # phase 2's prefix slice): here it is a plain slice copied to pageable
+    # host memory, which has no per-shape build to warm.
+}
+
+_SURFACE_RE = re.compile(r"#\s*gomesurface:\s*([a-z(),\s-]+)")
+_MARKER_RE = re.compile(r"([a-z-]+)(?:\(([a-z-]+)\))?")
+
+#: Reductions over per-frame/per-order data: the GL901 taint sources.
+_REDUCTIONS = frozenset({
+    "max", "min", "sum", "item", "argmax", "argmin", "nonzero",
+    "count_nonzero", "bincount", "prod",
+})
+#: Builtins that merely COMBINE operand values (clamps): taint of the
+#: result is the join of the operands — unless an operand is a tensor,
+#: whose int()/max() reads device data.
+_COMBINERS = frozenset({"min", "max", "abs", "int", "round"})
+#: Tensor methods whose result is host metadata, not a tensor.
+_HOST_METHODS = frozenset({
+    "item", "tolist", "numel", "dim", "size", "element_size", "data_ptr",
+    "stride", "is_contiguous",
+})
+#: Tensor attributes that are tensors again (``x.max(dim=0).values``).
+_TENSOR_ATTRS = frozenset({"values", "indices"})
+
+#: Per-field provenance tokens for the GL902 build-site check: element i
+#: of the build tuple must mention one of field i's tokens. Unlisted
+#: fields accept their own name only.
+_FIELD_ALIASES: dict[str, tuple[str, ...]] = {
+    "n_rows": ("n_rows", "rows"),
+    "t_grid": ("t_grid",),
+    "cap_g": ("cap_g", "cap"),
+    "dense": ("dense", "lane_ids"),
+    "m_pad": ("m_pad", "_m_pad"),
+    "k_rec": ("k_rec",),
+    "e_fills": ("e_fills", "fills_acc", "fills"),
+    "e_cancels": ("e_cancels", "cancels_acc", "cancels"),
+    "totals_len": ("totals_len", "totals_acc", "totals"),
+}
+
+_SCOPE_NODES = (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda,
+                ast.ClassDef)
+
+
+_NodeT = TypeVar("_NodeT", bound=ast.AST)
+
+
+def _own_nodes(scope: ast.AST, types: type[_NodeT]) -> list[_NodeT]:
+    """Nodes of the given type belonging to `scope` itself — recursing
+    through control flow but NOT into nested defs/lambdas/classes."""
+    out: list[_NodeT] = []
+
+    def walk(node: ast.AST) -> None:
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, _SCOPE_NODES):
+                continue
+            if isinstance(child, types):
+                out.append(child)
+            walk(child)
+
+    walk(scope)
+    return out
+
+
+def _markers(module: SourceModule,
+             node: ast.stmt) -> set[tuple[str, str | None]]:
+    """gomesurface markers on a def: ``{("quantizer", None),
+    ("combo", "replay"), ("precompile", None), ...}``."""
+    lines = [node.lineno]
+    first = node.lineno
+    for dec in getattr(node, "decorator_list", ()):
+        lines.append(dec.lineno)
+        first = min(first, dec.lineno)
+    lines.append(first - 1)
+    out: set[tuple[str, str | None]] = set()
+    for ln in lines:
+        m = _SURFACE_RE.search(module.line_comment(ln))
+        if not m:
+            continue
+        for mm in _MARKER_RE.finditer(m.group(1)):
+            out.add((mm.group(1), mm.group(2)))
+    return out
+
+
+def _leaf(node: ast.expr) -> str:
+    return (_dotted(node) or "").rsplit(".", 1)[-1]
+
+
+def _mentions_token(text: str, tokens: tuple[str, ...]) -> bool:
+    return any(
+        re.search(rf"(?<![A-Za-z0-9_]){re.escape(t)}(?![A-Za-z0-9_])", text)
+        for t in tokens
+    )
+
+
+def _is_device_entry(fn: callgraph.FuncNode) -> bool:
+    path = fn.module.path.replace(os.sep, "/")
+    return any(path.endswith(suffix) and fn.qualname == qualname
+               for suffix, qualname in DEVICE_ENTRIES)
+
+
+class _Surface:
+    """One project's compile-surface index: annotated quantizers, combo
+    sites, precompile replay entries, the declared device entries and the
+    COMBO_FIELDS declaration."""
+
+    def __init__(self, project: Project):
+        self.project = project
+        self.graph = callgraph.build(project)
+        self.quantizers: set[str] = set()
+        self.build_fns: list[callgraph.FuncNode] = []
+        self.replay_fns: list[callgraph.FuncNode] = []
+        self.persist_fns: list[callgraph.FuncNode] = []
+        self.precompile_fns: list[callgraph.FuncNode] = []
+        self.fields: tuple[str, ...] | None = None
+        self.fields_site: tuple[SourceModule, int] | None = None
+        by_arg = {"build": self.build_fns, "replay": self.replay_fns,
+                  "persist": self.persist_fns}
+        for fn in self.graph.funcs:
+            if isinstance(fn.node, ast.Lambda):
+                continue
+            for name, arg in _markers(fn.module, fn.node):
+                if name == "quantizer":
+                    self.quantizers.add(fn.name)
+                elif name == "combo" and arg is not None and arg in by_arg:
+                    by_arg[arg].append(fn)
+                elif name == "precompile":
+                    self.precompile_fns.append(fn)
+        for module in project.modules:
+            for node in module.tree.body:
+                if not (isinstance(node, ast.Assign)
+                        and len(node.targets) == 1):
+                    continue
+                tgt = node.targets[0]
+                if not (isinstance(tgt, ast.Name)
+                        and tgt.id == "COMBO_FIELDS"
+                        and isinstance(node.value, (ast.Tuple, ast.List))
+                        and all(isinstance(e, ast.Constant)
+                                and isinstance(e.value, str)
+                                for e in node.value.elts)):
+                    continue
+                self.fields = tuple(
+                    e.value for e in node.value.elts
+                    if isinstance(e, ast.Constant)
+                )
+                self.fields_site = (module, node.lineno)
+        self.entries = [fn for fn in self.graph.funcs
+                        if _is_device_entry(fn)]
+
+    def aliases(self, field: str) -> tuple[str, ...]:
+        return _FIELD_ALIASES.get(field, (field,))
+
+
+# --- GL901: quantizer-lattice taint ---------------------------------------
+
+class _TaintScan:
+    """Per-function lexical taint: raw = derived from per-frame/per-order
+    data by a reduction and not yet laundered through a quantizer. Flags
+    raw values reaching a combo dimension. Single forward pass,
+    parameters/attributes start clean — the same underreport-over-noise
+    contract as GL5xx. A second lexical set tracks tensor-valued names
+    (bound from ``torch.*`` calls, tensor methods and subscripts), so that
+    ``int(t)`` / ``max(t)`` of a tensor is a source."""
+
+    def __init__(self, surface: _Surface, fn: callgraph.FuncNode,
+                 is_build: bool):
+        self.s = surface
+        self.fn = fn
+        self.is_build = is_build
+        self.raw: set[str] = set()
+        self.tensors: set[str] = set()
+        self.qaliases: set[str] = set()
+        self.findings: list[Finding] = []
+
+    # -- tensor-valued expressions -----------------------------------------
+    def tensor(self, node: ast.AST) -> bool:
+        if isinstance(node, ast.Name):
+            return node.id in self.tensors
+        if isinstance(node, ast.Subscript):
+            return self.tensor(node.value)
+        if isinstance(node, ast.Attribute):
+            return node.attr in _TENSOR_ATTRS and self.tensor(node.value)
+        if isinstance(node, ast.BinOp):
+            return self.tensor(node.left) or self.tensor(node.right)
+        if isinstance(node, ast.Call):
+            if (_dotted(node.func) or "").split(".", 1)[0] == "torch":
+                return True
+            return (isinstance(node.func, ast.Attribute)
+                    and node.func.attr not in _HOST_METHODS
+                    and self.tensor(node.func.value))
+        return False
+
+    # -- expression taint --------------------------------------------------
+    def t(self, node: ast.AST) -> bool:
+        if isinstance(node, ast.Name):
+            return node.id in self.raw
+        if isinstance(node, ast.Call):
+            return self._t_call(node)
+        if isinstance(node, ast.BinOp):
+            return self.t(node.left) or self.t(node.right)
+        if isinstance(node, ast.UnaryOp):
+            return self.t(node.operand)
+        if isinstance(node, ast.IfExp):
+            return self.t(node.body) or self.t(node.orelse)
+        if isinstance(node, ast.BoolOp):
+            return any(self.t(v) for v in node.values)
+        if isinstance(node, (ast.Tuple, ast.List, ast.Set)):
+            return any(self.t(e) for e in node.elts)
+        if isinstance(node, (ast.Subscript, ast.Starred)):
+            return self.t(node.value)
+        # Compare -> bool (cardinality 2, always bounded); Attribute ->
+        # buffer shapes and config are lattice values by construction.
+        return False
+
+    def _t_call(self, node: ast.Call) -> bool:
+        leaf = _leaf(node.func)
+        if leaf in self.s.quantizers or leaf in self.qaliases:
+            return False  # laundered onto the lattice
+        if isinstance(node.func, ast.Name) and leaf in _COMBINERS:
+            return any(self.t(a) or self.tensor(a) for a in node.args)
+        if leaf == "len":
+            return True
+        if isinstance(node.func, ast.Attribute) and leaf in _REDUCTIONS:
+            return True  # x.max(), counts.sum(), t.item(), ...
+        root = (_dotted(node.func) or "").split(".", 1)[0]
+        if root in ("np", "numpy", "torch") and leaf in _REDUCTIONS:
+            return True
+        return False
+
+    def _is_quant_ref(self, node: ast.AST) -> bool:
+        """A VALUE that is (an alias of) a quantizer function itself —
+        ``bucket = _next_pow2 if first else _next_pow4``."""
+        if isinstance(node, ast.Name):
+            return node.id in self.s.quantizers or node.id in self.qaliases
+        if isinstance(node, ast.Attribute):
+            return node.attr in self.s.quantizers
+        if isinstance(node, ast.IfExp):
+            return (self._is_quant_ref(node.body)
+                    and self._is_quant_ref(node.orelse))
+        return False
+
+    # -- sinks -------------------------------------------------------------
+    def _report(self, node: ast.expr, what: str) -> None:
+        self.findings.append(Finding(
+            "GL901", self.fn.module.path, node.lineno, node.col_offset,
+            f"data-derived int reaches {what} without passing a "
+            "registered quantizer — every distinct value is a fresh "
+            "dispatch shape (new allocator blocks, a combo the warm-up "
+            "cannot replay: an unbounded dispatch surface); round it "
+            "through a `# gomesurface: quantizer` function "
+            f"[in {self.fn.qualname}]",
+        ))
+
+    def _check_combo_tuple(self, tup: ast.Tuple) -> None:
+        fields = self.s.fields or ()
+        for i, el in enumerate(tup.elts):
+            if self.t(el):
+                dim = (f"combo dimension {fields[i]!r}" if i < len(fields)
+                       else f"combo dimension #{i}")
+                self._report(el, dim)
+
+    def _check_expr(self, expr: ast.AST) -> None:
+        for node in ast.walk(expr):
+            if not isinstance(node, ast.Call):
+                continue
+            if _leaf(node.func) == "record_combo":
+                for a in node.args:
+                    if isinstance(a, ast.Tuple):
+                        self._check_combo_tuple(a)
+                    elif self.t(a):
+                        self._report(a, "a recorded combo")
+
+    # -- statements --------------------------------------------------------
+    def _assign(self, targets: list[ast.expr], value: ast.expr) -> None:
+        only = targets[0] if len(targets) == 1 else None
+        if isinstance(only, ast.Name) and self._is_quant_ref(value):
+            self.qaliases.add(only.id)
+            self.raw.discard(only.id)
+            self.tensors.discard(only.id)
+            return
+        if (isinstance(only, (ast.Tuple, ast.List))
+                and isinstance(value, (ast.Tuple, ast.List))
+                and len(only.elts) == len(value.elts)):
+            for tgt, val in zip(only.elts, value.elts):
+                self._assign([tgt], val)
+            return
+        raw = self.t(value)
+        tensor = self.tensor(value)
+        for t in targets:
+            for n in ast.walk(t):
+                if isinstance(n, ast.Name):
+                    (self.raw.add if raw else self.raw.discard)(n.id)
+                    (self.tensors.add if tensor
+                     else self.tensors.discard)(n.id)
+                    self.qaliases.discard(n.id)
+
+    def _stmt(self, node: ast.stmt) -> None:
+        if isinstance(node, _SCOPE_NODES):
+            return  # nested scopes are their own FuncNodes
+        if isinstance(node, ast.Assign):
+            self._check_expr(node.value)
+            self._assign(node.targets, node.value)
+            if self.is_build and isinstance(node.value, ast.Tuple) \
+                    and any(isinstance(t, ast.Name) and t.id == "combo"
+                            for t in node.targets):
+                self._check_combo_tuple(node.value)
+            return
+        if isinstance(node, ast.AnnAssign):
+            if node.value is not None:
+                self._check_expr(node.value)
+                self._assign([node.target], node.value)
+            return
+        if isinstance(node, ast.AugAssign):
+            self._check_expr(node.value)
+            if isinstance(node.target, ast.Name) and self.t(node.value):
+                self.raw.add(node.target.id)
+            return
+        if isinstance(node, ast.For):
+            self._check_expr(node.iter)
+            if self.t(node.iter):
+                for n in ast.walk(node.target):
+                    if isinstance(n, ast.Name):
+                        self.raw.add(n.id)
+            for s in node.body + node.orelse:
+                self._stmt(s)
+            return
+        if isinstance(node, (ast.If, ast.While)):
+            self._check_expr(node.test)
+            for s in node.body + node.orelse:
+                self._stmt(s)
+            return
+        if isinstance(node, (ast.With, ast.AsyncWith)):
+            for item in node.items:
+                self._check_expr(item.context_expr)
+            for s in node.body:
+                self._stmt(s)
+            return
+        if isinstance(node, ast.Try):
+            for s in (node.body + node.orelse + node.finalbody
+                      + [s for h in node.handlers for s in h.body]):
+                self._stmt(s)
+            return
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.expr):
+                self._check_expr(child)
+
+    def run(self) -> list[Finding]:
+        node = self.fn.node
+        if isinstance(node, ast.Lambda):
+            return []
+        for stmt in node.body:
+            self._stmt(stmt)
+        return self.findings
+
+
+def _check_gl901(surface: _Surface) -> list[Finding]:
+    build = set(surface.build_fns)
+    scan = [fn for fn in surface.graph.funcs
+            if (fn in build or fn.hot)
+            and not isinstance(fn.node, ast.Lambda)]
+    findings: list[Finding] = []
+    for fn in scan:
+        findings.extend(_TaintScan(surface, fn, fn in build).run())
+    return findings
+
+
+# --- GL902: combo-key site agreement --------------------------------------
+
+def _build_tuple(fn: callgraph.FuncNode,
+                 arity: int | None) -> ast.Tuple | None:
+    """The combo build tuple: an Assign of a Tuple literal to a Name
+    ``combo`` (the convention), else any Tuple Assign of matching arity."""
+    fallback: ast.Tuple | None = None
+    for node in _own_nodes(fn.node, ast.Assign):
+        if not isinstance(node.value, ast.Tuple):
+            continue
+        if any(isinstance(t, ast.Name) and t.id == "combo"
+               for t in node.targets):
+            return node.value
+        if arity is not None and len(node.value.elts) == arity \
+                and fallback is None:
+            fallback = node.value
+    return fallback
+
+
+def _unpack_sites(fn: callgraph.FuncNode) -> list[tuple[ast.Assign,
+                                                        tuple[str, ...]]]:
+    """Tuple-unpacks of a plain Name — ``(a, b, ...) = combo`` — in the
+    replay site. The conventional ``combo`` source wins; other Name
+    sources are ignored (a replay fn unpacks other pairs too)."""
+    out: list[tuple[ast.Assign, tuple[str, ...]]] = []
+    for node in _own_nodes(fn.node, ast.Assign):
+        tgt = node.targets[0] if len(node.targets) == 1 else None
+        if (isinstance(tgt, (ast.Tuple, ast.List))
+                and all(isinstance(e, ast.Name) for e in tgt.elts)
+                and isinstance(node.value, ast.Name)
+                and node.value.id == "combo"):
+            names = tuple(e.id for e in tgt.elts
+                          if isinstance(e, ast.Name))
+            out.append((node, names))
+    return out
+
+
+def _check_gl902(surface: _Surface) -> list[Finding]:
+    s = surface
+    out: list[Finding] = []
+    # The chokepoint contract: the recorded-combo set has ONE owner.
+    for module in s.project.modules:
+        path = module.path.replace(os.sep, "/")
+        if path.endswith("engine/batch.py"):
+            continue
+        for node in ast.walk(module.tree):
+            if isinstance(node, ast.Attribute) \
+                    and node.attr == "_seen_combos":
+                out.append(Finding(
+                    "GL902", module.path, node.lineno, node.col_offset,
+                    "_seen_combos reach-through — go through the "
+                    "BatchEngine chokepoint (record_combo / combo_seen / "
+                    "combo_count / combos); a private reader or writer "
+                    "forks the combo bookkeeping the zero-recompile "
+                    "steady-state contract audits",
+                ))
+    sites = s.build_fns + s.replay_fns + s.persist_fns
+    if s.fields is None:
+        for fn in sites:
+            out.append(Finding(
+                "GL902", fn.module.path, fn.node.lineno,
+                fn.node.col_offset,
+                f"{fn.qualname} is a combo site but no module declares "
+                "COMBO_FIELDS (a module-level tuple of field-name "
+                "strings) — the site-agreement check has no spine",
+            ))
+        return out
+    fields = s.fields
+    assert s.fields_site is not None  # set together with s.fields
+    decl_mod, decl_line = s.fields_site
+
+    def decl(msg: str) -> None:
+        out.append(Finding("GL902", decl_mod.path, decl_line, 0, msg))
+
+    if len(set(fields)) != len(fields):
+        decl("COMBO_FIELDS repeats a field name — every dimension needs "
+             "a distinct identity for the universe manifest")
+    missing = [role for role, fns in (("build", s.build_fns),
+                                      ("replay", s.replay_fns),
+                                      ("persist", s.persist_fns))
+               if not fns]
+    if missing:
+        decl(f"COMBO_FIELDS is declared but no `# gomesurface: "
+             f"combo({'/'.join(missing)})` site is annotated — the "
+             "agreement check cannot see every side of the contract")
+    for fn in s.build_fns:
+        tup = _build_tuple(fn, len(fields))
+        if tup is None:
+            out.append(Finding(
+                "GL902", fn.module.path, fn.node.lineno,
+                fn.node.col_offset,
+                f"combo(build) site {fn.qualname} builds no combo tuple "
+                "literal (convention: `combo = (...)`)",
+            ))
+            continue
+        if len(tup.elts) != len(fields):
+            out.append(Finding(
+                "GL902", fn.module.path, tup.lineno, tup.col_offset,
+                f"combo tuple has {len(tup.elts)} element(s) but "
+                f"COMBO_FIELDS declares {len(fields)} — a dimension was "
+                "added/removed in one site only; update every "
+                "build/replay/persist site together",
+            ))
+            continue
+        for i, el in enumerate(tup.elts):
+            text = ast.unparse(el)
+            if not _mentions_token(text, s.aliases(fields[i])):
+                out.append(Finding(
+                    "GL902", fn.module.path, el.lineno, el.col_offset,
+                    f"combo element #{i} ({text}) does not mention "
+                    f"{fields[i]!r}'s provenance "
+                    f"({', '.join(s.aliases(fields[i]))}) — field order "
+                    "drifted between the build tuple and COMBO_FIELDS",
+                ))
+    for fn in s.replay_fns:
+        unpacks = _unpack_sites(fn)
+        if not unpacks:
+            out.append(Finding(
+                "GL902", fn.module.path, fn.node.lineno,
+                fn.node.col_offset,
+                f"combo(replay) site {fn.qualname} has no combo unpack "
+                "(convention: `(f0, f1, ...) = combo`)",
+            ))
+        for node, names in unpacks:
+            if names != fields:
+                out.append(Finding(
+                    "GL902", fn.module.path, node.lineno,
+                    node.col_offset,
+                    f"replay unpack binds ({', '.join(names)}) but "
+                    f"COMBO_FIELDS declares ({', '.join(fields)}) — "
+                    "arity/order/name drift makes the precompile replay "
+                    "a silent no-op for the drifted dimension",
+                ))
+        for node in _own_nodes(fn.node, ast.Subscript):
+            if (isinstance(node.value, ast.Name)
+                    and node.value.id == "combo"
+                    and isinstance(node.slice, ast.Constant)
+                    and isinstance(node.slice.value, int)
+                    and not (-len(fields) <= node.slice.value
+                             < len(fields))):
+                out.append(Finding(
+                    "GL902", fn.module.path, node.lineno,
+                    node.col_offset,
+                    f"combo[{node.slice.value}] is outside the "
+                    f"{len(fields)}-field combo layout",
+                ))
+    for fn in s.persist_fns:
+        touches = any(
+            isinstance(n, ast.Attribute)
+            and n.attr in ("combos", "_seen_combos")
+            for n in ast.walk(fn.node)
+        )
+        if not touches:
+            out.append(Finding(
+                "GL902", fn.module.path, fn.node.lineno,
+                fn.node.col_offset,
+                f"combo(persist) site {fn.qualname} never reads the "
+                "recorded combo set (BatchEngine.combos()) — the "
+                "manifest it writes cannot carry the dispatched shapes",
+            ))
+    return out
+
+
+# --- GL903: precompile-replay coverage ------------------------------------
+
+def _check_gl903(surface: _Surface) -> list[Finding]:
+    s = surface
+    if not s.precompile_fns and s.fields is None:
+        return []  # no replay system declared: nothing to register into
+    covered: set[callgraph.FuncNode] = set(s.precompile_fns)
+    work = list(covered)
+    while work:
+        fn = work.pop()
+        for nxt in s.graph.edges.get(fn, ()):
+            if nxt not in covered:
+                covered.add(nxt)
+                work.append(nxt)
+    out: list[Finding] = []
+    for fn in s.entries:
+        if not fn.hot or fn in covered:
+            continue
+        out.append(Finding(
+            "GL903", fn.module.path, fn.node.lineno, fn.node.col_offset,
+            f"device entry {fn.qualname} is dispatched on the hot path "
+            "but no `# gomesurface: precompile` replay site reaches it — "
+            "its first dispatch at a new combo pays the allocator's "
+            "growth and the first launch mid-traffic; replay it from "
+            "precompile_combos (or annotate the replay site)",
+        ))
+    return out
+
+
+# --- GL904: hot-path geometry resets --------------------------------------
+
+def _check_gl904(surface: _Surface) -> list[Finding]:
+    out: list[Finding] = []
+    for fn in surface.graph.hot_functions():
+        for call in _own_nodes(fn.node, ast.Call):
+            leaf = _leaf(call.func)
+            is_reset = leaf == "reset_geometry_floors"
+            is_clear = (
+                leaf == "clear" and isinstance(call.func, ast.Attribute)
+                and isinstance(call.func.value, ast.Attribute)
+                and call.func.value.attr == "_seen_combos"
+            )
+            if not (is_reset or is_clear):
+                continue
+            what = ("reset_geometry_floors()" if is_reset
+                    else "_seen_combos.clear()")
+            out.append(Finding(
+                "GL904", fn.module.path, call.lineno, call.col_offset,
+                f"{what} is reachable from a hotpath seed — dropping the "
+                "grow-only geometry ratchets mid-traffic re-mints every "
+                "shape (a trace+compile per combo, the recompile storm "
+                "the ratchets exist to prevent); keep resets in "
+                f"warmup/maintenance code [in {fn.qualname}]",
+            ))
+    return out
+
+
+def check_surface(project: Project) -> list[Finding]:
+    surface = _Surface(project)
+    out = _check_gl901(surface)
+    out.extend(_check_gl902(surface))
+    out.extend(_check_gl903(surface))
+    out.extend(_check_gl904(surface))
+    return out
+
+
+register_project_checker("GL9", check_surface)
+
+
+# --- GL905: the combo universe (extract / save / drift ratchet) -----------
+
+def _pow_span(base: int, lo: int, hi: int) -> int:
+    """How many powers of `base` lie in [lo, hi] (lo/hi are powers)."""
+    count = 0
+    v = lo
+    while v <= hi:
+        count += 1
+        v *= base
+    return count
+
+
+def _pow_dim(kind: str, lo: int, hi: int, generator: str) -> dict:
+    base = 2 if kind == "pow2" else 4
+    return dict(kind=kind, min=lo, max=hi,
+                cardinality=_pow_span(base, lo, hi), generator=generator)
+
+
+def extract_universe() -> dict:
+    """Enumerate every combo dimension's value set from the port's engine
+    config bounds and quantizer lattice. Deterministic for a given tree:
+    no line numbers, no timestamps. Imports the port's engine (torch,
+    never JAX)."""
+    import inspect
+
+    from ..engine import frames as eng_frames
+    from ..engine.batch import CAP_CLASS_MIN, BatchEngine
+
+    # signature() of the class follows __init__; naming the dunder here
+    # would hand the name-matched call graph an edge to every __init__.
+    sig = inspect.signature(BatchEngine)
+
+    def default(name: str) -> int:
+        return int(sig.parameters[name].default)
+
+    max_slots = default("max_slots")
+    max_cap = default("max_cap")
+    dense_t_max = default("dense_t_max")
+    max_t = default("max_t")
+    max_ops = int(eng_frames.MAX_FRAME_OPS)
+    fields = list(eng_frames.COMBO_FIELDS)
+
+    def pow2_ceil(n: int) -> int:
+        return 1 << max(n - 1, 0).bit_length()
+
+    def pow4_ceil(n: int) -> int:
+        v = 1
+        while v < n:
+            v *= 4
+        return v
+
+    t_cap = pow2_ceil(max(dense_t_max, max_t))
+    dims = {
+        "n_rows": _pow_dim(
+            "pow2", 8, max_slots,
+            "BatchEngine._grid_geometry: max(8, _next_pow2 (head grid) or "
+            "_next_pow4 (train tail) of the live-lane count, the grow-only "
+            "rows floor per cap class); a bucket >= n_slots runs the full "
+            "grid of n_slots rows (pow2 deployments); n_slots <= max_slots"),
+        "t_grid": _pow_dim(
+            "pow2", 8, t_cap,
+            "frames._pack_class_train: head grid min(max(_next_pow2(need), "
+            "t_floor), cap_t); tails snap to {max(8, max_t), max(8, "
+            "8*max_t), max(8, cap_t//4), cap_t} clamped to cap_t; full "
+            "grid = max_t; cap_t = max(8, min(max(dense_t_max, max_t), "
+            "t_mem)) <= _next_pow2(max(dense_t_max, max_t))"),
+        "cap_g": _pow_dim(
+            "pow2", 1, max_cap,
+            "_cap_ladder: pow4 classes from CAP_CLASS_MIN below the "
+            "storage cap plus the cap itself, which ensure_cap and "
+            "escalation keep pow2-snapped and <= max_cap"),
+        "dense": dict(
+            kind="enum", values=[False, True], cardinality=2,
+            generator="lane_ids is not None — dense_grid_step (gather, "
+                      "K1, scatter over lane_ids) vs the full [n_slots, "
+                      "max_t] grid"),
+        "m_pad": _pow_dim(
+            "pow4", 64, pow4_ceil(max_ops),
+            "frames._packed_axis: _next_pow4(max(m, 64)) of the grid's "
+            "packed-op count, m <= MAX_FRAME_OPS"),
+        "k_rec": dict(
+            kind="bounded", min=1, max=max_cap, cardinality=max_cap,
+            generator="outs.fill_qty.shape[-1] = min(config.max_fills, "
+                      "cap_g): BatchEngine._step launches K1 with the "
+                      "record axis clamped to the cap class; one value "
+                      "per engine config per cap class"),
+        "e_fills": _pow_dim(
+            "pow2", 64, pow2_ceil(max_ops) * max_cap,
+            "frames._compact_sizes: _buf_class (_next_pow2(max(kept ops, "
+            "64))) or the class's grow-only fills floor; resolve_frame's "
+            "overflow ratchets the floor to _next_pow2(total fills), "
+            "total <= MAX_FRAME_OPS * k_rec, k_rec <= max_cap"),
+        "e_cancels": _pow_dim(
+            "pow2", 64, pow2_ceil(max_ops),
+            "frames._compact_sizes: _next_pow2(max(frame DEL count, 64)) "
+            "or the class's grow-only cancels floor; DELs <= "
+            "MAX_FRAME_OPS"),
+        "totals_len": _pow_dim(
+            "pow2", 8, pow2_ceil(max_ops),
+            "submit_frame: max(_next_pow2(len(grids)), 8); a frame packs "
+            "no more grids than it has ops"),
+    }
+    for f in [f for f in fields if f not in dims]:
+        # A new dimension lands here as an explicit hole: the drift check
+        # turns it into a GL905 finding until its generator is written.
+        dims[f] = dict(kind="unbounded", cardinality=0,
+                       generator="UNKNOWN — no generator declared for "
+                                 "this dimension")
+    dims = {f: dims[f] for f in fields}
+    log2_total = round(sum(
+        math.log2(d["cardinality"]) for d in dims.values()
+        if d.get("cardinality")
+    ), 2)
+    return dict(
+        version=1,
+        tool=f"gomelint {TOOL_VERSION}",
+        note="Per-dimension value sets of the port's frame-dispatch combo "
+             "key, derived from gome_tpu_torch's engine config bounds and "
+             "its `# gomesurface: quantizer` lattice. The lint gate fails "
+             "on drift (GL905); regenerate with python -m "
+             "gome_tpu_torch.analysis gome_tpu_torch --update-universe "
+             "and review the diff like any compile-surface change. GL906 "
+             "checks compile-journal exports against this file.",
+        fields=fields,
+        bounds=dict(
+            max_slots=max_slots, max_cap=max_cap,
+            dense_t_max=dense_t_max, max_t=max_t,
+            cap_class_min=int(CAP_CLASS_MIN), max_frame_ops=max_ops,
+        ),
+        cardinality_log2_bound=log2_total,
+        dimensions=dims,
+    )
+
+
+def save_universe(path: str, universe: dict) -> None:
+    with open(path, "w", encoding="utf-8") as fh:
+        json.dump(universe, fh, indent=2, sort_keys=True)
+        fh.write("\n")
+
+
+def load_universe(path: str) -> dict | None:
+    try:
+        with open(path, encoding="utf-8") as fh:
+            return json.load(fh)
+    except (OSError, ValueError):
+        return None
+
+
+def _repo_root() -> str:
+    return os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+
+
+def _rel(path: str, root: str) -> str:
+    return os.path.relpath(path, root) if os.path.isabs(path) else path
+
+
+def check_universe(path: str | None = None) -> list[Finding]:
+    """GL905 drift ratchet: the extracted universe must equal the
+    committed one dimension for dimension. Findings anchor on the
+    manifest file, so the fix (--update-universe and review) is
+    unambiguous."""
+    root = _repo_root()
+    if path is None:
+        path = os.path.join(root, DEFAULT_UNIVERSE)
+    rel = _rel(path, root)
+    committed = load_universe(path)
+    if committed is None:
+        return [Finding(
+            "GL905", rel, 1, 0,
+            "no committed combo universe — run python -m "
+            "gome_tpu_torch.analysis gome_tpu_torch --update-universe and "
+            "commit the file",
+        )]
+    current = extract_universe()
+    findings: list[Finding] = []
+    for key in ("fields", "bounds"):
+        if current.get(key) != committed.get(key):
+            findings.append(Finding(
+                "GL905", rel, 1, 0,
+                f"{key} changed vs the committed universe "
+                f"({committed.get(key)} -> {current.get(key)}) — review "
+                "the compile-surface change and regenerate with "
+                "--update-universe",
+            ))
+    cur = current.get("dimensions", {})
+    com = committed.get("dimensions", {})
+    for dim in sorted(set(cur) | set(com)):
+        if dim not in com:
+            what = "dimension is new (not in the committed universe)"
+        elif dim not in cur:
+            what = "dimension vanished from the extraction but is still " \
+                   "committed"
+        elif cur[dim] != com[dim]:
+            changed = sorted(
+                k for k in set(cur[dim]) | set(com[dim])
+                if cur[dim].get(k) != com[dim].get(k)
+            )
+            what = f"{', '.join(changed)} changed vs the committed " \
+                   "universe"
+        else:
+            continue
+        findings.append(Finding(
+            "GL905", rel, 1, 0,
+            f"{dim}: {what} — review the bound change and regenerate "
+            "with --update-universe",
+        ))
+    return findings
+
+
+# --- GL906: runtime escape (journal vs universe) --------------------------
+
+def _is_pow2(v: int) -> bool:
+    return v > 0 and (v & (v - 1)) == 0
+
+
+def _dim_contains(spec: dict, value: object) -> bool:
+    kind = spec.get("kind")
+    if kind == "enum":
+        return any(value == v for v in spec.get("values", ()))
+    if not isinstance(value, int) or isinstance(value, bool):
+        return False
+    lo, hi = spec.get("min", 0), spec.get("max", 0)
+    if not int(lo) <= value <= int(hi):
+        return False
+    if kind == "pow2":
+        return _is_pow2(value)
+    if kind == "pow4":
+        return _is_pow2(value) and (value.bit_length() - 1) % 2 == 0
+    return kind == "bounded"
+
+
+def combo_escapes(combo: Iterable[object], universe: dict) -> list[str]:
+    """The ways one observed combo falls outside the universe ([] =
+    inside): the in-process half of GL906."""
+    fields = universe.get("fields") or []
+    dims = universe.get("dimensions", {})
+    values = tuple(combo)
+    if len(values) != len(fields):
+        return [f"arity {len(values)} != the {len(fields)} declared "
+                "fields"]
+    out: list[str] = []
+    for name, value in zip(fields, values):
+        spec = dims.get(name)
+        if spec is None or not _dim_contains(spec, value):
+            kind = (spec or {}).get("kind", "missing")
+            bound = (f"[{spec.get('min')}..{spec.get('max')}]"
+                     if spec and "min" in spec
+                     else repr((spec or {}).get("values", "?")))
+            out.append(f"{name}={value!r} outside {kind} {bound}")
+    return out
+
+
+def _journal_entries(doc: object) -> list:
+    """Every journal wire form the port ships: a CompileJournal.export()
+    / as_dict() payload, the ops /cost payload, or a bare entries list."""
+    if isinstance(doc, list):
+        return doc
+    if isinstance(doc, dict):
+        if isinstance(doc.get("entries"), list):
+            return doc["entries"]
+        for key in ("compile_journal", "journal"):
+            inner = doc.get(key)
+            if isinstance(inner, dict) \
+                    and isinstance(inner.get("entries"), list):
+                return inner["entries"]
+    return []
+
+
+def journal_escapes(entries: Iterable[object],
+                    universe: dict) -> list[tuple[tuple, list[str]]]:
+    """Distinct frame-dispatch combos in a journal export that fall
+    outside the universe, with the per-dimension violations."""
+    seen: set[tuple] = set()
+    out: list[tuple[tuple, list[str]]] = []
+    for e in entries:
+        if not isinstance(e, dict) or e.get("entry") != "frame_dispatch":
+            continue
+        key = e.get("key")
+        if not isinstance(key, (list, tuple)):
+            continue
+        combo = tuple(key)
+        if combo in seen:
+            continue
+        seen.add(combo)
+        violations = combo_escapes(combo, universe)
+        if violations:
+            out.append((combo, violations))
+    return out
+
+
+def check_journal_escape(journal_path: str,
+                         universe_path: str | None = None) -> list[Finding]:
+    """GL906: every observed compile-journal combo must lie inside the
+    committed universe. Pure JSON (no engine import)."""
+    root = _repo_root()
+    if universe_path is None:
+        universe_path = os.path.join(root, DEFAULT_UNIVERSE)
+    rel = _rel(journal_path, root)
+    universe = load_universe(universe_path)
+    if universe is None:
+        return [Finding(
+            "GL906", _rel(universe_path, root), 1, 0,
+            "no committed combo universe to check the journal against — "
+            "run python -m gome_tpu_torch.analysis gome_tpu_torch "
+            "--update-universe",
+        )]
+    try:
+        with open(journal_path, encoding="utf-8") as fh:
+            doc = json.load(fh)
+    except (OSError, ValueError) as e:
+        return [Finding(
+            "GL906", rel, 1, 0, f"compile-journal export unreadable: {e}",
+        )]
+    findings: list[Finding] = []
+    for combo, violations in journal_escapes(_journal_entries(doc),
+                                             universe):
+        findings.append(Finding(
+            "GL906", rel, 1, 0,
+            f"observed dispatch combo {tuple(combo)} escapes the "
+            f"predicted universe: {'; '.join(violations)} — either a "
+            "quantizer regressed (the runtime minted an off-lattice "
+            "shape) or the universe bounds are stale "
+            "(--update-universe after review)",
+        ))
+    return findings

@@ -109,6 +109,7 @@ def _nop_grid(config: BookConfig, n_rows: int, t: int) -> dict[str, np.ndarray]:
     )
 
 
+# gomesurface: quantizer
 def _next_pow2(n: int) -> int:
     p = 1
     while p < n:
@@ -116,6 +117,7 @@ def _next_pow2(n: int) -> int:
     return p
 
 
+# gomesurface: quantizer
 def _next_pow4(n: int) -> int:
     """Coarser bucket for a frame's train grids: pow4 classes (8, 32, 128,
     ...) visit 4x fewer shapes for at most 4x padding on small grids."""
@@ -130,6 +132,7 @@ def _next_pow4(n: int) -> int:
 CAP_CLASS_MIN = 64
 
 
+# gomesurface: quantizer
 def _cap_ladder(cap: int) -> list[int]:
     """The per-grid cap classes available under a storage cap: pow4 steps
     from CAP_CLASS_MIN (64, 256, 1024, ...) strictly below `cap`, plus `cap`
@@ -502,6 +505,7 @@ class BatchEngine:
             np.maximum(extra, 0, out=extra)
             self._ub_extra = extra
 
+    # gomesurface: quantizer
     @staticmethod
     def _buf_class(n: int) -> int:
         """Compaction-buffer floors are keyed by the pow2 op-count class."""
@@ -634,6 +638,7 @@ class BatchEngine:
             cap=self.config.cap,
         )
 
+    # gomesurface: combo(persist)
     def shape_manifest(self) -> dict:
         """The flow's shape geometry: the grow-only floors (so the same
         shapes are CHOSEN) plus every dispatched shape combo. The

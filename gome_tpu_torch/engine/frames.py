@@ -69,6 +69,25 @@ _REC_ELEM_BUDGET = 1 << 24
 #: Hard per-frame op ceiling (wire contract, enforced in _frame_arrays).
 MAX_FRAME_OPS = 1 << 20
 
+#: The frame-dispatch combo key, field by field, in tuple order: the
+#: spine of gomesurface's GL902 site-agreement check. The build tuple
+#: (submit_frame), every replay unpack (precompile_combos,
+#: obs.compile_journal.frame_combo_detail) and the persisted manifest
+#: (BatchEngine.shape_manifest) agree with this declaration; a new
+#: dimension updates every site at once. The reference's layout, so
+#: either package loads the other's manifest.
+COMBO_FIELDS = (
+    "n_rows",      # grid rows (live-lane bucket or full n_slots)
+    "t_grid",      # grid time-axis depth (packed-train class)
+    "cap_g",       # book capacity class dispatched against
+    "dense",       # full grid (False) or gather/scatter over lane_ids
+    "m_pad",       # packed-op axis length (pow4 of the grid's op count)
+    "k_rec",       # step record depth min(max_fills, cap)
+    "e_fills",     # fills compaction buffer width (pow2 + grow-only floor)
+    "e_cancels",   # cancels compaction buffer width
+    "totals_len",  # per-grid totals buffer length
+)
+
 
 def _lane_map(eng: BatchEngine, symbols) -> np.ndarray:
     """symbol-dictionary -> lane-id array, cached by dictionary identity.
@@ -333,6 +352,7 @@ def _pack_class_train(eng: BatchEngine, a: dict, active_idx, t_sub,
         t_sub = t_sub[alive]
 
 
+# gomesurface: quantizer
 def _packed_axis(m: int) -> int:
     """A grid's packed-op axis for m ops: pow4 buckets from 64."""
     return _next_pow4(max(m, 64))
@@ -707,6 +727,7 @@ def _fetch_async(t: torch.Tensor) -> torch.Tensor:
     return host
 
 
+# gomesurface: combo(build)
 def submit_frame(eng: BatchEngine, cols: dict) -> PendingFrame:
     """Queue every grid of the frame and its device-side compaction back
     to back (no host sync) and start the asynchronous device->host copy of
@@ -768,11 +789,11 @@ def submit_frame(eng: BatchEngine, cols: dict) -> PendingFrame:
             items.append((meta, (t_grid, k_rec)))
             # The full dispatch combo (grid geometry x frame buffers; the
             # buffers' event capacity, their sentinel column aside), as the
-            # reference records it.
+            # reference records it, in COMBO_FIELDS order.
+            m_pad = _packed_axis(len(meta["arrival"]))
             combo = (
                 n_rows, t_grid, int(cap_g), lane_ids is not None,
-                _packed_axis(len(meta["arrival"])), k_rec,
-                e_fills, e_cancels, int(totals_acc.shape[0]),
+                m_pad, k_rec, e_fills, e_cancels, int(totals_acc.shape[0]),
             )
             if TRACER.enabled:
                 # Dispatch cost split by whether this shape combo ran
@@ -955,6 +976,7 @@ def apply_frame_fast(eng: BatchEngine, cols: dict):
         raise
 
 
+# gomesurface: quantizer
 def _compact_sizes(eng, n_ops: int, n_dels: int) -> tuple[int, int]:
     """Compaction buffer sizes for a frame of n_ops kept ops (n_dels of
     them DELs), pow2-bucketed and grow-only per op-count class
@@ -975,6 +997,7 @@ def _compact_sizes(eng, n_ops: int, n_dels: int) -> tuple[int, int]:
     return fills, cancels
 
 
+# gomesurface: combo(replay), precompile
 def precompile_combos(eng: BatchEngine, combos) -> int:
     """Replay recorded fast-path shape combos (BatchEngine.shape_manifest
     "combos") with ALL-PADDING inputs through the frame path's own device

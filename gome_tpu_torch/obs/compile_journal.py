@@ -173,6 +173,7 @@ _GRID_VAL_FIELDS = 4
 _RECORD_TENSORS = 5
 
 
+# gomesurface: combo(replay)
 def frame_combo_detail(dtype_name: str, combo: tuple) -> dict:
     """Analytic cost block for one frame dispatch combo
     (engine.frames.submit_frame records tuples of (n_rows, t_grid, cap_g,
