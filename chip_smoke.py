@@ -148,7 +148,7 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      the draws, K5, the resolve and scatter, K1 and the rest; (d) the
      simulator as the service's traffic source: bench.py's _SimFlow pump
      (10,240 lanes x 1,024 bins, sim-side books cap 64 K 8) generates
-     50,000 orders, which go through phase 6's consumer at depth 0 in
+     25,000 orders, which go through phase 6's consumer at depth 0 in
      ORDER frames of 8,192: events equal to the oracle's, books verified;
      K1 and K5 equal to their plain versions at the inputs of every 128th
      pump and the last, and K1 at the consumer's; the generator's orders/s
@@ -182,7 +182,7 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
  12. the RabbitMQ transport (gome_tpu_torch.bus.amqp, the port's
      FakeBroker in this process): (a) phase 8 (c)'s service (depth 0,
      json wire, no subscriber) booted from a config whose rabbitmq:
-     section names the broker, over the flow's first 53,248 orders and
+     section names the broker, over the flow's first 40,960 orders and
      the unary tail: matchOrder bodies, read back through the service's
      AMQP match queue, the oracle's, the flow's byte-equal to phase 8
      (c)'s, /healthz
@@ -195,7 +195,8 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      marks, OrderConsumer at depth 2 on AmqpQueues, no host sync, K1 held
      against its plain version at its own inputs, books verified), then a
      gateway process (`--amqp-gateway`: the race's DEL and marked ADD as
-     JSON, then phase 3's flow in ORDER frames of 8,192 through
+     JSON, then a 102,400-order draw of phase 3's Zipf flow (the same
+     generator and seed) in ORDER frames of 8,192 through
      gateway_step into the marker server and doOrder); this process reads
      matchOrder: events equal to the oracle's under the race, one dropped
      ADD in the consumer and the oracle; each process's orders/s and the
@@ -224,7 +225,8 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      ran, their rows per live lane p50, the flow's most frequent symbol on
      top), /capacity (no verdict) and /hostprof (samples and a stage
      table; ?drill=1 and ?format=collapsed), every route with the
-     reference's keys and no TPU artifact's value; (d) the columnar
+     reference's keys and no TPU artifact's value (the placement verdict
+     and baselines are the port's own artifacts); (d) the columnar
      gateway admit drill (obs.hostprof.gateway_drill), which must mark
      through the native pre-pool;
  14. the cost model, the profiler, the fleet aggregator and the geometry
@@ -290,7 +292,25 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      K1 held against its plain version at the inputs the soak gave it;
      (c) GL906 over phases 13 (a) and 14 (a)'s
      journal exports; (d) `python -m gome_tpu_torch.analysis
-     gome_tpu_torch --select GL9 --journal <(b)'s export>` exits 0.
+     gome_tpu_torch --select GL9 --journal <(b)'s export>` exits 0;
+ 17. the operator artifacts' drivers (gome_tpu_torch/scripts) and the
+     committed artifacts they wrote: (a) obs_snapshot into a temporary
+     directory, its capacity smoke ladder (capacity.run_single_sweep)
+     at 10,240 symbols, cap 256, K 16, int32, memory bus, frame wire, 4
+     points over 3 s of ladder: the ladder's events equal to the oracle's
+     for exactly the orders sent, zero seq dupes and gaps, attribution
+     within 5% at every point, offered rates strictly increasing, K1 at
+     the run's kept inputs; (b) mesh_overhead's part A at 10,240 x 32
+     (unsharded and D=1 outputs equal) and its curve at D = 1, 2, 4, 8 on
+     cuda:0 blocks (books and outputs equal to the unsharded step's;
+     live_per_shard and dispatched_rows equal to MULTICHIP_CUDA_r01.json's
+     and to part B's arithmetic); (c) the six *_CUDA_r0N.json artifacts
+     load with their schemas and (but the host-deterministic placement
+     verdict) name an NVIDIA card, build_verdict() is byte-equal to
+     PLACEMENT_CUDA_r01.json, and (a)'s /placement serves it with
+     baselines citing MULTICHIP_CUDA_r01 and FLEET_CUDA_r01; (d)
+     hostprof.bench_admit() and hostprof_artifact(path="columnar") at
+     small round counts, stage coverage >= 80%.
 
 The last two lines are the kernel table (JSON) and
 {"ok": true, "device": {...}}.
@@ -307,6 +327,10 @@ A, ...) to compare them on one card.
 
 runs phase 11 (b)'s one-process D=4 run and then phase 15 alone (about two
 minutes on one card; under four cards (b) runs a card a rank too).
+
+    python3 chip_smoke.py --phase17
+
+runs phase 17 alone.
 
     python3 chip_smoke.py --soak SECONDS
     python3 chip_smoke.py --fuzz N [SEED0]
@@ -349,6 +373,13 @@ import time
 import numpy as np
 import torch
 
+from gome_tpu_torch.scripts.common import (MIXED_UUIDS, MixedFlow,
+                                           card_line, encode_frame,
+                                           expected_launches, gateway_step,
+                                           host_line, svc_warmup, tail_of,
+                                           wire_request)
+from gome_tpu_torch.scripts.fleet_drill import fleet_members
+
 KERNEL_ROWS = dict(
     match_step=dict(
         route="cuda",
@@ -373,24 +404,6 @@ LOT_MAX32 = (1 << 30) - 1
 #: Every ops: flag that arms an obs/ surface (the service runs of phases
 #: 8-12 turn them all off; phase 13 arms timeline, hostprof, placement).
 ALL_OBS_FLAGS = ("cost", "timeline", "profile", "hostprof", "placement")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()
-    return out[0].strip()
-
-
-def host_line() -> str:
-    """How the native host library was had: g++'s seconds, or cached."""
-    from gome_tpu_torch.native import build
-
-    secs = build.build_seconds
-    return (f"g++ build {secs:.2f} s" if secs is not None
-            else "cached g++ build")
 
 
 def require_host(engine, label: str, host: str = "native") -> str:
@@ -1335,24 +1348,6 @@ def phase5(device, sizes, zipf, want_zipf):
 
 # -- phase 6 -----------------------------------------------------------------
 
-def encode_frame(cols) -> bytes:
-    """A decoded ORDER frame's columns back to its wire bytes."""
-    from gome_tpu_torch.bus.colwire import encode_order_frame
-
-    return encode_order_frame(
-        cols["n"], cols["action"], cols["side"], cols["kind"], cols["price"],
-        cols["volume"], cols["symbols"], cols["symbol_idx"], cols["uuids"],
-        cols["uuid_idx"], cols["oids"])
-
-
-def gateway_step(engine, queue, cols) -> None:
-    """The gateway's per-frame work (bench.py's _svc_gateway_step): encode
-    the ORDER frame, mark its ADDs in the pre-pool, publish to doOrder."""
-    payload = encode_frame(cols)
-    engine.mark_frame(cols)
-    queue.publish(payload)
-
-
 def consumer_stack(device, symbols: int, depth: int, batch_wait_s: float = 0,
                    host: str = "native", bus=None):
     """A fresh engine (cap 256, K 16, int32) on the given host branches
@@ -1864,22 +1859,15 @@ SERVICE_RUNS = (("b", 0, True), ("a", 2, True), ("c", 0, False))
 #: (53,248 orders) and leave load_client to (c): the script's time limit.
 SUBSCRIBED_REQUESTS = 13
 #: Phase 12 (a), the service over AMQP (one confirmed publish an event,
-#: ~2,600-4,900 orders/s), sends the same first requests: the script's
-#: time limit.
-AMQP_REQUESTS = SUBSCRIBED_REQUESTS
-
-
-def wire_request(pb, order):
-    """A port Order as the OrderRequest a client sends. fixed.unscale is
-    the reference's internal float64 of the scaled integer (what a
-    MatchEvent carries); a client sends external units, which the gateway
-    scales back to the same ticks: unscale_external."""
-    from gome_tpu_torch.fixed import unscale_external
-
-    return pb.OrderRequest(
-        uuid=order.uuid, oid=order.oid, symbol=order.symbol,
-        transaction=int(order.side), price=unscale_external(order.price),
-        volume=unscale_external(order.volume), kind=int(order.order_type))
+#: ~2,300-4,900 orders/s), sends the flow's first 10 requests (40,960
+#: orders; the hot book passes the storage cap of 256 in the 9th, so the
+#: cap-1,024 launches stay on this path): the script's time limit.
+AMQP_REQUESTS = 10
+#: Phase 12 (b), the split topology, sends a 102,400-order draw of phase
+#: 3's Zipf flow (multi_symbol_stream, seed 7, in 13 ORDER frames of
+#: 8,192; the 200,000-order draw's cap-2,048 launches stay on phase 8
+#: (c)'s path): the script's time limit.
+SPLIT_ORDERS = 102_400
 
 
 def wire_batches(pb, orders):
@@ -2029,16 +2017,6 @@ def wait_drained(label, svc, limit_s: float, n_events: int = 0) -> float:
                              f"events committed in {limit_s} s")
         time.sleep(0.001)
     return time.perf_counter()
-
-
-def expected_launches(engine) -> int:
-    """K1 launches an engine's device calls make: one per shard this
-    process holds for each grid step (one shard without a mesh), one for
-    each per-row fill-record re-run."""
-    st, mesh = engine.stats, engine.batch.mesh
-    per_row = st.fill_record_escalations
-    return (len(mesh.local) if mesh else 1) * (st.device_calls - per_row) \
-        + per_row
 
 
 def service_run(sizes, depth: int, requests, tail, want, n_orders: int,
@@ -4435,7 +4413,8 @@ def raced_oracle(orders):
 
 
 def amqp_gateway(args) -> dict:
-    """Phase 12 (b)'s gateway process: phase 3's flow as ORDER frames,
+    """Phase 12 (b)'s gateway process: args.orders of phase 3's Zipf flow
+    (multi_symbol_stream, seed 7) as ORDER frames,
     each through gateway_step (encode, mark_frame into a RespPrePool on
     the marker server, publish to doOrder over AMQP), with the race's DEL
     and marked ADD published first as JSON documents."""
@@ -4517,13 +4496,6 @@ def amqp_consumer(args) -> dict:
                 dropped=eng.stats.dropped_no_prepool, kernel_worst=worst,
                 kept_line=kept_line, checked=checked[0], host=host,
                 fallbacks=eng.stats.frame_fallbacks)
-
-
-def tail_of(f) -> str:
-    """The last 2,000 characters a worker wrote to its stderr file."""
-    f.flush()
-    f.seek(0)
-    return f.read()[-2000:]
 
 
 def amqp_worker(argv) -> int:
@@ -4806,7 +4778,7 @@ def phase12(card: str, device, sizes, zipf, flow8, p8c) -> dict:
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as work:
-        b = split_topology(work, "cuda", sizes["zipf_n"], sizes["symbols"],
+        b = split_topology(work, "cuda", SPLIT_ORDERS, sizes["symbols"],
                            sizes["batch"])
     c, g = b["consumer"], b["gateway"]
     e2e = b["t_done"] - g["first_unix"]
@@ -5000,13 +4972,20 @@ def check_obs_payloads(sc: dict, flow_orders, dense) -> dict:
                          f"top {pl['top'][:1]} against the flow's "
                          f"{top_flow}, admits {pl['admits']} of "
                          f"{len(flow_orders)}")
+    # The verdict and the baselines are the port's own artifacts (None
+    # without them), never a TPU run's.
+    from gome_tpu_torch.obs import placement
+
     attr = pl["attribution"]
-    if pl["verdict"] is not None or attr["hash_partition"]["baseline"] \
-            is not None or any(c["baseline"] is not None
-                               for c in attr["components"]) \
-            or not attr["reconciliation"]["within_tol"]:
+    if pl["verdict"] != placement.default_verdict() or \
+            attr["hash_partition"]["baseline"] != \
+            placement.partition_imbalance_baseline() or \
+            [c["baseline"] for c in attr["components"]] != \
+            [placement.shard_skew_baseline(), None] or \
+            not attr["reconciliation"]["within_tol"]:
         raise SystemExit(f"phase 13 (c): /placement verdict or baselines "
-                         f"not None, or not reconciled: {attr}")
+                         f"not the port's artifacts, or not reconciled: "
+                         f"{attr}")
     if sc["capacity"] != {"enabled": False}:
         raise SystemExit(f"phase 13 (c): /capacity {sc['capacity']}")
     live = sc["hostprof"]["live"]
@@ -5457,181 +5436,24 @@ def phase14a(card: str, sizes, zipf, flow8, p8c) -> dict:
                 k1_total=costmodel.ENTRY_K1_LAUNCHES, journal=journal_export)
 
 
-def fleet_gateway(args) -> dict:
-    """Phase 14 (b)'s gateway process for one partition: OrderGateway over
-    the partition's file bus, marks in the marker server, the tracer
-    armed (the scalar loop: one doOrder document an order, with its trace
-    context), the timeline and the placement observatory, gRPC, and an
-    ops server of its own for the aggregator. No engine."""
-    from gome_tpu_torch.bus import make_bus
-    from gome_tpu_torch.bus.base import export_queue_metrics
-    from gome_tpu_torch.config import BusConfig, Config, EngineConfig, \
-        GrpcConfig
-    from gome_tpu_torch.engine.prepool import RespPrePool, make_marker
-    from gome_tpu_torch.obs.placement import PLACEMENT
-    from gome_tpu_torch.obs.timeline import TIMELINE
-    from gome_tpu_torch.persist.resp import RespClient
-    from gome_tpu_torch.service.gateway import OrderGateway, serve_gateway
-    from gome_tpu_torch.service.ops import OpsServer
-    from gome_tpu_torch.utils.trace import TRACER, FlightRecorder
-
-    bus = make_bus(BusConfig(backend="file", dir=args.bus_dir))
-    export_queue_metrics(bus.order_queue)
-    export_queue_metrics(bus.match_queue)
-    # Gateway-side journeys never complete here (the consumer closes
-    # them): a deep open ring keeps the whole run joinable.
-    TRACER.install(FlightRecorder(keep_n=512, max_open=2 * FLEET_ORDERS))
-    TIMELINE.install(interval_s=0.25, keep_n=256)
-    PLACEMENT.install(partitions=FLEET_PARTITIONS)
-    pool = RespPrePool(RespClient(port=args.resp_port))
-    gateway = OrderGateway(bus, accuracy=EngineConfig().accuracy,
-                           mark=make_marker(pool), mark_frame=pool.mark_frame)
-    server = serve_gateway(gateway, Config(grpc=GrpcConfig(host="127.0.0.1",
-                                                           port=0)))
-    ops = OpsServer(service=None, host="127.0.0.1", port=0).start()
-    TIMELINE.start()
-    print(f"READY ops={ops.port} grpc={server.bound_port}", flush=True)
-    sys.stdin.readline()
-    result = dict(published=bus.order_queue.end_offset())
-    server.stop(grace=1).wait()
-    TIMELINE.stop()
-    ops.stop()
-    bus.order_queue.close()
-    bus.match_queue.close()
-    return result
-
-
-def fleet_consumer(args) -> dict:
-    """Phase 14 (b)'s consumer process for one partition: EngineService on
-    the card (Config's engine: int64, cap 256, K 16, depth 0, json wire)
-    over the partition's file bus, its pre-pool in the marker server, the
-    tracer and the timeline armed (cost, profile, hostprof, placement
-    off); K1 counted, held against its plain version at the run's inputs,
-    books verified."""
-    import logging
-
-    from gome_tpu_torch.config import BusConfig, Config, EngineConfig, \
-        GrpcConfig, OpsConfig, StoreConfig
-    from gome_tpu_torch.engine import nativehost
-    from gome_tpu_torch.ops.match_step import batch_step
-    from gome_tpu_torch.service import EngineService
-
-    label = f"phase 14 (b) consumer p{args.partition}"
-    logging.getLogger("gome_tpu_torch.matchfeed").setLevel(logging.WARNING)
-    cfg = Config(
-        grpc=GrpcConfig(host="127.0.0.1", port=0),
-        bus=BusConfig(backend="file", dir=args.bus_dir),
-        engine=EngineConfig(cap=256, max_fills=16, n_slots=args.symbols,
-                            max_t=32),
-        store=StoreConfig(enabled=True, host="127.0.0.1",
-                          port=args.resp_port),
-        ops=OpsConfig(enabled=True, host="127.0.0.1", port=0, trace=True,
-                      trace_keep=2 * FLEET_ORDERS, timeline_interval_s=0.25,
-                      cost=False, profile=False, hostprof=False,
-                      placement=False))
-    with keep_kernel_inputs() as kept:
-        svc = EngineService(cfg, device=None if args.device == "cuda"
-                            else args.device)
-        # The store section puts the pre-pool in the marker server.
-        names = (nativehost.available(), type(svc.engine.pre_pool).__name__)
-        if names != (True, "RespPrePool"):
-            raise SystemExit(f"{label}: host layer (available, pre-pool) "
-                             f"{names}, expected (True, 'RespPrePool')")
-        host = f"host=native, RespPrePool ({host_line()})"
-        batch_step.launches = 0
-        svc.start()
-        print(f"READY ops={svc.ops.port} grpc=0", flush=True)
-        sys.stdin.readline()
-        launches = batch_step.launches
-        oq = svc.bus.order_queue
-        result = dict(host=host, launches=launches,
-                      expected=expected_launches(svc.engine),
-                      orders=svc.engine.stats.orders,
-                      feed=svc.feed.seq_state(), consumed=oq.committed())
-        svc.stop()
-    result["worst"], result["kept_line"] = check_kept_inputs(label, kept)
-    svc.engine.batch.verify_books()
-    return result
-
-
 def fleet_worker(argv) -> int:
     """`python3 chip_smoke.py --fleet-gateway|--fleet-consumer ...`: one
-    member of phase 14 (b)'s fleet; prints READY with its ports, serves
-    until a line arrives on stdin, then writes its result JSON."""
-    import argparse
+    member of phase 14 (b)'s fleet (gome_tpu_torch.scripts.fleet_drill's
+    members; the consumer holds K1 against its plain version at the
+    inputs its run gave it)."""
+    from gome_tpu_torch.scripts import fleet_drill
 
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", required=True)
-    ap.add_argument("--bus-dir", required=True)
-    ap.add_argument("--device", default="cuda")
-    for name in ("--resp-port", "--symbols", "--partition"):
-        ap.add_argument(name, type=int, default=0)
-    args = ap.parse_args(argv[1:])
-    run = fleet_consumer if argv[0] == "--fleet-consumer" else fleet_gateway
-    result = run(args)
-    with open(args.out, "w") as f:
-        json.dump(result, f, sort_keys=True)
-    return 0
+    def consumer(args):
+        return fleet_drill.fleet_consumer(args, keep=keep_kernel_inputs,
+                                          check=check_kept_inputs)
+
+    role = "consumer" if argv[0] == "--fleet-consumer" else "gateway"
+    return fleet_drill.run_worker(role, argv[1:], consumer=consumer)
 
 
-def fleet_members(work, resp_port, symbols, device, procs, errs) -> dict:
-    """Start each partition's consumer and gateway process; returns
-    {name: (ops port, grpc port)} once every member said READY."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    started = {}
-    for p in range(FLEET_PARTITIONS):
-        bus_dir = os.path.join(work, f"p{p}")
-        os.makedirs(bus_dir, exist_ok=True)
-        for role, name in (("consumer", f"c{p}"), ("gateway", f"gw{p}")):
-            errs[name] = open(os.path.join(work, f"{name}.err"), "w+")
-            proc = subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), f"--fleet-{role}",
-                 "--out", os.path.join(work, f"{name}.json"),
-                 "--bus-dir", bus_dir, "--resp-port", str(resp_port),
-                 "--symbols", str(symbols), "--partition", str(p),
-                 "--device", device],
-                stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-                stderr=errs[name], text=True, cwd=here)
-            procs[name] = proc
-            started[name] = proc
-    ports = {}
-    for name, proc in started.items():
-        line = proc.stdout.readline().split()
-        if not line or line[0] != "READY":
-            proc.wait(30)
-            raise SystemExit(f"phase 14 (b): {name} said {line}: "
-                             f"{tail_of(errs[name])}")
-        kv = dict(tok.split("=") for tok in line[1:])
-        ports[name] = (int(kv["ops"]), int(kv["grpc"]))
-    return ports
-
-
-def drive_partition(label, grpc_port, requests, out) -> None:
-    """One partition's DoOrderBatch requests through its gateway, on its
-    own thread; the seconds and any error land in `out`."""
-    import grpc
-
-    from gome_tpu_torch.api import order_pb2 as pb
-    from gome_tpu_torch.api.service import OrderStub
-
-    t0 = time.perf_counter()
-    try:
-        with grpc.insecure_channel(f"127.0.0.1:{grpc_port}") as channel:
-            send_flow(label, OrderStub(channel), pb, requests, [])
-    except BaseException as e:  # reported by the caller
-        out["error"] = repr(e)
-    out["secs"] = time.perf_counter() - t0
-
-
-def fleet_drained(ops_port: int, n_orders: int, n_events: int) -> bool:
-    """A consumer has committed every order and its feed every event."""
-    try:
-        doc = json.loads(http_get(ops_port, "/durability")[1])
-    except Exception:
-        return False
-    q = doc.get("queues") or {}
-    return (q.get("order_queue", {}).get("committed", -1) >= n_orders
-            and q.get("match_queue", {}).get("committed", -1) >= n_events)
+def fleet_launcher(role: str) -> list:
+    """Phase 14 (b)'s members run as this script's --fleet-<role>."""
+    return [sys.executable, os.path.abspath(__file__), f"--fleet-{role}"]
 
 
 def phase14b(card: str, sizes, zipf, device: str = "cuda",
@@ -5644,33 +5466,27 @@ def phase14b(card: str, sizes, zipf, device: str = "cuda",
     green, the fleet-wide seq audit is exact, journeys stitch across the
     gateway -> consumer boundary, and each partition's events equal the
     oracle's. `device` names the consumers' device ("cpu" in tests)."""
-    from gome_tpu_torch.api import order_pb2 as pb
-    from gome_tpu_torch.bus import decode_match_result
-    from gome_tpu_torch.bus.filelog import FileQueue
-    from gome_tpu_torch.fleet.router import partition_of
     from gome_tpu_torch.obs.fleet import FLEET
+    from gome_tpu_torch.scripts import fleet_drill
     from gome_tpu_torch.utils.metrics import family_total
 
+    if fleet_drill.N_PARTITIONS != FLEET_PARTITIONS:
+        raise SystemExit(f"phase 14 (b): fleet_drill has "
+                         f"{fleet_drill.N_PARTITIONS} partitions")
     t_phase = time.perf_counter()
     orders = list(zipf[:n_orders])
-    parts = [[o for o in orders if partition_of(o.symbol, FLEET_PARTITIONS)
-              == p] for p in range(FLEET_PARTITIONS)]
+    reqs = fleet_drill.requests_by_partition(orders)
+    parts = [[orders[gi] for gi, _, _ in r] for r in reqs]
     wants = [oracle_events(part) for part in parts]
-    here = os.path.dirname(os.path.abspath(__file__))
     procs, errs = {}, {}
     results = {}
     with tempfile.TemporaryDirectory(prefix="phase14b-") as work:
         try:
-            srv = subprocess.Popen(
-                [sys.executable, "-m", "gome_tpu_torch.persist.respserver",
-                 "--port", "0"], stdout=subprocess.PIPE, text=True, cwd=here)
-            procs["respserver"] = srv
-            ready = srv.stdout.readline().split()
-            if not ready or ready[0] != "READY":
-                raise SystemExit(f"phase 14 (b): marker server said {ready}")
+            resp_port = fleet_drill.start_respserver(procs)
             t_boot = time.perf_counter()
-            ports = fleet_members(work, int(ready[1]), sizes["symbols"],
-                                  device, procs, errs)
+            ports = fleet_members(work, resp_port, sizes["symbols"],
+                                  device, procs, errs, fleet_launcher,
+                                  trace_keep=2 * FLEET_ORDERS)
             boot = time.perf_counter() - t_boot
             members = {name: f"http://127.0.0.1:{ops}"
                        for name, (ops, _) in ports.items()}
@@ -5679,30 +5495,29 @@ def phase14b(card: str, sizes, zipf, device: str = "cuda",
             FLEET.start()
             drives = [{} for _ in range(FLEET_PARTITIONS)]
             threads = [threading.Thread(
-                target=drive_partition,
-                args=(f"phase 14 (b) gw{p}", ports[f"gw{p}"][1],
-                      wire_batches(pb, parts[p]), drives[p]))
+                target=fleet_drill.drive_partition,
+                args=(f"127.0.0.1:{ports[f'gw{p}'][1]}", reqs[p], drives[p]))
                 for p in range(FLEET_PARTITIONS)]
             t0 = time.perf_counter()
             for t in threads:
                 t.start()
             for t in threads:
                 t.join(FLEET_WAIT_S)
-            if any("error" in d or "secs" not in d for d in drives):
-                raise SystemExit(f"phase 14 (b): drives {drives}")
+            # Every order of a partition accepted, none rejected, no
+            # transport error.
+            if any("sent" not in d or "transport_error" in d
+                   or d["codes"] != {"0": d["sent"]} for d in drives):
+                raise SystemExit(f"phase 14 (b): drives "
+                                 f"{[{k: d.get(k) for k in ('sent', 'codes', 'transport_error')} for d in drives]}")
             deadline = time.monotonic() + FLEET_WAIT_S
-            while not all(fleet_drained(ports[f"c{p}"][0], len(parts[p]),
-                                        len(wants[p]))
-                          for p in range(FLEET_PARTITIONS)):
-                if time.monotonic() > deadline:
+            for p in range(FLEET_PARTITIONS):
+                if not fleet_drill.await_drained(
+                        f"http://127.0.0.1:{ports[f'c{p}'][0]}",
+                        len(parts[p]), max(deadline - time.monotonic(), 0.0),
+                        procs={n: pr for n, pr in procs.items()
+                               if n != "respserver"}):
                     raise SystemExit("phase 14 (b): the fleet did not drain "
                                      f"in {FLEET_WAIT_S} s")
-                for name, proc in procs.items():
-                    if proc.poll() is not None:
-                        why = tail_of(errs[name]) if name in errs else ""
-                        raise SystemExit(f"phase 14 (b): {name} exited "
-                                         f"{proc.returncode}: {why}")
-                time.sleep(0.02)
             secs = time.perf_counter() - t0
             FLEET.stop()
             FLEET.poll()
@@ -5712,43 +5527,13 @@ def phase14b(card: str, sizes, zipf, device: str = "cuda",
             rollup = FLEET.rollup()
         finally:
             FLEET.disable()
-            for name, proc in procs.items():
-                if name != "respserver" and proc.poll() is None:
-                    try:
-                        proc.stdin.write("stop\n")
-                        proc.stdin.flush()
-                    except OSError:
-                        pass
-            for name, proc in procs.items():
-                if name == "respserver":
-                    continue
-                try:
-                    proc.wait(120)
-                except subprocess.TimeoutExpired:
-                    proc.kill()
-                    proc.wait(10)
-            srv_proc = procs.get("respserver")
-            if srv_proc is not None:
-                srv_proc.kill()
-                srv_proc.wait(10)
-        for name, proc in procs.items():
-            if name == "respserver":
-                continue
-            if proc.returncode != 0:
+            results = fleet_drill.stop_members(procs, work, errs)
+        for name, res in results.items():
+            if res["exit_code"] != 0:
                 raise SystemExit(f"phase 14 (b): {name} exited "
-                                 f"{proc.returncode}: {tail_of(errs[name])}")
-            with open(os.path.join(work, f"{name}.json")) as f:
-                results[name] = json.load(f)
-        events = []
-        for p in range(FLEET_PARTITIONS):
-            q = FileQueue("matchOrder", os.path.join(work, f"p{p}",
-                                                     "matchOrder"))
-            got = [decode_match_result(m.body)
-                   for m in q.read_from(0, q.end_offset())]
-            q.close()
-            events.append(got)
-        for f in errs.values():
-            f.close()
+                                 f"{res['exit_code']}: {res.get('stderr')}")
+        events = [fleet_drill.read_match_events(os.path.join(work, f"p{p}"))
+                  for p in range(FLEET_PARTITIONS)]
     for p in range(FLEET_PARTITIONS):
         check_events(f"phase 14 (b) partition {p}", unstamped(events[p]),
                      wants[p])
@@ -5814,7 +5599,7 @@ def phase14b(card: str, sizes, zipf, device: str = "cuda",
           f"{payload['placement']['partition_imbalance_max_over_mean']:.4f}")
     for p in range(FLEET_PARTITIONS):
         print(results[f"c{p}"]["kept_line"])
-    drive_secs = ", ".join(f"{d['secs']:.3f}" for d in drives)
+    drive_secs = ", ".join(f"{d['wall_s']:.3f}" for d in drives)
     p50 = durations[len(durations) // 2]
     p99 = durations[min(len(durations) - 1, int(0.99 * len(durations)))]
     print(f"phase 14 (b) [{card}]: members ready in {boot:.1f} s; "
@@ -6440,7 +6225,7 @@ SOAK_FAULT_COUNTERS = (
     "gome_gateway_spilled_frames_total",
     "gome_consumer_step_failures_total",
 )
-#: (b)'s settling, after soak_warmup: frames until the geometry manifest's
+#: (b)'s settling, after svc_warmup: frames until the geometry manifest's
 #: hash has held for SOAK_SETTLE_FRAMES frames in a row, at most
 #: SOAK_SETTLE_MAX. At 10,240 symbols the mixed flow keeps minting combos
 #: (the storage cap's escalation, deeper lanes' cap classes, rare
@@ -6693,134 +6478,6 @@ def fuzz_text(f: dict) -> str:
             + f", K5 launches {f['k5']}")
 
 
-class MixedFlow:
-    """bench.py's _MixedFlow on the port's side: config-5-shaped service
-    load, ~45% cancels (a fifth of them targeting ADDs of the same frame,
-    some before their ADD: the cancel-before-consume race), ~25% markets
-    among ADDs, 256 uuids, Zipf(1) symbols; cancels target really-issued
-    (symbol, uuid, oid, price) quadruples from a rolling pool biased to
-    the newest quarter. The same rng calls in the same order as
-    bench.py's, so a seed gives its frames."""
-
-    CANCEL_P = 0.45
-    MARKET_P = 0.25
-    SAME_FRAME_P = 0.2
-    RECENT_BIAS = 4
-    N_UUIDS = 256
-    POOL_MAX = 1 << 20
-
-    def __init__(self, rng, n_symbols):
-        self.rng = rng
-        ranks = np.arange(1, n_symbols + 1, dtype=np.float64)
-        w = 1.0 / ranks
-        self.sym_p = w / w.sum()
-        self.n_symbols = n_symbols
-        self.oid0 = 1
-        self.pool_sym = np.zeros(self.POOL_MAX, np.uint32)
-        self.pool_price = np.zeros(self.POOL_MAX, np.int64)
-        self.pool_oid = np.zeros(self.POOL_MAX, np.int64)
-        self.pool_uuid = np.zeros(self.POOL_MAX, np.uint32)
-        self.pool_n = 0
-        self.pool_head = 0
-
-    def _pool_push(self, sym, price, oid, uuid):
-        k = len(sym)
-        idx = (self.pool_head + np.arange(k)) % self.POOL_MAX
-        self.pool_sym[idx] = sym
-        self.pool_price[idx] = price
-        self.pool_oid[idx] = oid
-        self.pool_uuid[idx] = uuid
-        self.pool_head = (self.pool_head + k) % self.POOL_MAX
-        self.pool_n = min(self.pool_n + k, self.POOL_MAX)
-
-    def frame(self, n):
-        rng = self.rng
-        action = np.ones(n, np.uint8)
-        dels = rng.random(n) < self.CANCEL_P
-        if self.pool_n == 0:
-            dels[:] = False
-        action[dels] = 2
-        adds = ~dels
-        n_add = int(adds.sum())
-        sym = rng.choice(self.n_symbols, size=n, p=self.sym_p).astype(np.uint32)
-        price = rng.integers(99_500_000, 100_500_000, n).astype(np.int64)
-        volume = rng.integers(1, 101, n).astype(np.int64)
-        kind = np.zeros(n, np.uint8)
-        mkt = adds & (rng.random(n) < self.MARKET_P)
-        kind[mkt] = 1
-        oid_nums = np.zeros(n, np.int64)
-        oid_nums[adds] = self.oid0 + np.arange(n_add)
-        self.oid0 += n_add
-        uuid_idx = rng.integers(0, self.N_UUIDS, n).astype(np.uint32)
-        di = np.nonzero(dels)[0]
-        if len(di):
-            same = rng.random(len(di)) < self.SAME_FRAME_P
-            ai = np.nonzero(adds & (kind == 0))[0]
-            if len(ai) == 0:
-                same[:] = False
-            n_pool = int((~same).sum())
-            if n_pool:
-                depth = max(self.pool_n // self.RECENT_BIAS, 1)
-                back = rng.integers(1, depth + 1, n_pool)
-                pi = (self.pool_head - back) % self.POOL_MAX
-                tgt = di[~same]
-                sym[tgt] = self.pool_sym[pi]
-                price[tgt] = self.pool_price[pi]
-                oid_nums[tgt] = self.pool_oid[pi]
-                uuid_idx[tgt] = self.pool_uuid[pi]
-            if same.any():
-                ti = rng.integers(0, len(ai), int(same.sum()))
-                src = ai[ti]
-                tgt = di[same]
-                sym[tgt] = sym[src]
-                price[tgt] = price[src]
-                oid_nums[tgt] = oid_nums[src]
-                uuid_idx[tgt] = uuid_idx[src]
-        rest = adds & (kind == 0)
-        self._pool_push(sym[rest], price[rest], oid_nums[rest],
-                        uuid_idx[rest])
-        return dict(
-            n=n, action=action, side=rng.integers(0, 2, n).astype(np.uint8),
-            kind=kind, price=np.where(mkt, 0, price), volume=volume,
-            symbol_idx=sym, uuid_idx=uuid_idx,
-            oids=np.char.add("o", oid_nums.astype("U12")).astype("S"))
-
-
-MIXED_UUIDS = [f"u{i}" for i in range(MixedFlow.N_UUIDS)]
-
-
-def soak_warmup(engine, consumer, bus, make_frame) -> int:
-    """bench.py's _svc_warmup (margin=True) on the port: drain warm frames
-    until the geometry ratchets hold still for two frames (8 to 12),
-    forget the transient's floors and combos, two steady frames, pin the
-    rows/depth/cancels floors at 2x, one more frame. Returns the warm
-    frames consumed."""
-    q = bus.order_queue
-    n_warm = stable = 0
-    while n_warm < 8 or stable < 2:
-        if n_warm >= 12:
-            break
-        geo = engine.batch.geometry_floors()
-        gateway_step(engine, q, make_frame())
-        consumer.drain()
-        stable = stable + 1 if engine.batch.geometry_floors() == geo else 0
-        n_warm += 1
-    engine.batch.reset_geometry_floors(combos=True)
-    for _ in range(2):
-        gateway_step(engine, q, make_frame())
-        consumer.drain()
-        n_warm += 1
-    g = engine.batch.geometry_floors()
-    engine.batch.prewarm_geometry(
-        rows_floor={c: 2 * v for c, v in g["rows_floor"].items()},
-        t_floor={c: 2 * v for c, v in g["t_floor"].items()},
-        cancels_buf={b: 2 * v for b, v in g["cancels_buf"].items()},
-    )
-    gateway_step(engine, q, make_frame())
-    consumer.drain()
-    return n_warm + 1
-
-
 def soak_settle(engine, consumer, bus, make_frame) -> tuple[int, list]:
     """Frames through the stack until the geometry manifest's hash
     (obs.timeline.geometry_manifest_hash) holds for SOAK_SETTLE_FRAMES
@@ -6880,7 +6537,7 @@ def soak_drill(device, seconds: float = SOAK_SECONDS, symbols: int = 10240,
     """Phase 16 (b), scripts/soak.py's run_soak on the port: the mixed
     flow (MixedFlow) through gateway steps (encode, mark_frame, publish)
     and an OrderConsumer (frame wire, memory bus, `depth`) on an int32
-    engine, warmed off the record (soak_warmup, then soak_settle until
+    engine, warmed off the record (svc_warmup, then soak_settle until
     the geometry holds still), then a wall-clock closed
     loop for `seconds` with the timeline sampler armed (obs.timeline
     service_timeline) and the compile journal installed before the
@@ -6927,7 +6584,7 @@ def soak_drill(device, seconds: float = SOAK_SECONDS, symbols: int = 10240,
     try:
         with keep_kernel_inputs() as kept:
             t0 = time.perf_counter()
-            n_warm = soak_warmup(engine, consumer, bus, make_frame)
+            n_warm = svc_warmup(engine, consumer, bus, make_frame)
             warm_s = time.perf_counter() - t0
             n_settle, settle_changes = soak_settle(engine, consumer, bus,
                                                    make_frame)
@@ -7276,6 +6933,305 @@ def drill_alone(argv) -> int:
     return 0
 
 
+# -- phase 17: the operator artifacts' drivers --------------------------------
+
+#: (a)'s capacity smoke ladder at the main path's width (10,240 symbols,
+#: cap 256, K 16, int32, memory bus, frame wire): 4 points over 3 s of
+#: ladder (at most 12 s), every order it sends held against the oracle.
+P17_CAPACITY = dict(seconds=3.0, points=4, symbols=10240, cap=256,
+                    batch_n=256, dtype="int32")
+#: (b)'s timed steps a point (part A's chains, the curve's).
+P17_MESH_REPS = (20, 5)
+#: (c): each committed artifact of the port and what its schema check
+#: reads: (key, value) pairs the document must hold.
+CUDA_ARTIFACTS = {
+    "PLACEMENT_CUDA_r01": (("schema", "gome-placement-verdict-v1"),),
+    "MULTICHIP_CUDA_r01": (("artifact", "MULTICHIP_CUDA_r01"),),
+    "FLEET_CUDA_r01": (("schema", "gome-fleet-verdict-v1"),
+                       ("artifact", "FLEET_CUDA_r01"), ("pass", True)),
+    "CAPACITY_CUDA_r01": (("schema", "gome-capacity-verdict-v1"),
+                          ("artifact", "CAPACITY_CUDA_r01"),
+                          ("mode", "fleet"), ("pass", True)),
+    "HOSTPROF_CUDA_r01": (("artifact", "HOSTPROF_CUDA_r01"),),
+    "HOSTPROF_CUDA_r02": (("artifact", "HOSTPROF_CUDA_r02"),),
+}
+
+
+def load_cuda_artifacts() -> dict:
+    """Phase 17 (c): every committed *_CUDA_r0N.json at the repo root,
+    each with its schema and (all but the host-deterministic placement
+    verdict) an NVIDIA card in its provenance."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    docs = {}
+    for name, keys in CUDA_ARTIFACTS.items():
+        with open(os.path.join(here, f"{name}.json"), encoding="utf-8") as f:
+            doc = json.load(f)
+        bad = [(k, doc.get(k)) for k, v in keys if doc.get(k) != v]
+        card = (doc.get("provenance") or {}).get("card") or ""
+        if bad or (name != "PLACEMENT_CUDA_r01" and "NVIDIA" not in card):
+            raise SystemExit(f"phase 17 (c): {name}.json has {bad}, card "
+                             f"{card!r}")
+        docs[name] = doc
+    capacity_artifact_check(docs["CAPACITY_CUDA_r01"])
+    return docs
+
+
+def capacity_artifact_check(doc: dict) -> None:
+    """Phase 17 (c): the committed fleet capacity verdict holds every
+    check of its own (the reference's attribution check, within 5% at
+    the knee, among them), brackets its knee (an index neither None nor
+    0) and audits zero seq dupes and gaps at every point."""
+    failed = [k for k, ok in doc["checks"].items() if not ok]
+    knee = doc["knee"].get("index")
+    eo = [(p["exactly_once"]["dupes"], p["exactly_once"]["gaps"])
+          for p in doc["ladder"]]
+    if failed or not doc["pass"] or \
+            "attribution_within_tol_at_knee" not in doc["checks"] or \
+            not knee or any(eo_p != (0, 0) for eo_p in eo):
+        raise SystemExit(f"phase 17 (c): CAPACITY_CUDA_r01.json fails "
+                         f"{failed}, knee index {knee}, dupes/gaps {eo}")
+
+
+def phase17a(device) -> tuple[dict, int, int, str]:
+    """Phase 17 (a): obs_snapshot on the card into a temporary directory,
+    its capacity smoke ladder at P17_CAPACITY: the ladder's events equal
+    the oracle's for exactly the orders sent, zero seq dupes and gaps,
+    attribution within 5% at every point, offered rates strictly
+    increasing (each asserted inside snapshot and again here). Returns
+    the summary, K1's launches, the worst |err| at the kept inputs and
+    their line."""
+    from gome_tpu_torch.ops.match_step import batch_step
+    from gome_tpu_torch.scripts import obs_snapshot
+
+    with tempfile.TemporaryDirectory(prefix="phase17a-") as out, \
+            keep_kernel_inputs() as kept:
+        batch_step.launches = 0
+        s = obs_snapshot.snapshot(out, str(device), capacity=P17_CAPACITY)
+        launches = batch_step.launches
+        files = sorted(os.listdir(out))
+    v = s["capacity"]
+    ladder = v["ladder"]
+    offered = [p["offered_per_sec"] for p in ladder]
+    bad = [name for name, ok in (
+        ("events_equal_oracle", v["oracle"]["equal"]),
+        ("seq", v["seq"]["dupes"] == 0 and v["seq"]["gaps"] == 0
+         and all(p["exactly_once"]["dupes"] == 0
+                 and p["exactly_once"]["gaps"] == 0 for p in ladder)),
+        ("attribution", all(p["attribution"]["within_tol"]
+                            and p["attribution"]["frac_err"] <= 0.05
+                            for p in ladder)),
+        ("offered", all(b > a for a, b in zip(offered, offered[1:]))),
+        ("points", len(ladder) == P17_CAPACITY["points"]),
+        # (the plain version runs on the CPU: no launches to count there)
+        ("launches", launches > 0 or str(device) == "cpu")) if not ok]
+    if bad:
+        raise SystemExit(f"phase 17 (a): {bad} failed: oracle {v['oracle']}, "
+                         f"seq {v['seq']}, ladder {offered}, {launches} K1 "
+                         "launches")
+    worst, line = check_kept_inputs("phase 17 (a)", kept)
+    s["files"] = files
+    return s, launches, worst, line
+
+
+def phase17b(device, artifact: dict) -> dict:
+    """Phase 17 (b): mesh_overhead part A at 10,240 x 32 (the unsharded
+    and D=1 outputs equal), then the curve at D = 1, 2, 4, 8 on cuda:0
+    (every D's books and outputs equal to the unsharded step's, inside
+    curve()), each D's live_per_shard and dispatched_rows equal to the
+    committed MULTICHIP_CUDA_r01.json's and to part B's arithmetic
+    (dense_geometry on the same live set)."""
+    from gome_tpu_torch.ops.match_step import batch_step
+    from gome_tpu_torch.scripts import mesh_overhead as mo
+
+    with keep_kernel_inputs() as kept:
+        batch_step.launches = 0
+        a = mo.part_a(str(device), reps=P17_MESH_REPS[0])
+        c = mo.curve(str(device), reps=P17_MESH_REPS[1], profile=False)
+        launches = batch_step.launches
+    if a["full_max_abs_err"] or a["dense_max_abs_err"] or \
+            (launches <= 0 and str(device) != "cpu"):
+        raise SystemExit(f"phase 17 (b): part A max |err| full "
+                         f"{a['full_max_abs_err']}, dense "
+                         f"{a['dense_max_abs_err']}; {launches} K1 launches")
+    _, live = mo.curve_live_set()
+    committed = {p["devices"]: p for p in artifact["curve"]}
+    for p in c["curve"]:
+        d = p["devices"]
+        geo = mo.dense_geometry(live, mo.C_SYMBOLS, d)
+        want = (committed[d]["live_per_shard"], committed[d]["dispatched_rows"])
+        for name, w in (("MULTICHIP_CUDA_r01.json", want),
+                        ("part B's arithmetic", (geo["live_per_shard"],
+                                                 geo["dispatched_rows"]))):
+            if (p["live_per_shard"], p["dispatched_rows"]) != tuple(w):
+                raise SystemExit(
+                    f"phase 17 (b): D={d} live_per_shard/dispatched_rows "
+                    f"{p['live_per_shard']}/{p['dispatched_rows']} against "
+                    f"{name}'s {w}")
+        if p["max_abs_err_vs_unsharded"]:
+            raise SystemExit(f"phase 17 (b): D={d} differs from the "
+                             "unsharded step")
+    worst, line = check_kept_inputs("phase 17 (b)", kept)
+    return dict(a=a, curve=c, launches=launches, worst=worst, line=line)
+
+
+def phase17c(docs: dict, placement: dict) -> None:
+    """Phase 17 (c): build_verdict() byte-equal to PLACEMENT_CUDA_r01.json;
+    the /placement that (a)'s EngineService served (ops.placement armed)
+    carries that verdict, and its attribution's baselines cite
+    MULTICHIP_CUDA_r01 and FLEET_CUDA_r01 with their numbers."""
+    from gome_tpu_torch.scripts import placement_eval
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "PLACEMENT_CUDA_r01.json"),
+              encoding="utf-8") as f:
+        text = f.read()
+    if placement_eval.verdict_text(placement_eval.build_verdict()) != text:
+        raise SystemExit("phase 17 (c): build_verdict() differs from "
+                         "PLACEMENT_CUDA_r01.json")
+    attr = placement["attribution"]
+    skew = next(c["baseline"] for c in attr["components"]
+                if c["component"] == "lane_placement_skew")
+    mesh_last = docs["MULTICHIP_CUDA_r01"]["curve"][-1]
+    imb = docs["FLEET_CUDA_r01"]["table"]["imbalance"]
+    want_skew = {"artifact": "MULTICHIP_CUDA_r01",
+                 "devices": mesh_last["devices"],
+                 "shard_skew": mesh_last["shard_skew"],
+                 "rows_per_live_lane": mesh_last["rows_per_live_lane"]}
+    want_imb = {"artifact": "FLEET_CUDA_r01",
+                "max_over_min_orders": imb["max_over_min_orders"],
+                "orders_per_partition": imb["orders_per_partition"]}
+    if placement["verdict"] != docs["PLACEMENT_CUDA_r01"] or \
+            skew != want_skew or \
+            attr["hash_partition"]["baseline"] != want_imb:
+        raise SystemExit(f"phase 17 (c): /placement verdict "
+                         f"{(placement['verdict'] or {}).get('artifact')}, "
+                         f"baselines {skew}, "
+                         f"{attr['hash_partition']['baseline']}")
+
+
+def phase17d() -> dict:
+    """Phase 17 (d): bench_admit() and hostprof_artifact(path="columnar")
+    at small round counts, each drill's stage coverage >= 80%."""
+    from gome_tpu_torch.obs import hostprof
+
+    admit = hostprof.bench_admit(n_orders=8192, min_samples=64)
+    art = hostprof.hostprof_artifact(n_orders=8192, min_samples=64,
+                                     max_rounds=8, path="columnar",
+                                     artifact="HOSTPROF_CUDA_r02")
+    cover = [admit["scalar"]["coverage_pct"], admit["columnar"]["coverage_pct"],
+             art["drill"]["coverage_pct"]]
+    if min(cover) < 80.0:
+        raise SystemExit(f"phase 17 (d): stage coverage {cover} (< 80%)")
+    return dict(admit=admit, artifact=art, coverage=cover)
+
+
+def phase17(card: str, device) -> dict:
+    """Phase 17: the operator artifacts' drivers (gome_tpu_torch/scripts)
+    on the card and the committed artifacts they wrote: (a) the snapshot
+    with its capacity ladder, (b) the mesh's part A and curve, (c) the
+    artifacts and /placement, (d) the host profile."""
+    t0 = time.perf_counter()
+    docs = load_cuda_artifacts()
+    s, a_launches, a_worst, a_line = phase17a(device)
+    t_a = time.perf_counter() - t0
+    b = phase17b(device, docs["MULTICHIP_CUDA_r01"])
+    t_b = time.perf_counter() - t0 - t_a
+    phase17c(docs, s["placement"])
+    d = phase17d()
+    secs = time.perf_counter() - t0
+    v = s["capacity"]
+    cfg, knee = v["config"], v["knee"]
+    print(f"phase 17 (a): obs_snapshot on {device}: {len(s['files'])} files "
+          f"({', '.join(s['files'])}); capacity ladder at {cfg['symbols']:,} "
+          f"symbols, cap {cfg['cap']}, K {cfg['max_fills']}, {cfg['dtype']}, "
+          f"frames of {cfg['batch_n']}: {v['oracle']['orders']:,} orders, "
+          f"{v['oracle']['events']:,} events equal to the oracle's, seq "
+          f"audit {v['seq']}, attribution err "
+          + "/".join(f"{p['attribution']['frac_err']:.4f}"
+                     for p in v["ladder"])
+          + f"; {a_launches} K1 launches")
+    print(a_line)
+    print(f"phase 17 (a) [{card}]: calibration "
+          f"{cfg['calibration_orders_per_sec']:,.0f} orders/s closed loop; "
+          "offered/delivered "
+          + ", ".join(f"{p['offered_per_sec']:,.0f}/{p['delivered_per_sec']:,.0f}"
+                      for p in v["ladder"])
+          + " orders/s; corrected p99 "
+          + "/".join(f"{p['corrected']['p99_s'] * 1e3:.2f}" for p in v["ladder"])
+          + " ms; knee "
+          + (f"at point {knee['index']} ({knee['offered_per_sec']:,.0f}/s, "
+             f"{knee['offered_per_sec'] / cfg['calibration_orders_per_sec']:.2f}"
+             f" x the calibration; {knee['reason']}; saturated stage "
+             f"{knee['saturated_stage']})" if knee["found"] else "not reached")
+          + f"; the sweep {s['capacity_s']:.1f} s (warm-up "
+          f"{cfg['warmup_s']:.1f} s, oracle check {v['oracle']['seconds']:.1f}"
+          f" s) of (a)'s {t_a:.1f} s")
+    a = b["a"]
+    print(f"phase 17 (b): mesh part A at 10,240 x 32: unsharded and D=1 "
+          f"outputs equal (max |err| {a['full_max_abs_err']} full, "
+          f"{a['dense_max_abs_err']} dense); curve D=1/2/4/8 on cuda:0 "
+          f"blocks, books and outputs equal to the unsharded step, "
+          f"live_per_shard and dispatched_rows equal to "
+          f"MULTICHIP_CUDA_r01.json's and part B's arithmetic (D=8 "
+          f"{b['curve']['curve'][-1]['live_per_shard']}, skew "
+          f"{b['curve']['curve'][-1]['shard_skew']}); {b['launches']} K1 "
+          f"launches")
+    print(b["line"])
+    print(f"phase 17 (b) [{card}]: full step {a['full_unsharded_ms']:.4f} ms "
+          f"unsharded, {a['full_mesh1_ms']:.4f} ms D=1 "
+          f"({a['full_mesh1_overhead_ms']:+.4f} ms, "
+          f"{a['full_mesh1_overhead_pct']:+.1f}%); dense "
+          f"{a['dense_unsharded_ms']:.4f} / {a['dense_mesh1_ms']:.4f} ms; "
+          f"traced chains of {a['full_trace']['reps']}: "
+          f"{a['full_trace']['unsharded']['launches_per_step']} / "
+          f"{a['full_trace']['mesh1']['launches_per_step']} device ops a "
+          f"step, the same names and counts: "
+          f"{a['full_trace']['same_launches']}, busy "
+          f"{a['full_trace']['unsharded']['busy_ms_per_step']:.4f} / "
+          f"{a['full_trace']['mesh1']['busy_ms_per_step']:.4f} ms a step "
+          f"({a['full_trace']['busy_delta_ms']:+.4f}), wall "
+          f"{a['full_trace']['unsharded']['wall_ms_per_step']:.4f} / "
+          f"{a['full_trace']['mesh1']['wall_ms_per_step']:.4f} "
+          f"({a['full_trace']['wall_delta_ms']:+.4f}); curve step_ms "
+          + "/".join(f"{p['step_ms']:.4f}" for p in b["curve"]["curve"])
+          + f"; {t_b:.1f} s")
+    print("phase 17 (c): " + ", ".join(f"{n}.json" for n in CUDA_ARTIFACTS)
+          + " load with their schemas, the measured ones naming "
+          + docs["MULTICHIP_CUDA_r01"]["provenance"]["card"]
+          + "; CAPACITY_CUDA_r01.json passes every check, knee at point "
+          f"{docs['CAPACITY_CUDA_r01']['knee']['index']}, attribution err "
+          f"{docs['CAPACITY_CUDA_r01']['knee']['attribution_frac_err']:.4f} "
+          "there, 0 seq dupes and gaps at every point"
+          "; build_verdict() byte-equal to PLACEMENT_CUDA_r01.json; "
+          "/placement serves it, baselines cite MULTICHIP_CUDA_r01 and "
+          "FLEET_CUDA_r01")
+    ad = d["admit"]
+    print(f"phase 17 (d) [{card}]: bench_admit scalar "
+          f"{ad['scalar']['admit_ns_per_order']} / columnar "
+          f"{ad['columnar']['admit_ns_per_order']} ns/order "
+          f"({ad.get('speedup_x')}x); hostprof_artifact(columnar) "
+          f"{d['artifact']['drill']['admit_ns_per_order']} ns/order; "
+          f"coverage {d['coverage']} %")
+    print(f"phase 17 [{card}]: {secs:.1f} s")
+    return dict(launches=dict(obs_snapshot_capacity=a_launches,
+                              mesh_overhead=b["launches"]),
+                worst=max(a_worst, b["worst"]), seconds=secs)
+
+
+def phase17_alone() -> int:
+    """`--phase17`: phase 17 alone on the card. Exits 1 without a card."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --phase17: no CUDA card", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    card = card_line()
+    print(card)
+    load_kernel(card)
+    phase17(card, torch.device("cuda"))
+    print(f"chip_smoke --phase17 [{card}]: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 #: The drill worker gives up waiting for its go file after this long.
 DRILL_WAIT_S = 1100.0
 
@@ -7580,6 +7536,8 @@ def main() -> int:
         return mesh_rank_worker(sys.argv[1:])
     if sys.argv[1:2] == ["--phase15"]:
         return phase15_alone()
+    if sys.argv[1:2] == ["--phase17"]:
+        return phase17_alone()
     if sys.argv[1:2] in (["--soak"], ["--fuzz"]):
         return drill_alone(sys.argv[1:])
     if sys.argv[1:2] == ["--drill-worker"]:
@@ -7608,7 +7566,7 @@ def main() -> int:
                  zipf_n=200_000, symbols=10240, hot_n=20_000, batch=8192,
                  sim_scan_t=(32, 1024, 65536), sim_i_lanes=256,
                  sim_i_steps=1000, sim_small_steps=200, sim_lanes=10240,
-                 sim_t=1024, sim_orders=50_000, sim_pump_keep=128,
+                 sim_t=1024, sim_orders=25_000, sim_pump_keep=128,
                  sim_ii_steps=1000, sim_ii_cpu_steps=10)
     worst, timing = phase2(device, sizes)
     launches, orders_per_s, split, engine_s, zipf, want_zipf = phase3(
@@ -7716,7 +7674,8 @@ def main() -> int:
         p16 = phase16(card, device,
                       {"phase 13 (a) armed": p13["journal"],
                        "phase 14 (a) cost": p14["a"]["journal"]}, drills)
-        q_worst, _ = check_queued_inputs("phases 5-16")
+        p17 = phase17(card, device)
+        q_worst, _ = check_queued_inputs("phases 5-17")
     finally:
         drills.stop()
     h_launches = ab_runs[0][2]["launches"]
@@ -7744,12 +7703,13 @@ def main() -> int:
                race_drill_path_launches=p15["race_launches"],
                process_mesh_path_launches=p15["launches"],
                fuzz_soak_path_launches=p16["launches"],
+               operator_artifacts_path_launches=p17["launches"],
                max_abs_err=max(worst, f_worst, c_worst, s_worst,
                                p9["drill"]["final"]["kernel_worst"],
                                p9["svc"]["worst"], p10["worst"],
                                p11["worst"], p12["worst"], p13["worst"],
                                p14["worst"], p15["worst"], p16["worst"],
-                               q_worst),
+                               p17["worst"], q_worst),
                ms=results["a"]["ms"],
                device_ms=results["a"]["device_ms"], plain_ms=results["a"]["plain_ms"],
                bound_ms=results["a"]["bound_ms"],
@@ -7760,7 +7720,7 @@ def main() -> int:
                     library_ms=None, checked=True,
                     T=sizes["sim_scan_t"][0],
                     **p10["hawkes_row"])
-    print(f"chip_smoke [{card}]: phases 1-16 in "
+    print(f"chip_smoke [{card}]: phases 1-17 in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [row, scan_row]}))
     print(json.dumps({"ok": True, "device": {

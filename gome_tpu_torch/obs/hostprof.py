@@ -58,9 +58,15 @@ unseen; this module is the host-CPU mirror of the device measurements:
 
   * ``host_roofline()`` — the drill's measured gateway admit
     orders/sec/core as a table row. The reference adds consumer and
-    device rows from its committed benchmark artifacts, which were
-    measured on a TPU; those rows stay absent here until the port has
-    artifacts of its own.
+    device rows from its committed benchmark artifacts
+    (``BENCH_SERVICE_r05.json``, ``BENCH_r05.json``), which were
+    measured on a TPU; those rows wait for the port's own benchmark
+    outputs.
+
+  * ``hostprof_artifact()`` / ``bench_host()`` / ``bench_admit()`` — the
+    ``HOSTPROF_CUDA_r0N.json`` payload (the drill plus the roofline) and
+    the compact blocks a benchmark folds in: admit ns/order per stage,
+    and the scalar and columnar admit on one seeded flow side by side.
 
 ``HOSTPROF`` is the process singleton behind the ops ``/hostprof``
 endpoint and the ``gome_hostprof_*`` gauges, armed from the
@@ -79,6 +85,8 @@ drill imports the gateway/bus lazily.
 
 from __future__ import annotations
 
+import json
+import os
 import signal
 import sys
 import threading
@@ -727,12 +735,32 @@ def gateway_drill(
 # the host roofline
 
 
+def _repo_root() -> str:
+    return os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)
+    )))
+
+
+def _artifact_value(root: str, name: str, path: tuple):
+    """The value at ``path`` inside the repo-root JSON file ``name``, or
+    None when the file is absent or malformed or lacks the path."""
+    try:
+        with open(os.path.join(root, name), encoding="utf-8") as fh:
+            doc = json.load(fh)
+        for key in path:
+            doc = doc[key]
+        return doc
+    except (OSError, KeyError, TypeError, ValueError):
+        return None
+
+
 def host_roofline(drill: dict) -> dict:
     """The host-vs-device orders/sec table: the drill's measured gateway
     admit rate. The reference's consumer-drain and device-matching rows
-    come from its committed benchmark artifacts, measured on a TPU; they
-    stay absent here (as the reference leaves a missing artifact's row
-    absent) until the port has artifacts of its own."""
+    read its benchmark's outputs (BENCH_SERVICE_r05.json, BENCH_r05.json),
+    measured on a TPU; they stay absent here (as the reference leaves a
+    missing artifact's row absent) until the port's benchmark writes
+    outputs of its own."""
     return {
         "host_gateway_admit": {
             "orders_per_sec_per_core": drill.get(
@@ -745,6 +773,112 @@ def host_roofline(drill: dict) -> dict:
             "rows await the port's own benchmark artifacts"
         ),
     }
+
+
+def hostprof_artifact(
+    n_orders: int = 30_000,
+    hz: float = DRILL_HZ,
+    seed: int = 7,
+    min_samples: int = 800,
+    max_rounds: int = 8,
+    artifact: str = "HOSTPROF_CUDA_r01",
+    path: str = "scalar",
+    batch_n: int = 1024,
+) -> dict:
+    """The HOSTPROF_CUDA_r0N.json payload: the gateway admit drill
+    (per-stage ns/order, >= 80% coverage by construction of the stage
+    map) plus the host roofline. Defaults give HOSTPROF_CUDA_r01 (the
+    scalar admit); artifact="HOSTPROF_CUDA_r02", path="columnar" (with a
+    much higher max_rounds: columnar rounds are ~100x shorter) the
+    columnar one."""
+    import platform
+
+    drill = gateway_drill(
+        n_orders=n_orders,
+        hz=hz,
+        seed=seed,
+        min_samples=min_samples,
+        max_rounds=max_rounds,
+        path=path,
+        batch_n=batch_n,
+    )
+    return {
+        "artifact": artifact,
+        "method": (
+            "in-process sampling profiler (obs.hostprof.HostSampler, "
+            f"{drill['sampler']['mode']} mode @ {hz} Hz) over a "
+            "deterministic gateway admit drill; stage rows join samples "
+            "against the tracer stage taxonomy (deepest mapped frame "
+            "wins) and distribute measured wall by sampled share"
+        ),
+        "python": platform.python_version(),
+        "drill": drill,
+        "roofline": host_roofline(drill),
+    }
+
+
+def bench_host(
+    n_orders: int = 16_384, min_samples: int = 256, seed: int = 7
+) -> dict:
+    """The compact ``"host"`` block a service benchmark folds in: admit
+    ns/order + orders/sec/core, per-stage ns/order, sample counts."""
+    drill = gateway_drill(
+        n_orders=n_orders, min_samples=min_samples, seed=seed
+    )
+    return {
+        "admit_ns_per_order": drill["admit_ns_per_order"],
+        "admit_orders_per_sec_per_core": (
+            drill["admit_orders_per_sec_per_core"]
+        ),
+        "coverage_pct": drill["coverage_pct"],
+        "sampler_mode": drill["sampler"]["mode"],
+        "samples": drill["sampler"]["samples"],
+        "stage_ns_per_order": {
+            st: row.get("ns_per_order")
+            for st, row in drill["stages"].items()
+        },
+    }
+
+
+def bench_admit(
+    n_orders: int = 16_384,
+    seed: int = 7,
+    min_samples: int = 64,
+    batch_n: int = 1024,
+) -> dict:
+    """The compact ``"admit"`` block: scalar vs columnar admit on the
+    identical seeded flow, side by side with the speedup ratio."""
+    scalar = gateway_drill(
+        n_orders=n_orders, seed=seed, min_samples=min_samples,
+        max_rounds=2, path="scalar",
+    )
+    columnar = gateway_drill(
+        n_orders=n_orders, seed=seed, min_samples=min_samples,
+        max_rounds=24, path="columnar", batch_n=batch_n,
+    )
+
+    def _row(d: dict) -> dict:
+        return {
+            "admit_ns_per_order": d["admit_ns_per_order"],
+            "admit_orders_per_sec_per_core": (
+                d["admit_orders_per_sec_per_core"]
+            ),
+            "orders": d["orders"],
+            "rounds": d["rounds"],
+            "coverage_pct": d["coverage_pct"],
+        }
+
+    out = {
+        "kind": "admit_bench",
+        "seed": seed,
+        "batch_n": batch_n,
+        "scalar": _row(scalar),
+        "columnar": _row(columnar),
+    }
+    s, c = scalar["admit_ns_per_order"], columnar["admit_ns_per_order"]
+    if s and c:
+        out["speedup_x"] = round(s / c, 2)
+    return out
 
 
 # ---------------------------------------------------------------------------

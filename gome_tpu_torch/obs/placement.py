@@ -32,10 +32,13 @@ waste, in three pieces:
     optionally serving a what-if verdict (schema
     ``gome-placement-verdict-v1``).
 
-The reference's verdict and attribution baselines are artifacts measured
-on a TPU (its placement, mesh and fleet runs); the port reads none of
-them: :func:`default_verdict` and the baseline lookups return None until
-a run on the card writes an artifact of the port's own.
+The verdict and the attribution baselines come from the port's own
+repo-root artifacts, written on the card by the drivers under
+``gome_tpu_torch/scripts/``: ``PLACEMENT_CUDA_r01.json``
+(placement_eval), ``MULTICHIP_CUDA_r01.json`` (mesh_overhead --curve)
+and ``FLEET_CUDA_r01.json`` (fleet_drill). A missing or malformed file
+gives None. The reference's files (``PLACEMENT_r01``, ``MULTICHIP_r06``,
+``FLEET_r01``) were measured on a TPU or a CPU and are never opened.
 
 The sketch and ledger are stdlib-only; numpy is imported lazily inside
 armed hook bodies only (the gateway's columnar admit block hands numpy
@@ -47,6 +50,7 @@ from __future__ import annotations
 import json
 import struct
 import threading
+from pathlib import Path
 
 __all__ = [
     "SpaceSaving",
@@ -322,28 +326,91 @@ def load_verdict(path: str) -> dict:
 
 
 def default_verdict() -> dict | None:
-    """The what-if placement verdict served beside the live telemetry:
-    None until a run on the card writes one of the port's own (the
-    reference's repo-root verdict was measured on a TPU and is not read).
-    A service boot never fails on its absence — live telemetry still
-    arms."""
-    return None
+    """The port's repo-root ``PLACEMENT_CUDA_r01.json``, or None when the
+    artifact is absent or malformed (a service boot must not fail on a
+    missing what-if verdict — live telemetry still arms)."""
+    with _baseline_lock:
+        root = _artifact_root
+    try:
+        return load_verdict(str(root / f"{VERDICT_ARTIFACT}.json"))
+    except (OSError, ValueError):
+        return None
 
 
-# -- baseline lookups ------------------------------------------------------
+# -- committed-baseline lookups ------------------------------------------
+
+#: The port's artifacts, each written by a driver under
+#: gome_tpu_torch/scripts/ (the reference reads PLACEMENT_r01,
+#: MULTICHIP_r06 and FLEET_r01 in their places).
+VERDICT_ARTIFACT = "PLACEMENT_CUDA_r01"
+MESH_ARTIFACT = "MULTICHIP_CUDA_r01"
+FLEET_ARTIFACT = "FLEET_CUDA_r01"
+
+_REPO_ROOT = Path(__file__).resolve().parents[2]
+_artifact_root = _REPO_ROOT  # guarded by _baseline_lock
+_baseline_cache: dict[str, dict | None] = {}  # guarded by _baseline_lock
+_baseline_lock = threading.Lock()
+
+
+def set_artifact_root(root=None) -> None:
+    """Read the artifacts from ``root`` (None: the repo root) and forget
+    what was read before."""
+    global _artifact_root
+    with _baseline_lock:
+        _artifact_root = _REPO_ROOT if root is None else Path(root)
+        _baseline_cache.clear()
+
+
+def _artifact(name: str) -> dict | None:
+    """Best-effort read of a committed artifact under the artifact root
+    (memoized). The attribution table cites the committed before-numbers
+    from the artifacts themselves — never from prose — so a regenerated
+    artifact updates the baseline rows automatically."""
+    with _baseline_lock:
+        if name in _baseline_cache:
+            return _baseline_cache[name]
+        root = _artifact_root
+    doc: dict | None
+    try:
+        with open(root / name, "r", encoding="utf-8") as fh:
+            doc = json.load(fh)
+    except (OSError, ValueError):
+        doc = None
+    if not isinstance(doc, dict):
+        doc = None
+    with _baseline_lock:
+        _baseline_cache[name] = doc
+    return doc
 
 
 def shard_skew_baseline() -> dict | None:
-    """The widest-mesh dense shard skew the attribution cites as its
-    baseline: None until the port has a mesh artifact of its own (the
-    reference reads a TPU run's)."""
-    return None
+    """MULTICHIP_CUDA_r01's widest-mesh point (the D=8 skew row)."""
+    doc = _artifact(f"{MESH_ARTIFACT}.json")
+    if not doc:
+        return None
+    points = doc.get("curve") or []
+    if not points or not isinstance(points[-1], dict):
+        return None
+    p = points[-1]
+    return {
+        "artifact": MESH_ARTIFACT,
+        "devices": p.get("devices"),
+        "shard_skew": p.get("shard_skew"),
+        "rows_per_live_lane": p.get("rows_per_live_lane"),
+    }
 
 
 def partition_imbalance_baseline() -> dict | None:
-    """The measured fleet partition order imbalance: None until the port
-    has a fleet artifact of its own (the reference reads a TPU run's)."""
-    return None
+    """FLEET_CUDA_r01's measured partition order imbalance."""
+    doc = _artifact(f"{FLEET_ARTIFACT}.json")
+    if not doc:
+        return None
+    imb = (doc.get("table") or {}).get("imbalance") or {}
+    return {
+        "artifact": FLEET_ARTIFACT,
+        "max_over_min_orders": imb.get("max_over_min_orders"),
+        "orders_per_partition": imb.get("orders_per_partition"),
+    }
 
 
 # -- process-global singleton --------------------------------------------
@@ -525,8 +592,8 @@ class PlacementObservatory:
         failing reconciliation means the ledger and the packer disagree
         about geometry, which is a bug, not a workload. The fleet-level
         ``hash_partition`` row is additive context (a different axis,
-        not a factor of the dispatch product). Baselines stay None until
-        the port has artifacts of its own (shard_skew_baseline)."""
+        not a factor of the dispatch product). Baselines cite the port's
+        committed mesh and fleet artifacts (None without them)."""
         tol = 0.05
         with self._lock:
             sk = self._sketch

@@ -156,7 +156,7 @@ class OpsServer:
     def capacity_payload(self) -> dict:
         """The /capacity JSON document: the installed load-sweep verdict
         (obs.capacity.CAPACITY). ``{"enabled": false}`` while no verdict
-        is installed — always, until a sweep on the card writes one."""
+        is installed (scripts.obs_snapshot installs its smoke ladder's)."""
         from ..obs.capacity import CAPACITY
 
         return CAPACITY.payload()

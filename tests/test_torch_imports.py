@@ -1,6 +1,8 @@
 """The port stands alone: no file under gome_tpu_torch/, and not
-chip_smoke.py, imports jax or anything of gome_tpu (an AST scan), and
-importing the port loads neither."""
+chip_smoke.py, imports jax or anything of gome_tpu, nor the reference's
+bench.py or scripts/ (an AST scan: absolute imports, __import__, and any
+load by file path through importlib), and importing the port loads
+neither."""
 
 import ast
 import pathlib
@@ -15,6 +17,9 @@ PORT_FILES = sorted(
     for p in [*(ROOT / "gome_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
 )
 FORBIDDEN = ("jax", "jaxlib", "gome_tpu")
+#: The reference's top-level driver modules: refused as absolute (level 0)
+#: imports; the port's drivers are gome_tpu_torch.scripts.
+REFERENCE_DRIVERS = ("bench", "scripts")
 
 
 def imported_modules(path: pathlib.Path) -> set[str]:
@@ -34,7 +39,23 @@ def imported_modules(path: pathlib.Path) -> set[str]:
 
 
 def is_forbidden(module: str) -> bool:
-    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+    return any(module == f or module.startswith(f + ".")
+               for f in FORBIDDEN + REFERENCE_DRIVERS)
+
+
+def file_loads(path: pathlib.Path) -> list[str]:
+    """Calls that load a module from a file path
+    (importlib.util.spec_from_file_location, SourceFileLoader): the way
+    around an import statement."""
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Call):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+                fn, "id", None)
+            if name in ("spec_from_file_location", "SourceFileLoader"):
+                names.append(name)
+    return names
 
 
 def test_port_files_were_found():
@@ -53,6 +74,10 @@ def test_port_files_were_found():
         assert f"gome_tpu_torch/obs/{name}.py" in PORT_FILES
     for name in ("__init__", "router"):
         assert f"gome_tpu_torch/fleet/{name}.py" in PORT_FILES
+    for name in ("__init__", "common", "placement_eval", "mesh_overhead",
+                 "fleet_drill", "capacity", "profile_consumer",
+                 "obs_snapshot"):
+        assert f"gome_tpu_torch/scripts/{name}.py" in PORT_FILES
     assert len(PORT_FILES) > 10
 
 
@@ -66,6 +91,25 @@ def test_scan_recognises_forbidden_imports():
     assert is_forbidden("jax.numpy") and is_forbidden("gome_tpu.engine")
     assert not is_forbidden("gome_tpu_torch.engine")
     assert not is_forbidden("jaxtyping_like")
+    assert is_forbidden("bench") and is_forbidden("scripts.capacity")
+    assert not is_forbidden("gome_tpu_torch.scripts.capacity")
+    assert not is_forbidden("benchmark_like")
+
+
+def test_scan_sees_relative_and_absolute_driver_imports(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("from . import scripts\nfrom .scripts import capacity\n"
+                 "import bench\nfrom scripts.capacity import run\n"
+                 "import importlib.util as u\n"
+                 "u.spec_from_file_location('x', 'scripts/capacity.py')\n")
+    assert sorted(m for m in imported_modules(f) if is_forbidden(m)) == [
+        "bench", "scripts.capacity"]
+    assert file_loads(f) == ["spec_from_file_location"]
+
+
+@pytest.mark.parametrize("rel", PORT_FILES)
+def test_file_loads_no_module_by_path(rel):
+    assert not file_loads(ROOT / rel), f"{rel} loads a module by file path"
 
 
 def test_importing_the_port_loads_neither():
@@ -85,9 +129,13 @@ def test_importing_the_port_loads_neither():
         "gome_tpu_torch.obs, gome_tpu_torch.obs.live, "
         "gome_tpu_torch.obs.placement, gome_tpu_torch.fleet, "
         "gome_tpu_torch.obs.costmodel, gome_tpu_torch.obs.profiler, "
-        "gome_tpu_torch.obs.fleet\n"
-        "bad = [m for m in sys.modules if m in ('jax', 'gome_tpu') or "
-        "m.startswith(('jax.', 'gome_tpu.'))]\n"
+        "gome_tpu_torch.obs.fleet, gome_tpu_torch.scripts.capacity, "
+        "gome_tpu_torch.scripts.fleet_drill, gome_tpu_torch.scripts.obs_snapshot, "
+        "gome_tpu_torch.scripts.mesh_overhead, "
+        "gome_tpu_torch.scripts.placement_eval, "
+        "gome_tpu_torch.scripts.profile_consumer\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'gome_tpu', 'bench', "
+        "'scripts') or m.startswith(('jax.', 'gome_tpu.', 'scripts.'))]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

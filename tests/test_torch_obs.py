@@ -6,6 +6,7 @@ sampler's walk, collapsed output and stage join, the admit drill's keys,
 and the disabled hooks' zero-allocation contract. Exact equality, except
 where a field is named below with the reason."""
 
+import json
 import pathlib
 import sys
 
@@ -289,7 +290,8 @@ def placement_run(mod, reg_cls, seed):
 
 def strip_baselines(x):
     """The attribution's "baseline" fields: the reference reads them from
-    TPU artifacts (its mesh and fleet runs); the port's stay None."""
+    its TPU artifacts (its mesh and fleet runs), the port from its own
+    (MULTICHIP_CUDA_r01, FLEET_CUDA_r01); compared apart."""
     if isinstance(x, dict):
         return {k: (None if k == "baseline" else strip_baselines(v))
                 for k, v in x.items()}
@@ -302,18 +304,36 @@ def strip_baselines(x):
 def test_placement_ledger_and_attribution_match(seed):
     (got, got_probes) = placement_run(tplacement, TRegistry, seed)
     (want, want_probes) = placement_run(jplacement, JRegistry, seed)
-    assert strip_baselines(want) == got
-    assert strip_baselines(want_probes) == got_probes
+    assert strip_baselines(want) == strip_baselines(got)
+    assert strip_baselines(want_probes) == strip_baselines(got_probes)
     rows = [c for c in got["attribution"]["components"]]
-    assert [r["baseline"] for r in rows] == [None, None]
-    assert got["attribution"]["hash_partition"]["baseline"] is None
+    skew = tplacement.shard_skew_baseline()
+    imbalance = tplacement.partition_imbalance_baseline()
+    assert [r["baseline"] for r in rows] == [skew, None]
+    assert got["attribution"]["hash_partition"]["baseline"] == imbalance
+    assert skew["artifact"] == "MULTICHIP_CUDA_r01"
+    assert imbalance["artifact"] == "FLEET_CUDA_r01"
     assert got["attribution"]["reconciliation"]["within_tol"]
 
 
 def test_placement_reads_no_artifact():
-    assert tplacement.default_verdict() is None
-    assert tplacement.shard_skew_baseline() is None
-    assert tplacement.partition_imbalance_baseline() is None
+    """The port reads no artifact but its own: from the repo root (where
+    the reference's TPU artifacts lie too) the verdict and the baselines
+    are the port's *_CUDA_r01 files, with the reference's shapes."""
+    tplacement.set_artifact_root(None)
+    verdict = tplacement.default_verdict()
+    skew = tplacement.shard_skew_baseline()
+    imbalance = tplacement.partition_imbalance_baseline()
+    assert verdict["artifact"] == "PLACEMENT_CUDA_r01"
+    assert verdict["schema"] == jplacement.SCHEMA
+    assert skew["artifact"] == "MULTICHIP_CUDA_r01"
+    assert skew.keys() == jplacement.shard_skew_baseline().keys()
+    assert skew["shard_skew"] == 3.6399 and skew["devices"] == 8
+    assert imbalance["artifact"] == "FLEET_CUDA_r01"
+    assert imbalance.keys() == jplacement.partition_imbalance_baseline().keys()
+    text = json.dumps([verdict, skew, imbalance])
+    for ref in ("PLACEMENT_r01", "MULTICHIP_r06", "FLEET_r01"):
+        assert ref not in text
 
 
 # -- hostprof -------------------------------------------------------------

@@ -92,7 +92,13 @@ def test_zipf_frames_feed_the_same_telemetry(monkeypatch):
     got, want = rec["t"].seen, rec["j"].seen
     assert len(got) >= len(frames) and got == want
     tp, jp = tplacement.PLACEMENT.payload(), jplacement.PLACEMENT.payload()
-    assert tp == strip_baselines(jp)
+    assert strip_baselines(tp) == strip_baselines(jp)
+    # The port's baselines: its own mesh and fleet artifacts.
+    attr = tp["attribution"]
+    assert attr["components"][0]["baseline"] == \
+        tplacement.shard_skew_baseline()
+    assert attr["hash_partition"]["baseline"] == \
+        tplacement.partition_imbalance_baseline()
     assert tp["occupancy"]["frames"] == len(got)
     assert tp["attribution"]["reconciliation"]["within_tol"]
     assert tp["top"][0]["symbol"] == "sym0"
@@ -214,8 +220,12 @@ def test_service_with_default_ops_serves_the_obs_routes():
     for route in ("timeline", "placement", "capacity", "hostprof"):
         assert t[route].keys() == j[route].keys(), route
     assert t["capacity"] == j["capacity"] == {"enabled": False}
-    # The reference serves its TPU run's what-if verdict; the port none.
-    assert t["placement"].pop("verdict") is None
+    # The reference serves its TPU run's what-if verdict, the port its own
+    # (PLACEMENT_CUDA_r01.json, written on the card).
+    verdict = t["placement"].pop("verdict")
+    assert verdict == tplacement.default_verdict()
+    assert verdict["artifact"] == "PLACEMENT_CUDA_r01"
+    assert verdict["schema"] == jplacement.SCHEMA
     assert j["placement"].pop("verdict")["schema"] == jplacement.SCHEMA
     assert keys(t["placement"], 2) == keys(j["placement"], 2)
     assert t["placement"]["admits"] == j["placement"]["admits"] == 302
