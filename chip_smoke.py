@@ -310,7 +310,25 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      PLACEMENT_CUDA_r01.json, and (a)'s /placement serves it with
      baselines citing MULTICHIP_CUDA_r01 and FLEET_CUDA_r01; (d)
      hostprof.bench_admit() and hostprof_artifact(path="columnar") at
-     small round counts, stage coverage >= 80%.
+     small round counts, stage coverage >= 80%;
+ 18. the chaos drills (gome_tpu_torch/scripts), run from before phase 9
+     in a fresh interpreter beside phases 9 to 15, which phase 16 waits
+     for (`python3 chip_smoke.py --chaos-drills DIR`), their workers this
+     script's
+     --chaos-worker / --fleet-chaos-worker: (a) scripts.chaos at 10,240
+     lanes (cap 64 with auto_grow, K 8, max_t 8, int64; the sim flow at
+     10,240 lanes x 1,024 bins a step, 40 steps, seed 11), five kills
+     covering consumer.commit, consumer.frame, a torn filelog.offset, a
+     torn snapshot.rename and a torn filelog.append: every check of the
+     verdict true; (b) scripts.fleet_chaos on a live 2 x 2 fleet at the
+     same width (seed 17, 64 sim steps a base round, DoOrderBatch chunks
+     of 1,024), one consumer kill, one gateway kill, one bus disconnect:
+     every check true (digests and match streams equal to each
+     partition's oracle, exactly-once, failover after recovery,
+     recovery p99 <= 150 s, the degraded windows >= 100 orders/s). The
+     oracles, the final runs and the fleet's final consumers launch K1
+     once per device call and save their deepest and widest grids, which
+     join the grouped check against the plain version.
 
 The last two lines are the kernel table (JSON) and
 {"ok": true, "device": {...}}.
@@ -331,6 +349,10 @@ minutes on one card; under four cards (b) runs a card a rank too).
     python3 chip_smoke.py --phase17
 
 runs phase 17 alone.
+
+    python3 chip_smoke.py --phase18
+
+runs phase 18's drills alone (about five minutes on one card).
 
     python3 chip_smoke.py --soak SECONDS
     python3 chip_smoke.py --fuzz N [SEED0]
@@ -378,7 +400,8 @@ from gome_tpu_torch.scripts.common import (MIXED_UUIDS, MixedFlow,
                                            expected_launches, gateway_step,
                                            host_line, svc_warmup, tail_of,
                                            wire_request)
-from gome_tpu_torch.scripts.fleet_drill import fleet_members
+from gome_tpu_torch.scripts.chaos import book_digest
+from gome_tpu_torch.scripts.fleet_drill import CARD_BINS, fleet_members
 
 KERNEL_ROWS = dict(
     match_step=dict(
@@ -2346,30 +2369,6 @@ def kill_plan(cycle: int):
     return FaultPlan(seed=9000 + cycle, faults=(spec,))
 
 
-def book_digest(engine) -> str:
-    """sha256 over the full exported engine state (every book leaf, padding
-    included, with dtype and shape; interners; geometry) and the sorted
-    pre-pool — scripts/chaos.py's digest."""
-    import hashlib
-
-    state = engine.batch.export_state()
-    h = hashlib.sha256()
-    for key in sorted(state):
-        val = state[key]
-        h.update(key.encode())
-        if key == "books":
-            for name in sorted(val):
-                arr = np.ascontiguousarray(val[name])
-                h.update(name.encode())
-                h.update(str(arr.dtype).encode())
-                h.update(repr(arr.shape).encode())
-                h.update(arr.tobytes())
-        else:
-            h.update(repr(val).encode())
-    h.update(repr(sorted(engine.pre_pool)).encode())
-    return h.hexdigest()
-
-
 @contextlib.contextmanager
 def timed_calls(places):
     """Wrap each (object, attribute, part) for the block; yields a dict of
@@ -2396,9 +2395,9 @@ def timed_calls(places):
 
 
 def drill_stack(args):
-    """The worker's engine (int32, cap and K from args, on args.device),
-    its file bus and a Persister at the drill's cadence, and an
-    OrderConsumer(batch_n=1, match_wire="frame") at args.depth."""
+    """The worker's engine (int32, args.lanes symbols, cap and K from args,
+    on args.device), its file bus and a Persister at the drill's cadence,
+    and an OrderConsumer(batch_n=1, match_wire="frame") at args.depth."""
     from gome_tpu_torch.bus import make_bus
     from gome_tpu_torch.config import BusConfig, PersistConfig
     from gome_tpu_torch.engine import BookConfig, MatchEngine
@@ -2409,7 +2408,7 @@ def drill_stack(args):
                              match_wire="frame"))
     engine = MatchEngine(BookConfig(cap=args.cap, max_fills=args.max_fills,
                                     dtype=torch.int32),
-                         n_slots=args.symbols, max_t=32, device=args.device)
+                         n_slots=args.lanes, max_t=32, device=args.device)
     persist = Persister(PersistConfig(enabled=True, dir=args.snap_dir,
                                       every_n_batches=PERSIST_EVERY,
                                       keep=PERSIST_KEEP))
@@ -2421,97 +2420,73 @@ def drill_stack(args):
 
 
 def persist_worker(argv) -> int:
-    """One consumer-process lifetime of phase 9 (a)'s crash drill, as
-    scripts/chaos.py's worker: boot, restore_latest(), THEN arm the
-    cycle's FaultPlan, consume the file queue to its end (or die with
-    EXIT_CODE where the plan says), drain a MatchFeed, digest the state.
-    The result JSON is rewritten as the run goes (after the restore, at
-    the catch-up to the pre-crash position, after each snapshot), so a
-    death keeps what was known. A run that completes also holds K1
-    against its plain version at the inputs its replay gave it, and with
-    --cost-dir times one snapshot and one restore (phase 9 (b))."""
+    """One consumer-process lifetime of phase 9 (a)'s crash drill: the
+    chaos drill's worker (scripts.chaos.run_worker: boot,
+    restore_latest(), THEN arm the cycle's FaultPlan, consume the file
+    queue to its end or die with EXIT_CODE where the plan says, drain a
+    MatchFeed, digest the state) over this drill's stack (drill_stack),
+    with the restore timed by part and each snapshot recorded as it is
+    taken. A run that completes also holds K1 against its plain version
+    at the inputs its replay gave it, and with --cost-dir times one
+    snapshot and one restore (phase 9 (b))."""
     import argparse
 
-    from gome_tpu_torch.ops.match_step import batch_step
     from gome_tpu_torch.persist import snapshot as snapshot_mod
-    from gome_tpu_torch.service import MatchFeed
-    from gome_tpu_torch.utils.faults import FAULTS, FaultPlan
+    from gome_tpu_torch.scripts import chaos
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--persist-worker", action="store_true")
     for name in ("--bus-dir", "--snap-dir", "--out"):
         ap.add_argument(name, required=True)
-    ap.add_argument("--plan")
+    ap.add_argument("--plan", default="")
     ap.add_argument("--cost-dir")
     ap.add_argument("--device", default="cuda")
-    for name, default in (("--depth", 0), ("--symbols", 10240),
+    for name, default in (("--depth", 0), ("--lanes", 10240),
                           ("--cap", 256), ("--max-fills", 16)):
         ap.add_argument(name, type=int, default=default)
     args = ap.parse_args(argv)
-    entered = time.time()  # the parent takes the interpreter's start apart
-    t_boot = time.perf_counter()
-    engine, bus, persist, consumer = drill_stack(args)
-    oq = bus.order_queue
-    result = {"pre_committed": oq.committed(), "depth": args.depth,
-              "completed": False, "snapshots": [], "entered_unix": entered}
+    result = {"depth": args.depth, "snapshots": []}
+    held = {}
 
-    def write_result() -> None:
-        with open(args.out + ".tmp", "w") as f:
-            json.dump(result, f, sort_keys=True)
-        os.replace(args.out + ".tmp", args.out)
+    def stack(a):
+        engine, bus, persist, consumer = drill_stack(a)
+        inner = persist.snapshot
 
-    inner_snapshot = persist.snapshot
+        def snapshot():
+            t0 = time.perf_counter()
+            path = inner()
+            result["snapshots"].append(dict(
+                name=os.path.basename(path),
+                bytes=persist.last_snapshot_bytes,
+                seconds=time.perf_counter() - t0))
+            _write_json(a.out, result)
+            return path
 
-    def snapshot():
-        t0 = time.perf_counter()
-        path = inner_snapshot()
-        result["snapshots"].append(dict(
-            name=os.path.basename(path), bytes=persist.last_snapshot_bytes,
-            seconds=time.perf_counter() - t0))
-        write_result()
-        return path
+        persist.snapshot = snapshot
+        held.update(engine=engine, bus=bus)
+        return engine, bus, persist, consumer
 
-    persist.snapshot = snapshot
-    t0 = time.perf_counter()
-    result["boot_s"] = t0 - t_boot
-    with timed_calls(((persist.store, "load_latest", "load"),
-                      (engine.batch, "import_state", "import_state"),
-                      (persist, "_reconstruct_marks", "mark_rebuild"))) \
-            as restore_split:
-        persist.restore_latest()
-    result["restore"] = dict(persist.probe(), split=restore_split,
-                             seconds=persist.last_recovery_seconds,
-                             cut=oq.committed())
-    if args.plan:  # armed AFTER the restore: hits count this run's replay
-        with open(args.plan) as f:
-            FAULTS.install(FaultPlan.from_json(f.read()))
-    caught_up = oq.committed() >= result["pre_committed"]
-    if caught_up:
-        result["recovery_s"] = persist.last_recovery_seconds
-    write_result()
-    batch_step.launches = 0
-    with keep_kernel_inputs() as kept:
-        while oq.committed() < oq.end_offset():
-            consumer.run_once()
-            if not caught_up and oq.committed() >= result["pre_committed"]:
-                caught_up = True
-                result["recovery_s"] = time.perf_counter() - t0
-                write_result()
-        launches = batch_step.launches
-        feed = MatchFeed(bus, log_events=False)
-        feed.drain()
-        worst, kept_line = check_kept_inputs("phase 9 (a) worker", kept)
-    engine.batch.verify_books()
-    result.update(
-        completed=True, seconds=time.perf_counter() - t0,
-        book_digest=book_digest(engine), feed=feed.seq_state(),
-        delivered=feed.events_seen, launches=launches,
-        device_calls=engine.stats.device_calls, cap=engine.config.cap,
-        kernel_worst=worst, kept_line=kept_line)
-    if args.cost_dir:
-        result["cost"] = snapshot_cost(args, engine, bus, snapshot_mod)
-    write_result()
-    return 0
+    def restore(persist) -> dict:
+        engine = held["engine"]
+        with timed_calls(((persist.store, "load_latest", "load"),
+                          (engine.batch, "import_state", "import_state"),
+                          (persist, "_reconstruct_marks", "mark_rebuild"))) \
+                as split:
+            persist.restore_latest()
+        return dict(persist.probe(), split=split,
+                    seconds=persist.last_recovery_seconds,
+                    cut=held["bus"].order_queue.committed())
+
+    def finish(kept, res) -> None:
+        worst, line = check_kept_inputs("phase 9 (a) worker", kept)
+        held["engine"].batch.verify_books()
+        res.update(kernel_worst=worst, kept_line=line)
+        if args.cost_dir:
+            res["cost"] = snapshot_cost(args, held["engine"], held["bus"],
+                                        snapshot_mod)
+
+    return chaos.run_worker(args, keep=keep_kernel_inputs, finish=finish,
+                            stack=stack, restore=restore, result=result)
 
 
 def snapshot_cost(args, engine, bus, snapshot_mod) -> dict:
@@ -2536,7 +2511,7 @@ def snapshot_cost(args, engine, bus, snapshot_mod) -> dict:
         snap_s = time.perf_counter() - t0
     fresh = MatchEngine(BookConfig(cap=args.cap, max_fills=args.max_fills,
                                    dtype=torch.int32),
-                        n_slots=args.symbols, max_t=32, device=args.device)
+                        n_slots=args.lanes, max_t=32, device=args.device)
     dst = Persister(PersistConfig(enabled=True, dir=args.cost_dir,
                                   every_n_batches=PERSIST_EVERY, keep=2))
     dst.attach(fresh, bus)
@@ -2568,31 +2543,30 @@ def run_worker(work, name: str, bus_dir: str, depth: int, device: str,
                geometry: dict, timeout_s: float, plan=None,
                cost: bool = False) -> dict:
     """Start one worker as a fresh interpreter (never a fork of this
-    CUDA process) and wait for it; returns its result JSON with its exit
-    code and wall seconds."""
+    CUDA process; scripts.chaos.run_child) and wait for it; returns its
+    result JSON with its exit code and wall seconds."""
+    from gome_tpu_torch.scripts import chaos
+
     out = os.path.join(work, f"{name}.json")
-    cmd = [sys.executable, os.path.abspath(__file__), "--persist-worker",
-           "--bus-dir", bus_dir, "--snap-dir", bus_dir + "-snaps",
-           "--out", out, "--depth", str(depth), "--device", device,
-           *(f"--{k.replace('_', '-')}={v}" for k, v in geometry.items())]
+    plan_path = None
     if plan is not None:
-        with open(out + ".plan", "w") as f:
+        plan_path = out + ".plan"
+        with open(plan_path, "w") as f:
             f.write(plan.to_json())
-        cmd += ["--plan", out + ".plan"]
+    extra = ["--depth", str(depth), "--cap", str(geometry["cap"]),
+             "--max-fills", str(geometry["max_fills"])]
     if cost:
-        cmd += ["--cost-dir", os.path.join(work, "cost-snaps")]
-    t0, launched = time.perf_counter(), time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=timeout_s,
-                          cwd=os.path.dirname(os.path.abspath(__file__)))
-    wall = time.perf_counter() - t0
-    result = {}
-    if os.path.exists(out):
-        with open(out) as f:
-            result = json.load(f)
+        extra += ["--cost-dir", os.path.join(work, "cost-snaps")]
+    launched = time.time()
+    rc, wall = chaos.run_child(
+        bus_dir, bus_dir + "-snaps", out, plan_path, device,
+        geometry["symbols"], timeout_s=timeout_s,
+        launcher=lambda: [sys.executable, os.path.abspath(__file__),
+                          "--persist-worker", *extra])
+    result = chaos.read_result(out) or {}
+    if result:
         result["start_s"] = result["entered_unix"] - launched
-    result.update(rc=proc.returncode, wall_s=wall,
-                  stderr_tail=proc.stderr[-2000:])
+    result.update(rc=rc, wall_s=wall, stderr_tail=chaos.stderr_tail(out))
     return result
 
 
@@ -5478,14 +5452,14 @@ def phase14b(card: str, sizes, zipf, device: str = "cuda",
     reqs = fleet_drill.requests_by_partition(orders)
     parts = [[orders[gi] for gi, _, _ in r] for r in reqs]
     wants = [oracle_events(part) for part in parts]
-    procs, errs = {}, {}
+    procs = {}
     results = {}
     with tempfile.TemporaryDirectory(prefix="phase14b-") as work:
         try:
             resp_port = fleet_drill.start_respserver(procs)
             t_boot = time.perf_counter()
             ports = fleet_members(work, resp_port, sizes["symbols"],
-                                  device, procs, errs, fleet_launcher,
+                                  device, procs, fleet_launcher,
                                   trace_keep=2 * FLEET_ORDERS)
             boot = time.perf_counter() - t_boot
             members = {name: f"http://127.0.0.1:{ops}"
@@ -5527,7 +5501,7 @@ def phase14b(card: str, sizes, zipf, device: str = "cuda",
             rollup = FLEET.rollup()
         finally:
             FLEET.disable()
-            results = fleet_drill.stop_members(procs, work, errs)
+            results = fleet_drill.stop_members(procs, work)
         for name, res in results.items():
             if res["exit_code"] != 0:
                 raise SystemExit(f"phase 14 (b): {name} exited "
@@ -7232,6 +7206,324 @@ def phase17_alone() -> int:
     return 0
 
 
+# -- phase 18: the chaos drills ------------------------------------------------
+
+#: (a): gome_tpu_torch.scripts.chaos at the main path's width (10,240
+#: lanes, the sim at bench.py's 1,024 bins a step), five kills (one of
+#: each class) and the reference's seed.
+P18_CHAOS = dict(kills=5, seed=11, seconds=30, lanes=10_240, bins=CARD_BINS)
+#: (b): gome_tpu_torch.scripts.fleet_chaos at the same width: one cycle of
+#: each class, the reference's seed, --seconds 8: the reference's
+#: max(32, min(480, seconds * 8)) = 64 sim steps a base round (31,793
+#: orders recorded on an H100), in chunks of fleet_drill's DRIVE_BATCH_N.
+P18_FLEET = dict(kills=3, seed=17, seconds=8, lanes=10_240, bins=CARD_BINS,
+                 floor=100.0,
+                 recovery_bound=150.0, recovery_timeout=300.0,
+                 max_depth=16384)
+#: Phase 18 waits this long for the drills' process.
+P18_WAIT_S = 600.0
+#: The five fault classes of the chaos rotation: (point, mode).
+CHAOS_CLASSES = {("consumer.commit", "exit"), ("consumer.frame", "exit"),
+                 ("filelog.offset", "torn"), ("snapshot.rename", "torn"),
+                 ("filelog.append", "torn")}
+
+
+def save_kept(path: str):
+    """A worker's finish hook: its kept K1 grids (the deepest and the
+    widest of each launch shape) to `path` on the host, for the parent to
+    hold against the plain version (load_kept)."""
+    from gome_tpu_torch.engine.book import BookState, DeviceOp
+
+    def finish(kept, result) -> None:
+        grids = [(config, BookState(*(x.cpu() for x in books)),
+                  DeviceOp(*(x.cpu() for x in ops)))
+                 for config, books, ops in distinct_kept(kept, "batch_step")]
+        torch.save(grids, path)
+        result["kept_file"] = path
+        result["kept_shapes"] = [kept_shape(c, o) for c, _, o in grids]
+
+    return finish
+
+
+def load_kept(path: str, device) -> list:
+    from gome_tpu_torch.engine.book import BookState, DeviceOp
+
+    return [(config, BookState(*(x.to(device) for x in books)),
+             DeviceOp(*(x.to(device) for x in ops)))
+            for config, books, ops in torch.load(path, weights_only=False)]
+
+
+def chaos_worker(argv) -> int:
+    """`--chaos-worker ...`: one lifetime of the chaos drill's worker
+    (scripts.chaos.run_worker) that keeps K1's inputs and saves them
+    beside its result."""
+    from gome_tpu_torch.scripts import chaos
+
+    args = chaos.worker_args(argv[1:])
+    return chaos.run_worker(args, keep=keep_kernel_inputs,
+                            finish=save_kept(args.out + ".kept.pt"))
+
+
+def fleet_chaos_worker(argv) -> int:
+    """`--fleet-chaos-worker ROLE ...`: one member of the fleet chaos
+    drill; its consumers keep K1's inputs and save them beside their
+    result."""
+    from gome_tpu_torch.scripts import fleet_chaos
+
+    def consumer(args):
+        return fleet_chaos.run_consumer_worker(
+            args, keep=keep_kernel_inputs,
+            finish=save_kept(args.result + ".kept.pt"))
+
+    return fleet_chaos.run_worker(argv[1], argv[2:], consumer=consumer)
+
+
+def chaos_launcher() -> list:
+    return [sys.executable, os.path.abspath(__file__), "--chaos-worker"]
+
+
+def fleet_chaos_launcher(role: str) -> list:
+    return [sys.executable, os.path.abspath(__file__), "--fleet-chaos-worker",
+            role]
+
+
+def chaos_drills(work: str, device: str = "cuda", chaos_params=None,
+                 fleet_params=None) -> dict:
+    """Phase 18's drills, (a) then (b), each its module's own parent
+    (run_parent) over workers started as this script's --chaos-worker /
+    --fleet-chaos-worker, at P18_CHAOS and P18_FLEET unless given.
+    Returns both verdicts, each with its workers' results, its seconds,
+    its start and end (time.time()) and its sim recording's K5
+    launches (the recording runs in this process; each drill starts
+    with it, so the count is reset just before)."""
+    import argparse
+
+    from gome_tpu_torch.ops.hawkes_scan import hawkes_scan
+    from gome_tpu_torch.scripts import chaos, fleet_chaos
+
+    out = {}
+    for name, module, params, launchers in (
+            ("chaos", chaos, chaos_params or P18_CHAOS,
+             dict(launcher=chaos_launcher)),
+            ("fleet", fleet_chaos, fleet_params or P18_FLEET,
+             dict(launcher=fleet_chaos_launcher,
+                  oracle_launcher=chaos_launcher))):
+        args = argparse.Namespace(
+            **params, device=device, out=f"{name}.json",
+            workdir=os.path.join(work, name))
+        t0, start = time.perf_counter(), time.time()
+        hawkes_scan.launches = 0
+        verdict = module.run_parent(args, **launchers)
+        verdict["k5_launches"] = hawkes_scan.launches
+        verdict["seconds"] = time.perf_counter() - t0
+        verdict["span"] = [start, time.time()]
+        out[name] = verdict
+    return out
+
+
+def chaos_drills_worker(argv) -> int:
+    """`--chaos-drills DIR`: chaos_drills on the card in a fresh
+    interpreter (ChaosDrills), the verdicts to DIR/drills.json."""
+    work = argv[1]
+    if not torch.cuda.is_available():
+        print("chip_smoke --chaos-drills: no CUDA card", file=sys.stderr)
+        return 1
+    _write_json(os.path.join(work, "drills.json"), chaos_drills(work))
+    return 0
+
+
+class ChaosDrills:
+    """Phase 18's drills in a fresh interpreter (chaos_drills_worker),
+    started before phase 9; result() waits for the verdicts.
+    stop() kills the process if it is still running and removes its
+    work directory (the kept grids are read by then)."""
+
+    def __init__(self):
+        self.work = tempfile.mkdtemp(prefix="phase18-")
+        self.log_path = os.path.join(self.work, "drills.log")
+        self.t0 = time.perf_counter()
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--chaos-drills",
+                 self.work], stdout=log, stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def result(self, timeout_s: float = P18_WAIT_S) -> tuple[dict, float]:
+        """The drills' verdicts and the seconds this process waited."""
+        t0 = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            rc = None
+        with open(self.log_path) as fh:
+            log = fh.read()
+        path = os.path.join(self.work, "drills.json")
+        if rc != 0 or not os.path.exists(path):
+            raise SystemExit(f"phase 18: the drills' process exited {rc}:\n"
+                             f"{log[-4000:]}")
+        with open(path) as fh:
+            drills = json.load(fh)
+        drills["log"] = log
+        drills["total_s"] = time.perf_counter() - self.t0
+        return drills, time.perf_counter() - t0
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def queue_kept(label: str, path: str | None, device) -> tuple[int, str]:
+    """A worker's saved K1 grids, held against the plain version
+    (queued for check_queued_inputs in the whole script)."""
+    if not path or not os.path.exists(path):
+        raise SystemExit(f"{label}: no kept K1 inputs ({path})")
+    grids = load_kept(path, device)
+    if not grids:
+        raise SystemExit(f"{label}: the worker kept no K1 grid")
+    kept = {"batch_step": {f"grid {i}": (0, g) for i, g in enumerate(grids)},
+            "hawkes_scan": {}}
+    return check_kept_inputs(label, kept)
+
+
+def check_chaos(label: str, v: dict) -> None:
+    failed = [k for k, ok in v["checks"].items() if not ok]
+    if failed or not v["pass"]:
+        raise SystemExit(f"{label}: the verdict fails {failed}: "
+                         + json.dumps({k: v.get(k) for k in (
+                             "cycles", "oracle", "final", "partitions",
+                             "drivers", "lifetimes")}, default=str)[-4000:])
+
+
+def beside(span, clock) -> str:
+    """The script's clock over a drill's [start, end] wall span and the
+    phases it overlapped (clock: main's t0 and phase starts, the last
+    label None: the end of the phases the drills could overlap)."""
+    t0, marks = clock["t0"], clock["phases"]
+    a, b = span
+    hit = [label for (label, s), (_, e) in zip(marks, marks[1:])
+           if s < b and e > a]
+    return (f"{a - t0:.1f}-{b - t0:.1f} s on the script's clock, beside "
+            f"phase{'s' if len(hit) > 1 else ''} {', '.join(hit)}")
+
+
+def phase18(card: str, device, drills: dict, waited: float | None,
+            clock: dict | None = None) -> dict:
+    """Phase 18: (a) the chaos drill (scripts.chaos) at 10,240 lanes,
+    five kills, one of each fault class: every check of its verdict true;
+    (b) the fleet chaos drill (scripts.fleet_chaos) on a live 2 x 2 fleet
+    at 10,240 lanes, one cycle of each class: every check true. In both,
+    each worker that completed (the oracles, the final runs, the fleet's
+    final consumers) launched K1 once per device call and kept its
+    deepest and widest grids, which are held against the plain version.
+    Each drill's sim recording launched K5 once a step. Returns the
+    launches, the worst error and the seconds."""
+    a, b = drills["chaos"], drills["fleet"]
+    k5 = {}
+    for name, v in (("chaos_recording", a), ("fleet_chaos_recording", b)):
+        want = v["config"]["n_steps"] if str(device) == "cuda" else 0
+        if v["k5_launches"] != want:
+            raise SystemExit(f"phase 18: the {name} launched K5 "
+                             f"{v['k5_launches']} times for {want} sim steps")
+        k5[name] = v["k5_launches"]
+    check_chaos("phase 18 (a)", a)
+    classes = {(c["plan"]["faults"][0]["point"], c["plan"]["faults"][0]["mode"])
+               for c in a["cycles"]}
+    if classes != CHAOS_CLASSES:
+        raise SystemExit(f"phase 18 (a): the rotation covered {classes}")
+    check_chaos("phase 18 (b)", b)
+    launches, worst, lines = {}, 0, []
+    workers = [("chaos oracle", a["workers"]["oracle"]),
+               ("chaos final", a["workers"]["final"])]
+    for p, r in enumerate(b["workers"]["finals"]):
+        workers.append((f"fleet consumer c{p}", r))
+    for p, r in enumerate(b["workers"]["oracles"]):
+        workers.append((f"fleet oracle {p}", r))
+    for name, r in workers:
+        n = r.get("launches")
+        if str(device) == "cuda" and (not n or n != r.get("expected_launches")):
+            raise SystemExit(f"phase 18: the {name} launched K1 {n} times for "
+                             f"{r.get('expected_launches')} expected from its "
+                             "device calls")
+        launches[name.replace(" ", "_")] = n
+        w, line = queue_kept(f"phase 18 {name}", r.get("kept_file"), device)
+        worst = max(worst, w)
+        lines.append(line)
+    rec, cfg = a["recovery"], a["config"]
+    print(f"phase 18 (a): scripts.chaos at {cfg['engine']['n_slots']:,} lanes "
+          f"(cap {cfg['engine']['cap']} with auto_grow, K "
+          f"{cfg['engine']['max_fills']}, max_t {cfg['engine']['max_t']}, "
+          f"int64), seed {cfg['seed']}: {cfg['frames']} frames, "
+          f"{cfg['orders']:,} orders; {len(a['cycles'])} kills ("
+          + ", ".join(f"{c['plan']['faults'][0]['point']}/"
+                      f"{c['plan']['faults'][0]['mode']} rc {c['exit_code']}"
+                      for c in a["cycles"])
+          + f"); every check true: book digest "
+          f"{a['final']['book_digest'][:16]} equal to the oracle's, "
+          f"{a['matchfeed']['events']:,} match-stream lines equal, seq audit "
+          f"{a['matchfeed']['seq_audit']}; K1 launches oracle "
+          f"{launches['chaos_oracle']}, final {launches['chaos_final']}")
+    print(f"phase 18 (a) [{card}]: recovery p50 {rec['p50_s']:.4f} s, p99 "
+          f"{rec['p99_s']:.4f} s over {len(rec['samples_s'])} samples "
+          f"({', '.join(f'{s:.4f}' for s in rec['samples_s'])}); WAL replay "
+          f"{rec['wal_replay_frames_total']} frames, "
+          f"{rec['wal_replay_frames_per_s']} frames/s; worker boots "
+          f"{', '.join(f'{s:.2f}' for s in rec['boot_s'] if s is not None)} s"
+          f"; oracle {a['oracle']['wall_s']:.1f} s, final "
+          f"{a['final']['wall_s']:.1f} s; the drill {a['seconds']:.1f} s")
+    rb, tb, cfg = b["recovery"], b["throughput"], b["config"]
+    print(f"phase 18 (b): scripts.fleet_chaos at {cfg['engine']['n_slots']:,}"
+          f" lanes, {cfg['partitions']} partitions, seed {cfg['seed']}, "
+          f"{cfg['n_steps']} sim steps a round (base "
+          f"{cfg['base_orders_per_partition']} orders a partition), chunks "
+          f"of {cfg['drive_chunk']}: cycles "
+          + ", ".join(f"{c['class']} p{c['partition']}" for c in b["cycles"])
+          + "; every check true: digests and match streams equal to each "
+          "partition's oracle ("
+          + ", ".join(f"{p['events']:,} events" for p in b["partitions"])
+          + f"), failovers {b['router']['failovers']}; drivers "
+          + json.dumps(b["drivers"]))
+    print(f"phase 18 (b) [{card}]: recovery p50 {rb['p50_s']:.3f} s, p99 "
+          f"{rb['p99_s']:.3f} s ({rb['samples_s']}); degraded windows "
+          + ", ".join(f"cycle {k} {w['orders_per_s']:,} orders/s over "
+                      f"{w['window_s']} s" for k, w in
+                      tb["degraded_windows"].items())
+          + " (floor 100); the consumer standby: "
+          + json.dumps([c.get("recovery_parts") for c in b["cycles"]
+                        if c.get("recovery_parts")])
+          + f"; timing {b['timing']}; the drill {b['seconds']:.1f} s")
+    for line in lines:
+        print(line)
+    print(f"phase 18: K5 launches in the sim recordings {k5} (one a step; "
+          "phase 10 holds K5 at their 1,024-bin grids)")
+    print(f"phase 18 [{card}]: the drills' process ran {drills['total_s']:.1f}"
+          " s to its collection"
+          + (f", which waited {waited:.1f} s" if waited is not None else "")
+          + "".join(f"; ({t}) {v['seconds']:.1f} s" + (
+              f", {beside(v['span'], clock)}" if clock else "")
+              for t, v in (("a", a), ("b", b))))
+    return dict(launches=launches, worst=worst, k5_launches=k5)
+
+
+def phase18_alone() -> int:
+    """`--phase18`: phase 18 alone on the card (the drills in this
+    process's children). Exits 1 without a card."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --phase18: no CUDA card", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    card = card_line()
+    print(card)
+    load_kernel(card)
+    with tempfile.TemporaryDirectory(prefix="phase18-") as work:
+        drills = chaos_drills(work)
+        drills["total_s"] = time.perf_counter() - t0
+        phase18(card, torch.device("cuda"), drills, None)
+    print(f"chip_smoke --phase18 [{card}]: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 #: The drill worker gives up waiting for its go file after this long.
 DRILL_WAIT_S = 1100.0
 
@@ -7538,6 +7830,14 @@ def main() -> int:
         return phase15_alone()
     if sys.argv[1:2] == ["--phase17"]:
         return phase17_alone()
+    if sys.argv[1:2] == ["--phase18"]:
+        return phase18_alone()
+    if sys.argv[1:2] == ["--chaos-worker"]:
+        return chaos_worker(sys.argv[1:])
+    if sys.argv[1:2] == ["--fleet-chaos-worker"]:
+        return fleet_chaos_worker(sys.argv[1:])
+    if sys.argv[1:2] == ["--chaos-drills"]:
+        return chaos_drills_worker(sys.argv[1:])
     if sys.argv[1:2] in (["--soak"], ["--fuzz"]):
         return drill_alone(sys.argv[1:])
     if sys.argv[1:2] == ["--drill-worker"]:
@@ -7548,7 +7848,7 @@ def main() -> int:
         return prefix_warm_ab()
     if sys.argv[1:2] == ["--k5-times"]:
         return k5_times(sys.argv[1:])
-    t_start = time.perf_counter()
+    t_start, t_wall = time.perf_counter(), time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
               "a CUDA card", file=sys.stderr)
@@ -7660,24 +7960,48 @@ def main() -> int:
         print(line)
     print_phase8(card, sizes, s_runs, runs)
     drills = DrillWorker()
+    p18_drills = ChaosDrills()
+    # Each phase's start on the wall clock: phase 18 says which phases
+    # its drills ran beside.
+    clock = dict(t0=t_wall, phases=[])
+
+    def mark(label):
+        clock["phases"].append((label, time.time()))
+
     try:
+        mark("9")
         p9 = phase9(card, device, sizes, zipf, want_zipf,
                     s_runs["c"]["secs"])
+        mark("10")
         p10 = phase10(card, device, sizes)
+        mark("11")
         p11 = phase11(card, device, sizes, zipf, want_zipf, timing,
                       f_orders_per_s, flow8, s_runs["c"])
+        mark("12")
         p12 = phase12(card, device, sizes, zipf, flow8, s_runs["c"])
+        mark("13")
         p13 = phase13(card, sizes, zipf, flow8, s_runs["c"])
+        mark("14")
         p14 = phase14(card, device, sizes, zipf, want_zipf, flow8,
                       s_runs["c"])
+        mark("15")
         p15 = phase15(card, device, sizes, want_zipf, p11)
+        mark("the wait for the drills")
+        # Phase 18's drills end before phase 16: the soak's timed loop and
+        # phase 17's sampled drills run with nothing of this run beside
+        # them.
+        drills18 = p18_drills.result()
+        mark("16")
         p16 = phase16(card, device,
                       {"phase 13 (a) armed": p13["journal"],
                        "phase 14 (a) cost": p14["a"]["journal"]}, drills)
+        mark(None)
         p17 = phase17(card, device)
-        q_worst, _ = check_queued_inputs("phases 5-17")
+        p18 = phase18(card, device, *drills18, clock=clock)
+        q_worst, _ = check_queued_inputs("phases 5-18")
     finally:
         drills.stop()
+        p18_drills.stop()
     h_launches = ab_runs[0][2]["launches"]
     row = dict(name="match_step", **KERNEL_ROWS["match_step"],
                launches=launches, frame_path_launches=f_launches,
@@ -7704,12 +8028,13 @@ def main() -> int:
                process_mesh_path_launches=p15["launches"],
                fuzz_soak_path_launches=p16["launches"],
                operator_artifacts_path_launches=p17["launches"],
+               chaos_drill_path_launches=p18["launches"],
                max_abs_err=max(worst, f_worst, c_worst, s_worst,
                                p9["drill"]["final"]["kernel_worst"],
                                p9["svc"]["worst"], p10["worst"],
                                p11["worst"], p12["worst"], p13["worst"],
                                p14["worst"], p15["worst"], p16["worst"],
-                               p17["worst"], q_worst),
+                               p17["worst"], p18["worst"], q_worst),
                ms=results["a"]["ms"],
                device_ms=results["a"]["device_ms"], plain_ms=results["a"]["plain_ms"],
                bound_ms=results["a"]["bound_ms"],
@@ -7719,8 +8044,9 @@ def main() -> int:
     scan_row = dict(name="hawkes_scan", **KERNEL_ROWS["hawkes_scan"],
                     library_ms=None, checked=True,
                     T=sizes["sim_scan_t"][0],
+                    chaos_drill_path_launches=p18["k5_launches"],
                     **p10["hawkes_row"])
-    print(f"chip_smoke [{card}]: phases 1-17 in "
+    print(f"chip_smoke [{card}]: phases 1-18 in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [row, scan_row]}))
     print(json.dumps({"ok": True, "device": {

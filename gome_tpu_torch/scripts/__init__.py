@@ -12,6 +12,12 @@ reference's file of the same name under ``scripts/`` and runs as
   profile_consumer  the consumer drain profile, and --gateway admit drills
                     -> HOSTPROF_CUDA_r01.json / HOSTPROF_CUDA_r02.json
   obs_snapshot      the operator bundle of every obs/ surface
+  chaos             seeded kill/restart cycles of one consumer with a
+                    verdict -> CHAOS_CUDA_r01.json
+  fleet_chaos       kill/restart cycles on a live 2 x 2 fleet with a
+                    verdict -> FLEET_CHAOS_CUDA_r01.json
+  prepool_rate      the in-process pre-pool's admission rate (host only)
+  marker_bench      the RESP marker server's admission rate (host only)
 
 ``common`` holds what the drivers and ``chip_smoke.py`` share.
 """

@@ -840,11 +840,11 @@ def run_fleet_sweep(args) -> dict:
     import tempfile
 
     work = tempfile.mkdtemp(prefix="capacity-", dir=args.workdir or None)
-    procs, errs = {}, {}
+    procs = {}
     try:
         resp_port = fd.start_respserver(procs)
         ports = fd.fleet_members(work, resp_port, args.symbols, args.device,
-                                 procs, errs, dtype=args.dtype,
+                                 procs, dtype=args.dtype,
                                  trace_keep=FLEET_TRACE_KEEP)
         ctx = {
             "symbols": args.symbols,
@@ -890,7 +890,7 @@ def run_fleet_sweep(args) -> dict:
                   f"err {point['attribution']['frac_err']:.4f}", flush=True)
             time.sleep(0.5)  # settle between points
     finally:
-        results = fd.stop_members(procs, work, errs)
+        results = fd.stop_members(procs, work)
         shutil.rmtree(work, ignore_errors=True)
     config = {
         "partitions": fd.N_PARTITIONS,

@@ -49,7 +49,7 @@ import threading
 import time
 
 from .common import (REPO, expected_launches, host_line, provenance,
-                     require_device, tail_of, wire_request, write_json)
+                     require_device, wire_request, write_json)
 
 SCHEMA = "gome-fleet-verdict-v1"
 N_PARTITIONS = 2
@@ -231,85 +231,131 @@ def default_launcher(role: str) -> list:
             "--worker", role]
 
 
+class Worker:
+    """One child process with the READY/stdin-stop protocol (the
+    reference's fleet_drill.Worker), the one launcher of every drill's
+    members: `ready` holds the READY line's tokens and `ports` its
+    key=value integers. With `err`, the child's stderr goes to that
+    file."""
+
+    def __init__(self, name: str, cmd: list[str], err: str | None = None):
+        self.name = name
+        self.err = err
+        with (open(err, "w") if err else contextlib.nullcontext()) as fh:
+            self.proc = subprocess.Popen(
+                cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=fh, text=True, cwd=REPO)
+        self.ready: list[str] = []
+        self.ports: dict[str, int] = {}
+        self._stopping = False
+
+    def await_ready(self, timeout_s: float = 120.0) -> "Worker":
+        deadline = time.monotonic() + timeout_s
+        line = ""
+        while time.monotonic() < deadline:
+            line = self.proc.stdout.readline()
+            if not line:
+                with contextlib.suppress(subprocess.TimeoutExpired):
+                    self.proc.wait(30)
+                raise RuntimeError(
+                    f"{self.name} exited before READY "
+                    f"(rc={self.proc.poll()}): {self.stderr_tail()}")
+            if line.startswith("READY"):
+                self.ready = line.split()
+                for tok in self.ready[1:]:
+                    key, eq, val = tok.partition("=")
+                    if eq:
+                        self.ports[key] = int(val)
+                return self
+        raise RuntimeError(f"{self.name} never became READY: {line!r}")
+
+    def stderr_tail(self) -> str:
+        if not self.err:
+            return ""
+        try:
+            with open(self.err) as f:
+                return f.read()[-2000:]
+        except OSError:
+            return ""
+
+    def request_stop(self) -> None:
+        """Send the stop line (once); stop() then waits."""
+        if self._stopping or self.proc.poll() is not None:
+            return
+        self._stopping = True
+        try:
+            self.proc.stdin.write("STOP\n")
+            self.proc.stdin.flush()
+        except OSError:
+            pass
+
+    def stop(self, timeout_s: float = 60.0) -> int:
+        self.request_stop()
+        try:
+            return self.proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            return self.proc.wait(timeout=10)
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=10)
+
+
 def start_respserver(procs: dict) -> int:
-    """The port's RESP marker server as a child; returns its port."""
-    srv = subprocess.Popen(
-        [sys.executable, "-m", "gome_tpu_torch.persist.respserver",
-         "--port", "0"], stdout=subprocess.PIPE, text=True, cwd=REPO)
-    procs["respserver"] = srv
-    ready = srv.stdout.readline().split()
-    if not ready or ready[0] != "READY":
-        raise RuntimeError(f"marker server said {ready}")
-    return int(ready[1])
+    """The port's RESP marker server as a child (procs["respserver"]);
+    returns its port."""
+    srv = procs["respserver"] = Worker(
+        "respserver", [sys.executable, "-m",
+                       "gome_tpu_torch.persist.respserver", "--port", "0"])
+    return int(srv.await_ready(30).ready[1])
 
 
-def fleet_members(work, resp_port, symbols, device, procs, errs,
+def fleet_members(work, resp_port, symbols, device, procs,
                   launcher=default_launcher, dtype: str = "int64",
                   trace_keep: int = TRACE_KEEP) -> dict:
-    """Start each partition's consumer and gateway process; returns
-    {name: (ops port, grpc port)} once every member said READY. Each
-    partition's file bus is work/p{i}."""
+    """Start each partition's consumer and gateway process (Workers in
+    procs); returns {name: (ops port, grpc port)} once every member said
+    READY. Each partition's file bus is work/p{i}."""
     started = {}
     for p in range(N_PARTITIONS):
         bus_dir = os.path.join(work, f"p{p}")
         os.makedirs(bus_dir, exist_ok=True)
         for role, name in (("consumer", f"c{p}"), ("gateway", f"gw{p}")):
-            errs[name] = open(os.path.join(work, f"{name}.err"), "w+")
-            proc = subprocess.Popen(
-                [*launcher(role),
-                 "--out", os.path.join(work, f"{name}.json"),
-                 "--bus-dir", bus_dir, "--resp-port", str(resp_port),
-                 "--symbols", str(symbols), "--partition", str(p),
-                 "--device", device, "--dtype", dtype,
-                 "--trace-keep", str(trace_keep)],
-                stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-                stderr=errs[name], text=True, cwd=REPO)
-            procs[name] = proc
-            started[name] = proc
-    ports = {}
-    for name, proc in started.items():
-        line = proc.stdout.readline().split()
-        if not line or line[0] != "READY":
-            proc.wait(30)
-            raise RuntimeError(f"{name} said {line}: {tail_of(errs[name])}")
-        kv = dict(tok.split("=") for tok in line[1:])
-        ports[name] = (int(kv["ops"]), int(kv["grpc"]))
-    return ports
+            procs[name] = started[name] = Worker(
+                name, [*launcher(role),
+                       "--out", os.path.join(work, f"{name}.json"),
+                       "--bus-dir", bus_dir, "--resp-port", str(resp_port),
+                       "--symbols", str(symbols), "--partition", str(p),
+                       "--device", device, "--dtype", dtype,
+                       "--trace-keep", str(trace_keep)],
+                err=os.path.join(work, f"{name}.err"))
+    for w in started.values():
+        w.await_ready()
+    return {name: (w.ports["ops"], w.ports["grpc"])
+            for name, w in started.items()}
 
 
-def stop_members(procs: dict, work: str, errs: dict) -> dict:
+def stop_members(procs: dict, work: str) -> dict:
     """Send every member its stop line, wait for it, kill the marker
     server; returns {name: result} with each member's exit code."""
-    for name, proc in procs.items():
-        if name != "respserver" and proc.poll() is None:
-            try:
-                proc.stdin.write("stop\n")
-                proc.stdin.flush()
-            except OSError:
-                pass
+    members = {n: w for n, w in procs.items() if n != "respserver"}
+    for w in members.values():
+        w.request_stop()
     results = {}
-    for name, proc in procs.items():
-        if name == "respserver":
-            continue
-        try:
-            proc.wait(120)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(10)
+    for name, w in members.items():
+        rc = w.stop(120)
         try:
             with open(os.path.join(work, f"{name}.json")) as f:
                 results[name] = json.load(f)
         except (OSError, ValueError):
             results[name] = {}
-        results[name]["exit_code"] = proc.returncode
-        if proc.returncode != 0 and name in errs:
-            results[name]["stderr"] = tail_of(errs[name])
-    srv = procs.get("respserver")
-    if srv is not None:
-        srv.kill()
-        srv.wait(10)
-    for f in errs.values():
-        f.close()
+        results[name]["exit_code"] = rc
+        if rc != 0:
+            results[name]["stderr"] = w.stderr_tail()
+    if "respserver" in procs:
+        procs["respserver"].kill()
     return results
 
 
@@ -343,11 +389,71 @@ def await_drained(ops_url: str, n_orders: int, timeout_s: float,
     while time.monotonic() < deadline:
         if drained(ops_url, n_orders):
             return True
-        for name, proc in (procs or {}).items():
-            if proc.poll() is not None:
-                raise RuntimeError(f"{name} exited {proc.returncode}")
+        for name, w in (procs or {}).items():
+            if w.proc.poll() is not None:
+                raise RuntimeError(f"{name} exited {w.proc.returncode}")
         time.sleep(0.05)
     return False
+
+
+#: The reference's sim flow for the chaos drills (dense enough that no
+#: step is empty and most frames publish match events), at n_lanes lanes
+#: and t_bins bins a step.
+SIM_FLOW = dict(t_bins=8, dt=0.07, submit_rate=3.0, cancel_rate=1.5,
+                market_rate=1.0)
+#: The card's drills: bins a step at 10,240 lanes, bench.py's _SimFlow
+#: geometry (10,240 x 1,024). The flow holds at most one event a bin,
+#: its lane drawn Zipf(1.1), so the orders a step follow the bins, not
+#: the lanes: ~3.4 a step at 8 bins, whatever the lane count.
+CARD_BINS = 1024
+
+
+def record_sim_frames(seed: int, n_steps: int, lanes: int = 16,
+                      device: str | None = None,
+                      bins: int = SIM_FLOW["t_bins"]) -> list[bytes]:
+    """The sim flow's GCO ORDER frames (sim.replay.record_frames), one
+    per non-empty step of `bins` bins, recorded on `device` (the CUDA
+    card by default; a CUDA generator's draws are not a CPU one's)."""
+    from ..sim.env import EnvConfig
+    from ..sim.flow import FlowConfig
+    from ..sim.replay import record_frames
+
+    cfg = EnvConfig(flow=FlowConfig(n_lanes=lanes,
+                                    **dict(SIM_FLOW, t_bins=bins)))
+    return record_frames(cfg, seed, n_steps, device=device)
+
+
+def requests_from_frames(frames: list[bytes]) -> list[list]:
+    """Decode recorded GCO frames into per-partition gRPC request
+    streams: [(global_idx, is_cancel, OrderRequest), ...] per partition,
+    global arrival order preserved inside each partition (a symbol maps
+    to one partition, so ADD-before-DEL holds). Prices and volumes go on
+    the wire as the frame's ticks, for a gateway at accuracy 0."""
+    from ..api import order_pb2 as pb
+    from ..bus.colwire import decode_order_frame
+
+    parts: list[list] = [[] for _ in range(N_PARTITIONS)]
+    gi = 0
+    for fr in frames:
+        cols = decode_order_frame(fr)
+        symbols, uuids = cols["symbols"], cols["uuids"]
+        for i in range(cols["n"]):
+            action = int(cols["action"][i])
+            if action == 0:  # NOP padding never reaches the wire
+                continue
+            symbol = symbols[int(cols["symbol_idx"][i])]
+            req = pb.OrderRequest(
+                uuid=uuids[int(cols["uuid_idx"][i])],
+                oid=cols["oids"][i].decode(),
+                symbol=symbol,
+                transaction=int(cols["side"][i]),
+                price=float(int(cols["price"][i])),
+                volume=float(int(cols["volume"][i])),
+                kind=int(cols["kind"][i]),
+            )
+            parts[partition_of(symbol)].append((gi, action == 2, req))
+            gi += 1
+    return parts
 
 
 def requests_by_partition(orders) -> list[list]:
@@ -476,7 +582,7 @@ def _run_fleet(args, work: str) -> dict:
     parts = requests_by_partition(orders)
     n_orders = len(orders)
     sym_counts = [len({r.symbol for _, _, r in p}) for p in parts]
-    procs, errs = {}, {}
+    procs = {}
     print(f"fleet: {n_orders} orders -> partitions {[len(p) for p in parts]}"
           f" (symbols {sym_counts}) in {work}", flush=True)
     results = {}
@@ -484,7 +590,7 @@ def _run_fleet(args, work: str) -> dict:
     try:
         resp_port = start_respserver(procs)
         ports = fleet_members(work, resp_port, args.symbols, args.device,
-                              procs, errs, dtype=args.dtype,
+                              procs, dtype=args.dtype,
                               trace_keep=max(TRACE_KEEP, 2 * n_orders))
         boot_s = time.perf_counter() - t_boot
         members = {name: f"http://127.0.0.1:{ops}"
@@ -556,7 +662,7 @@ def _run_fleet(args, work: str) -> dict:
         rollup = FLEET.rollup()
     finally:
         FLEET.disable()
-        results = stop_members(procs, work, errs)
+        results = stop_members(procs, work)
 
     audits, oracle_ok = [], []
     for i in range(N_PARTITIONS):

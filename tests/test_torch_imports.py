@@ -76,7 +76,8 @@ def test_port_files_were_found():
         assert f"gome_tpu_torch/fleet/{name}.py" in PORT_FILES
     for name in ("__init__", "common", "placement_eval", "mesh_overhead",
                  "fleet_drill", "capacity", "profile_consumer",
-                 "obs_snapshot"):
+                 "obs_snapshot", "chaos", "fleet_chaos", "prepool_rate",
+                 "marker_bench"):
         assert f"gome_tpu_torch/scripts/{name}.py" in PORT_FILES
     assert len(PORT_FILES) > 10
 
@@ -133,7 +134,10 @@ def test_importing_the_port_loads_neither():
         "gome_tpu_torch.scripts.fleet_drill, gome_tpu_torch.scripts.obs_snapshot, "
         "gome_tpu_torch.scripts.mesh_overhead, "
         "gome_tpu_torch.scripts.placement_eval, "
-        "gome_tpu_torch.scripts.profile_consumer\n"
+        "gome_tpu_torch.scripts.profile_consumer, "
+        "gome_tpu_torch.scripts.chaos, gome_tpu_torch.scripts.fleet_chaos, "
+        "gome_tpu_torch.scripts.prepool_rate, "
+        "gome_tpu_torch.scripts.marker_bench\n"
         "bad = [m for m in sys.modules if m in ('jax', 'gome_tpu', 'bench', "
         "'scripts') or m.startswith(('jax.', 'gome_tpu.', 'scripts.'))]\n"
         "print(bad)\n"
