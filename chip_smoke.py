@@ -328,7 +328,27 @@ Phases, in order; any mismatch or fault ends the run with a non-zero exit:
      recovery p99 <= 150 s, the degraded windows >= 100 orders/s). The
      oracles, the final runs and the fleet's final consumers launch K1
      once per device call and save their deepest and widest grids, which
-     join the grouped check against the plain version.
+     join the grouped check against the plain version;
+ 19. the GL2xx dtype envelope and the examples: (a) the envelope audit
+     (gome_tpu_torch.analysis.envelope: the cost model's five entries on
+     live grids and the simulator's gen_ops, every aten op recorded, K1
+     and K5 at their boundary) on the card at int32 and int64: no finding
+     beyond the committed baseline, the findings (rule, path, line) and
+     every entry's op set (op, line, dtypes; how a Python scalar becomes
+     a tensor left out) equal to the same audit's on the CPU in this
+     process, K1 launched 3 and K5 once per dtype, each kept input equal
+     to the plain version's output;
+     (b) the three examples (gome_tpu_torch/examples), each in a fresh
+     interpreter (`python3 chip_smoke.py --example-worker NAME ...` on the
+     card, K1's and K5's launches counted and their inputs kept):
+     embed and migrate_from_gome beside (a), their lines equal to the same
+     example's with --device cpu (the RESP port left out), K1 launched
+     once per device call; then sim_rollout at the reference's settings
+     (64 lanes x 200 steps, seed 0) and at 10,240 lanes x 200 steps, one
+     after the other: K1 once a step, K5 once a step and once per sampled
+     grid, no overflow, the kept inputs equal to the plain versions'; the
+     10,240-lane report written to SIM_CUDA_r01.json with the card's name
+     and power limit.
 
 The last two lines are the kernel table (JSON) and
 {"ok": true, "device": {...}}.
@@ -353,6 +373,10 @@ runs phase 17 alone.
     python3 chip_smoke.py --phase18
 
 runs phase 18's drills alone (about five minutes on one card).
+
+    python3 chip_smoke.py --phase19
+
+runs phase 19 alone (and writes SIM_CUDA_r01.json).
 
     python3 chip_smoke.py --soak SECONDS
     python3 chip_smoke.py --fuzz N [SEED0]
@@ -385,6 +409,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -396,12 +421,13 @@ import numpy as np
 import torch
 
 from gome_tpu_torch.scripts.common import (MIXED_UUIDS, MixedFlow,
-                                           card_line, encode_frame,
+                                           card_line, commit, encode_frame,
                                            expected_launches, gateway_step,
                                            host_line, svc_warmup, tail_of,
                                            wire_request)
 from gome_tpu_torch.scripts.chaos import book_digest
 from gome_tpu_torch.scripts.fleet_drill import CARD_BINS, fleet_members
+from gome_tpu_torch.examples.sim_rollout import SAMPLE_GRIDS
 
 KERNEL_ROWS = dict(
     match_step=dict(
@@ -7524,6 +7550,328 @@ def phase18_alone() -> int:
     return 0
 
 
+# -- phase 19: the GL2xx envelope audit and the examples -----------------------
+
+#: (b): sim_rollout at the reference's settings (SIM_r01.json: 64 lanes x
+#: 200 steps, seed 0) and at the main path's width, in this order.
+P19_SIM = ((64, 200), (10_240, 200))
+#: (b): the 10,240-lane report, with the card, beside this script.
+P19_ARTIFACT = "SIM_CUDA_r01.json"
+#: (b): an example worker keeps K1's and K5's inputs of every Nth call.
+P19_KEEP_EVERY = 100
+#: (b): each example process is given this long.
+P19_WAIT_S = 300.0
+#: (a): how a Python scalar operand becomes a tensor differs by device
+#: (the CPU lifts a static scalar tensor, aten::lift_fresh; CUDA
+#: dispatches aten::scalar_tensor): left out when op sets are compared.
+P19_SCALAR_LIFTS = frozenset(("aten::lift_fresh", "aten::scalar_tensor"))
+
+
+def audit_op_set(records) -> set:
+    """An entry's envelope records as a set (op, path, line, where,
+    dtypes), the device's way of lifting Python scalars left out."""
+    return {(r.op, r.path, r.line, r.where, r.dtypes) for r in records
+            if r.op not in P19_SCALAR_LIFTS}
+
+
+def example_worker(argv) -> int:
+    """`--example-worker NAME RESULT [ARGS...]`: the example
+    gome_tpu_torch.examples.NAME with ARGS (on the card unless ARGS say
+    --device cpu; its stdout passes through), K1's and K5's launches
+    counted from 0 and their inputs kept (every P19_KEEP_EVERY-th call,
+    the last, each launch shape's deepest and widest); then each kept
+    input held against its plain version. Writes the launches, the K1
+    launches its engines' device calls account for, the worst errors and
+    the check lines to RESULT (JSON)."""
+    import importlib
+    import types
+
+    from gome_tpu_torch.engine.batch import BatchEngine
+
+    name, result, args = argv[1], argv[2], list(argv[3:])
+    example = importlib.import_module(f"gome_tpu_torch.examples.{name}")
+    engines, init = [], BatchEngine.__init__
+
+    def tracked(self, *a, **kw):
+        init(self, *a, **kw)
+        engines.append(self)
+
+    k1, k5 = launch_counts()
+    k1.launches = k5.launches = 0
+    BatchEngine.__init__ = tracked
+    t0 = time.perf_counter()
+    try:
+        with keep_kernel_inputs(P19_KEEP_EVERY) as kept:
+            rc = example.main(args)
+    finally:
+        BatchEngine.__init__ = init
+    secs = time.perf_counter() - t0
+    launches = dict(k1=k1.launches, k5=k5.launches)
+    sys.stdout.flush()
+    shown = [a for i, a in enumerate(args) if a not in ("--out", "--device")
+             and (i == 0 or args[i - 1] not in ("--out", "--device"))]
+    label = " ".join(["phase 19 (b)", name, *shown])
+    worst, k1_line = check_kept_inputs(label, kept)
+    scan_worst, k5_line = (check_kept_scans(label, kept)
+                           if kept["hawkes_scan"] else (0.0, None))
+    _write_json(result, dict(
+        seconds=secs, launches=launches, worst=worst,
+        scan_worst=scan_worst, lines=[k1_line, k5_line],
+        engine_k1=sum(expected_launches(types.SimpleNamespace(
+            stats=e.stats, batch=e)) for e in engines)))
+    return rc
+
+
+class ExampleRun:
+    """One example in a fresh interpreter, its stdout and stderr in files
+    under `work`: through example_worker (`worker`), or as a user runs it
+    (`python -m gome_tpu_torch.examples.NAME --device DEVICE`)."""
+
+    def __init__(self, work: str, name: str, device: str, worker: bool,
+                 *args):
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.tag = (f"{name}@{device}{'' if worker else ' by hand'}"
+                    + "".join(f" {a}" for a in args))
+        stem = os.path.join(work, re.sub(r"[^\w@.-]", "_", self.tag))
+        self.result = stem + ".json"
+        args = (*args, "--device", device)
+        cmd = ([sys.executable, os.path.abspath(__file__), "--example-worker",
+                name, self.result, *args] if worker else
+               [sys.executable, "-m", f"gome_tpu_torch.examples.{name}",
+                *args])
+        self.out = open(stem + ".out", "w+")
+        self.err = open(stem + ".err", "w+")
+        self.proc = subprocess.Popen(cmd, stdout=self.out, stderr=self.err,
+                                     cwd=here)
+
+    def wait(self) -> tuple[list[str], dict | None]:
+        """The example's stdout lines and, on the card, the worker's
+        result; SystemExit unless it exits 0 within P19_WAIT_S."""
+        try:
+            rc = self.proc.wait(timeout=P19_WAIT_S)
+        except subprocess.TimeoutExpired:
+            raise SystemExit(f"phase 19 (b): {self.tag} did not end within "
+                             f"{P19_WAIT_S:g} s: {tail_of(self.err)}")
+        if rc != 0:
+            raise SystemExit(f"phase 19 (b): {self.tag} exited {rc}: "
+                             f"{tail_of(self.err)}")
+        self.out.seek(0)
+        lines = self.out.read().splitlines()
+        if not os.path.exists(self.result):
+            return lines, None
+        with open(self.result) as fh:
+            return lines, json.load(fh)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
+        self.err.close()
+
+
+def phase19a(card: str, device) -> dict:
+    """Phase 19 (a): the GL2xx envelope audit (analysis.envelope) on the
+    card at int32 and int64, K1's and K5's inputs kept: no finding beyond
+    the committed baseline, the findings (rule, path, line) and each
+    entry's op set (audit_op_set) equal to the same audit's on the CPU,
+    K1 launched once per grid entry and K5 once per gen_ops, every kept
+    input equal to the plain version's output."""
+    from gome_tpu_torch.analysis import envelope
+    from gome_tpu_torch.analysis.baseline import (DEFAULT_BASELINE,
+                                                  fingerprint_findings,
+                                                  load_baseline, partition)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = load_baseline(os.path.join(here, DEFAULT_BASELINE))
+    k1, k5 = launch_counts()
+    k1.launches = k5.launches = 0
+    found, secs = {}, {}
+    with keep_kernel_inputs(1) as kept:
+        for dtype in ("int32", "int64"):
+            t0 = time.perf_counter()
+            found[dtype, "cuda"] = envelope.check_engine_envelope(
+                dtype, device)
+            secs[dtype, "cuda"] = time.perf_counter() - t0
+    launches = (k1.launches, k5.launches)
+    for dtype in ("int32", "int64"):
+        t0 = time.perf_counter()
+        found[dtype, "cpu"] = envelope.check_engine_envelope(dtype, "cpu")
+        secs[dtype, "cpu"] = time.perf_counter() - t0
+    ops = {}
+    for dtype in ("int32", "int64"):
+        got = {f"{d}": {(f.rule, f.path, f.line) for f in found[dtype, d]}
+               for d in ("cuda", "cpu")}
+        if got["cuda"] != got["cpu"]:
+            raise SystemExit(f"phase 19 (a): {dtype} findings on the card "
+                             f"{sorted(got['cuda'])} differ from the CPU's "
+                             f"{sorted(got['cpu'])}")
+        new, known = partition(fingerprint_findings(found[dtype, "cuda"],
+                                                    root=here), base)
+        if new:
+            raise SystemExit("phase 19 (a): findings beyond the baseline:\n"
+                             + "\n".join(f.format() for f, _ in new))
+        entries = {d: envelope.traced_entries(dtype, device if d == "cuda"
+                                              else d)
+                   for d in ("cuda", "cpu")}
+        for rec, cpu in zip(entries["cuda"], entries["cpu"]):
+            a, b = audit_op_set(rec["records"]), audit_op_set(cpu["records"])
+            if a != b:
+                raise SystemExit(
+                    f"phase 19 (a): {dtype} {rec['entry']}'s op set on the "
+                    f"card differs from the CPU's: card only {sorted(a - b)}"
+                    f", CPU only {sorted(b - a)}")
+            ops[f"{dtype} {rec['entry']}"] = (len(rec["records"]),
+                                              len(cpu["records"]), len(a))
+    # per dtype: the three K1 entries, one gen_ops (no launch on the CPU)
+    want = (2 * 3, 2 * 1) if str(device) == "cuda" else (0, 0)
+    if launches != want:
+        raise SystemExit(f"phase 19 (a): K1 / K5 launches {launches} in the "
+                         f"audit, expected {want}")
+    worst, k1_line = check_kept_inputs("phase 19 (a)", kept)
+    scan_worst, k5_line = check_kept_scans("phase 19 (a)", kept)
+    print(f"phase 19 (a) [{card}]: the GL2xx envelope audit on {device}, "
+          "int32 and int64: "
+          + ", ".join(f"{dtype} {len(found[dtype, 'cuda'])} finding(s) "
+                      f"({secs[dtype, 'cuda']:.2f} s; the CPU's "
+                      f"{secs[dtype, 'cpu']:.2f} s)"
+                      for dtype in ("int32", "int64"))
+          + ", every one baselined and equal to the CPU's (rule, path, "
+          f"line); K1 {launches[0]}, K5 {launches[1]} launches")
+    print("phase 19 (a): op records per entry, card / CPU (their op sets "
+          "equal but for the scalar lifts; distinct ops): "
+          + ", ".join(f"{k} {a}/{b} ({n})" for k, (a, b, n) in ops.items()))
+    print(k1_line)
+    print(k5_line)
+    return dict(launches=launches, worst=worst, scan_worst=scan_worst)
+
+
+def _no_port(line: str) -> str:
+    """migrate_from_gome's line without the RESP server's ephemeral port."""
+    return re.sub(r"\(port \d+\)", "(port P)", line)
+
+
+def phase19b_check(name: str, card_lines, cpu_lines, res, device) -> None:
+    """embed's / migrate_from_gome's card lines equal to its CPU lines
+    (the port left out), K1 launched once per device call, no K5."""
+    keep = _no_port if name == "migrate_from_gome" else (lambda s: s)
+    if [keep(s) for s in card_lines] != [keep(s) for s in cpu_lines]:
+        raise SystemExit(f"phase 19 (b): {name} printed on the card\n"
+                         + "\n".join(card_lines) + "\nand on the CPU\n"
+                         + "\n".join(cpu_lines))
+    k1 = res["launches"]["k1"]
+    want = res["engine_k1"] if str(device) == "cuda" else 0
+    if (want and not k1) or k1 != want or res["launches"]["k5"]:
+        raise SystemExit(f"phase 19 (b): {name} launched K1 {k1} times for "
+                         f"{res['engine_k1']} expected from its engines' "
+                         f"device calls, K5 {res['launches']['k5']} times")
+
+
+def phase19(card: str, device, sims=P19_SIM,
+            artifact: str | None = None) -> dict:
+    """Phase 19: (a) phase19a beside (b)'s first four processes; (b) the
+    three examples (gome_tpu_torch.examples) in fresh interpreters: embed
+    and migrate_from_gome on `device` and on the CPU, their lines equal;
+    sim_rollout on `device` at `sims` ((lanes, steps) each), one after the
+    other with nothing beside them, K1 launched once a step and K5 once a
+    step and once a sampled grid, the kept inputs equal to the plain
+    versions', no overflow; the widest report to `artifact` (default
+    P19_ARTIFACT beside this script) with the card. Returns the launches,
+    the worst errors and the seconds."""
+    t0 = time.perf_counter()
+    dev = str(device)
+    artifact = artifact or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), P19_ARTIFACT)
+    work = tempfile.mkdtemp(prefix="phase19-")
+    runs = []
+    try:
+        pairs = {}
+        for name in ("embed", "migrate_from_gome"):
+            pairs[name] = (ExampleRun(work, name, dev, True),
+                           ExampleRun(work, name, "cpu", False))
+            runs.extend(pairs[name])
+        a = phase19a(card, device)
+        launches = {"envelope_audit": a["launches"]}
+        worst, scan_worst, lines = a["worst"], a["scan_worst"], []
+        for name, (on_card, on_cpu) in pairs.items():
+            card_lines, res = on_card.wait()
+            cpu_lines, _ = on_cpu.wait()
+            phase19b_check(name, card_lines, cpu_lines, res, dev)
+            launches[name] = (res["launches"]["k1"], 0)
+            worst = max(worst, res["worst"])
+            lines.append(res["lines"][0])
+            print(f"phase 19 (b) [{card}]: {name} on {dev}, "
+                  f"{res['seconds']:.2f} s in main(): {len(card_lines)} "
+                  f"lines equal to the CPU's; K1 {res['launches']['k1']} "
+                  "launches, one a device call")
+        mid = time.perf_counter() - t0
+        reports = {}
+        for lanes, steps in sims:
+            out = os.path.join(work, f"sim_{lanes}.json")
+            run = ExampleRun(work, "sim_rollout", dev, True, "--lanes",
+                             str(lanes), "--steps", str(steps), "--seed", "0",
+                             "--out", out)
+            runs.append(run)
+            sim_lines, res = run.wait()
+            with open(out) as fh:
+                rep = json.load(fh)
+            if json.loads(sim_lines[-1]) != rep:
+                raise SystemExit("phase 19 (b): sim_rollout's line and its "
+                                 "--out file differ")
+            want = ((2 * steps, 2 * steps + SAMPLE_GRIDS)
+                    if dev == "cuda" else (0, 0))
+            got = (res["launches"]["k1"], res["launches"]["k5"])
+            m = rep["manifest"]
+            if got != want or m["seed"] != 0 or m["n_steps"] != steps or \
+                    m["config"]["flow"]["n_lanes"] != lanes or \
+                    rep["book_overflow"] or rep["fill_overflow"] or \
+                    not rep["events_per_step"] > 0 or \
+                    not math.isfinite(rep["steps_per_sec"]):
+                raise SystemExit(f"phase 19 (b): sim_rollout at {lanes} "
+                                 f"lanes: K1 / K5 launches {got} for {want}"
+                                 f", report {json.dumps(rep)}")
+            launches[f"sim_rollout_{lanes}"] = got
+            worst = max(worst, res["worst"])
+            scan_worst = max(scan_worst, res["scan_worst"])
+            lines.extend(x for x in res["lines"] if x)
+            reports[lanes] = rep
+            print(f"phase 19 (b) [{card}]: sim_rollout {lanes:,} lanes x "
+                  f"{steps} steps: {rep['steps_per_sec']} steps/s, "
+                  f"{rep['orders_per_sec']:,} orders/s, "
+                  f"{rep['events_per_step']} events and "
+                  f"{rep['trades_per_step']} trades a step, overflow 0; "
+                  f"stats {json.dumps(rep['stats'])}; K1 {got[0]}, K5 "
+                  f"{got[1]} launches ({res['seconds']:.2f} s in main())")
+        top = max(reports)
+        _write_json(artifact, dict(reports[top], card=card, commit=commit()))
+        for line in lines:
+            print(line)
+    finally:
+        for run in runs:
+            run.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    print(f"phase 19 [{card}]: {os.path.basename(artifact)} written "
+          f"({top:,} lanes); "
+          f"(a) and embed / migrate_from_gome {mid:.1f} s, the sims "
+          f"{secs - mid:.1f} s; in all {secs:.1f} s")
+    return dict(launches=launches, worst=worst, scan_worst=scan_worst)
+
+
+def phase19_alone() -> int:
+    """`--phase19`: phase 19 alone on the card. Exits 1 without a card."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --phase19: no CUDA card", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    card = card_line()
+    print(card)
+    load_kernel(card)
+    phase19(card, torch.device("cuda"))
+    print(f"chip_smoke --phase19 [{card}]: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 #: The drill worker gives up waiting for its go file after this long.
 DRILL_WAIT_S = 1100.0
 
@@ -7832,6 +8180,10 @@ def main() -> int:
         return phase17_alone()
     if sys.argv[1:2] == ["--phase18"]:
         return phase18_alone()
+    if sys.argv[1:2] == ["--phase19"]:
+        return phase19_alone()
+    if sys.argv[1:2] == ["--example-worker"]:
+        return example_worker(sys.argv[1:])
     if sys.argv[1:2] == ["--chaos-worker"]:
         return chaos_worker(sys.argv[1:])
     if sys.argv[1:2] == ["--fleet-chaos-worker"]:
@@ -7999,6 +8351,7 @@ def main() -> int:
         p17 = phase17(card, device)
         p18 = phase18(card, device, *drills18, clock=clock)
         q_worst, _ = check_queued_inputs("phases 5-18")
+        p19 = phase19(card, device)
     finally:
         drills.stop()
         p18_drills.stop()
@@ -8029,12 +8382,15 @@ def main() -> int:
                fuzz_soak_path_launches=p16["launches"],
                operator_artifacts_path_launches=p17["launches"],
                chaos_drill_path_launches=p18["launches"],
+               envelope_examples_path_launches={
+                   k: v[0] for k, v in p19["launches"].items()},
                max_abs_err=max(worst, f_worst, c_worst, s_worst,
                                p9["drill"]["final"]["kernel_worst"],
                                p9["svc"]["worst"], p10["worst"],
                                p11["worst"], p12["worst"], p13["worst"],
                                p14["worst"], p15["worst"], p16["worst"],
-                               p17["worst"], p18["worst"], q_worst),
+                               p17["worst"], p18["worst"], q_worst,
+                               p19["worst"]),
                ms=results["a"]["ms"],
                device_ms=results["a"]["device_ms"], plain_ms=results["a"]["plain_ms"],
                bound_ms=results["a"]["bound_ms"],
@@ -8045,8 +8401,11 @@ def main() -> int:
                     library_ms=None, checked=True,
                     T=sizes["sim_scan_t"][0],
                     chaos_drill_path_launches=p18["k5_launches"],
+                    envelope_examples_path_launches={
+                        k: v[1] for k, v in p19["launches"].items()},
                     **p10["hawkes_row"])
-    print(f"chip_smoke [{card}]: phases 1-18 in "
+    scan_row["max_abs_err"] = max(scan_row["max_abs_err"], p19["scan_worst"])
+    print(f"chip_smoke [{card}]: phases 1-19 in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [row, scan_row]}))
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,14 @@ contracts are the reference's, so the families whose subject exists in
 the port are ported with the reference's rule ids, messages,
 fingerprints and SARIF output:
 
+  GL2xx  dtype envelope    — the engine's device entries run once under a
+                             TorchDispatchMode that records every aten op:
+                             float64 anywhere (GL201), floats in the integer
+                             matching envelope (GL202), a book value wider
+                             than the declared dtype (GL203, on a value
+                             taint that tells values from PyTorch's int64
+                             indexes); K1 and K5 audited at their boundary
+                             (analysis.envelope; the CLI's --traced)
   GL4xx  lock-discipline   — `# guarded by self._lock` annotations enforced
                              lexically (analysis.locks); the opt-in runtime
                              assertion mode lives in analysis.runtime
@@ -32,14 +40,15 @@ fingerprints and SARIF output:
                              (GL906, pure JSON; analysis.surface)
 
 The other families of the reference have no subject here and are not
-ported: GL1xx (host leaks inside jit/pallas-traced code), GL2xx (the
-jaxpr dtype envelope and the generator audit), GL3xx (jit wrappers that
-bypass the compile cache) and GL6xx (buffer donation) — the port traces
-nothing and donates nothing; of GL8xx, GL801, GL804 and GL806 (partition
-specs, donation across shardings, the jaxpr-derived shard manifest).
+ported: GL1xx (host leaks inside jit/pallas-traced code), GL3xx (jit
+wrappers that bypass the compile cache) and GL6xx (buffer donation) — the
+port traces nothing into a compiled graph and donates nothing; of GL8xx,
+GL801, GL804 and GL806 (partition specs, donation across shardings, the
+jaxpr-derived shard manifest).
 
-Run it via ``python -m gome_tpu_torch.analysis gome_tpu_torch`` or
-programmatically through :func:`run_paths`. Only findings NOT in the
+Run it via ``python -m gome_tpu_torch.analysis gome_tpu_torch
+[--traced [--device cpu]]`` or programmatically through :func:`run_paths`
+and ``envelope.check_engine_envelope``. Only findings NOT in the
 committed ``gome_tpu_torch/analysis/baseline.json`` fail the gate.
 Suppress one line with a trailing ``# gomelint: disable=GL501`` comment,
 or a whole file with ``# gomelint: disable-file=GL501`` on any line (see

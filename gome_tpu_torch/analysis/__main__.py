@@ -6,10 +6,17 @@
     python -m gome_tpu_torch.analysis gome_tpu_torch --update-baseline
     python -m gome_tpu_torch.analysis gome_tpu_torch --update-universe
     python -m gome_tpu_torch.analysis gome_tpu_torch --journal export.json
+    python -m gome_tpu_torch.analysis gome_tpu_torch --traced [--dtype int64]
+    python -m gome_tpu_torch.analysis gome_tpu_torch --traced --device cpu
     python -m gome_tpu_torch.analysis --list-rules
 
-The port of ``scripts/gomelint.py``'s AST flags (the reference's jaxpr
-audits have no counterpart here; see ``analysis/__init__.py``). Whenever
+The port of ``scripts/gomelint.py``. ``--traced`` is the port's name for
+the reference's ``--jaxpr``: it runs the GL2xx dtype envelope
+(``analysis/envelope.py``: the engine's device entries recorded op by op)
+beside the AST families, through the same suppressions, baseline, SARIF
+and --select, on the CUDA card unless ``--device cpu`` (without a card it
+stops with a usage error). The reference's other jaxpr audits have no
+subject here (see ``analysis/__init__.py``). Whenever
 the GL9 family runs (no --select, or one naming GL9), GL905 holds the
 port's engine bounds to the committed combo universe
 (``gome_tpu_torch/analysis/combo_universe.json``, override with
@@ -58,6 +65,14 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("paths", nargs="*", help="files or directories")
     ap.add_argument("--select", default="",
                     help="comma-separated rule ids/prefixes (GL4,GL501,...)")
+    ap.add_argument("--traced", action="store_true",
+                    help="also run the traced-engine audit: the GL2xx "
+                         "dtype envelope")
+    ap.add_argument("--dtype", default="int32", choices=("int32", "int64"),
+                    help="declared book dtype for the traced audit")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the traced audit runs the entries "
+                         "(default: the CUDA card)")
     ap.add_argument("--format", default="text",
                     choices=("text", "json", "sarif"))
     ap.add_argument("--report", default="",
@@ -91,6 +106,7 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.list_rules:
         _ensure_checkers_loaded()
+        from . import envelope  # noqa: F401 - registers GL2xx, no torch
         for rule, desc in rule_catalogue().items():
             print(f"{rule}  {desc}")
         return 0
@@ -107,8 +123,23 @@ def main(argv: list[str] | None = None) -> int:
               f"{len(universe['dimensions'])} dimension(s) -> "
               f"{args.universe}")
         return 0
+    traced = args.traced and (
+        not select or any(s.startswith("GL2") for s in select))
+    if traced:
+        from ..engine.book import resolve_device
+        try:
+            resolve_device(None if args.device == "cuda" else args.device)
+        except RuntimeError as exc:
+            ap.error(f"--traced: {exc}")
     findings = run_paths(args.paths, select or None,
                          keep_suppressed=args.show_suppressed)
+    if traced:
+        from .core import apply_file_suppressions
+        from .envelope import check_engine_envelope
+        found = check_engine_envelope(args.dtype, args.device)
+        if not args.show_suppressed:
+            found = apply_file_suppressions(found, root=ROOT)
+        findings.extend(found)
     if surface:
         from .surface import check_journal_escape, check_universe
         findings.extend(check_universe(args.universe))

@@ -4,9 +4,10 @@ The port of ``gome_tpu/analysis/core.py``: the same Finding, suppression
 grammar and runner, so a source gives the same findings (rule, line,
 column, message) under either package's families that both have. A
 *checker* is a function ``check(module: SourceModule) -> list[Finding]``
-registered in :data:`CHECKERS`. Every checker here is a pure AST pass:
-the port traces nothing, so the reference's jaxpr audits have no
-counterpart (see ``analysis/__init__.py``).
+registered in :data:`CHECKERS`. Every checker here is a pure AST pass;
+the one traced audit, GL2xx (``analysis/envelope.py``, the CLI's
+``--traced``), reports outside this pipeline and goes through
+:func:`apply_file_suppressions` (see ``analysis/__init__.py``).
 
 Suppression syntax (mirrors the familiar ``# noqa`` shape but namespaced,
 so ruff/flake8 never eat our directives and vice versa):
@@ -228,6 +229,31 @@ def iter_python_files(paths: list[str]) -> list[str]:
                     # order_pb2 is protoc output; generated code answers to
                     # protoc, not to this linter.
                     out.append(os.path.join(root, name))
+    return out
+
+
+def apply_file_suppressions(findings: list[Finding],
+                            root: str = "") -> list[Finding]:
+    """Drop findings silenced by ``# gomelint: disable`` directives in
+    their anchor files. The traced audit (GL2xx) produces findings
+    outside the module-checker pipeline, so the CLI routes them through
+    this to honor the same suppression syntax."""
+    cache: dict[str, SourceModule | None] = {}
+    out: list[Finding] = []
+    for f in findings:
+        path = f.path
+        if root and not os.path.isabs(path):
+            path = os.path.join(root, path)
+        if path not in cache:
+            try:
+                with open(path, encoding="utf-8") as fh:
+                    cache[path] = SourceModule(path, fh.read())
+            except (OSError, SyntaxError):
+                cache[path] = None
+        mod = cache[path]
+        if mod is not None and mod.suppressed(f.rule, f.line):
+            continue
+        out.append(f)
     return out
 
 

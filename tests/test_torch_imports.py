@@ -79,6 +79,9 @@ def test_port_files_were_found():
                  "obs_snapshot", "chaos", "fleet_chaos", "prepool_rate",
                  "marker_bench"):
         assert f"gome_tpu_torch/scripts/{name}.py" in PORT_FILES
+    for name in ("__init__", "embed", "migrate_from_gome", "sim_rollout"):
+        assert f"gome_tpu_torch/examples/{name}.py" in PORT_FILES
+    assert "gome_tpu_torch/analysis/envelope.py" in PORT_FILES
     assert len(PORT_FILES) > 10
 
 
@@ -137,7 +140,10 @@ def test_importing_the_port_loads_neither():
         "gome_tpu_torch.scripts.profile_consumer, "
         "gome_tpu_torch.scripts.chaos, gome_tpu_torch.scripts.fleet_chaos, "
         "gome_tpu_torch.scripts.prepool_rate, "
-        "gome_tpu_torch.scripts.marker_bench\n"
+        "gome_tpu_torch.scripts.marker_bench, "
+        "gome_tpu_torch.analysis.envelope, gome_tpu_torch.examples.embed, "
+        "gome_tpu_torch.examples.migrate_from_gome, "
+        "gome_tpu_torch.examples.sim_rollout\n"
         "bad = [m for m in sys.modules if m in ('jax', 'gome_tpu', 'bench', "
         "'scripts') or m.startswith(('jax.', 'gome_tpu.', 'scripts.'))]\n"
         "print(bad)\n"
